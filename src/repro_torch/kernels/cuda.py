@@ -1,0 +1,220 @@
+"""ctypes wrappers of the four CUDA kernels, with their launch counters.
+
+Each wrapper checks device, dtype, shape, contiguity and alignment and
+raises on anything its kernel does not take; allocates the output with
+``torch.empty``; launches on ``torch.cuda.current_stream()``; raises if the
+C launcher reports a CUDA error; and adds one to its counter in
+``LAUNCHES``.  Nothing else touches the counters, so a caller that zeroes
+them (``reset_launches``) before a run reads afterwards how often the run
+went through each kernel.  The libraries build on first use
+(``kernels/build.py``).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import build
+
+LAUNCHES: Dict[str, int] = {"quant_matmul": 0, "kv_decode_attention": 0,
+                            "flash_attention": 0, "lsq_fakequant": 0}
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_LL = ctypes.c_longlong
+_SIGNATURES = {
+    "quant_matmul": ("quant_matmul_launch",
+                     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "kv_decode_attention": ("kv_decode_attention_launch",
+                            [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _F, _P]),
+    "flash_attention": ("flash_attention_launch",
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         ctypes.POINTER(_LL), _I, _F, _P]),
+    "lsq_fakequant": ("lsq_fakequant_launch",
+                      [_P, _P, _LL, _P, _F, _I, _I, _P]),
+}
+_FNS: Dict[str, object] = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _fn(name: str):
+    if name not in _FNS:
+        symbol, argtypes = _SIGNATURES[name]
+        fn = getattr(build.load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
+    return _FNS[name]
+
+
+def _launch(name: str, *args) -> None:
+    err = _fn(name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
+                           f"({torch.cuda.get_device_name()})")
+    LAUNCHES[name] += 1
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _on_card(name: str, *tensors: torch.Tensor) -> torch.device:
+    dev = tensors[0].device
+    for t in tensors:
+        _require(t.is_cuda and t.device == dev,
+                 f"{name}: every operand must lie on one CUDA device, got "
+                 f"{[str(x.device) for x in tensors]}")
+    return dev
+
+
+def lsq_fakequant(x: torch.Tensor, step, bits) -> torch.Tensor:
+    """Fake-quantize a contiguous float32/bf16 tensor; ``step`` is a 0-d
+    float32 tensor on the same device or a Python float, ``bits`` an
+    integer bit-width."""
+    _on_card("lsq_fakequant", x)
+    _require(x.dtype in _DTYPE_CODE, f"lsq_fakequant: x must be float32 or "
+             f"bfloat16, got {x.dtype}")
+    _require(x.is_contiguous(), "lsq_fakequant: x must be contiguous")
+    b = int(round(float(bits)))
+    _require(b == float(bits) and 1 <= b <= 16,
+             f"lsq_fakequant: bits must be an integer in [1, 16], got {bits}")
+    if isinstance(step, torch.Tensor):
+        _on_card("lsq_fakequant", x, step)
+        _require(step.dtype == torch.float32 and step.numel() == 1,
+                 "lsq_fakequant: a tensor step must be one float32 value")
+        step_ptr, step_val = step.data_ptr(), 0.0
+    else:
+        step_ptr, step_val = None, float(step)
+    out = torch.empty_like(x)
+    _launch("lsq_fakequant", x.data_ptr(), out.data_ptr(), x.numel(),
+            step_ptr, step_val, b, _DTYPE_CODE[x.dtype], _stream())
+    return out
+
+
+def quant_matmul(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
+                 bits: int) -> torch.Tensor:
+    """x (M, K) @ K-major packed codes (K/pack, N) * scale (N,) -> (M, N)
+    in x's dtype.  K must be the packed K (a multiple of 8 // bits)."""
+    _on_card("quant_matmul", x, wp, scale)
+    _require(bits in (2, 4), f"quant_matmul: bits must be 2 or 4, got {bits}")
+    _require(x.dtype in _DTYPE_CODE, f"quant_matmul: x must be float32 or "
+             f"bfloat16, got {x.dtype}")
+    _require(wp.dtype == torch.uint8 and scale.dtype == torch.float32,
+             "quant_matmul: wp must be uint8 and scale float32")
+    _require(x.ndim == 2 and wp.ndim == 2 and scale.ndim == 1,
+             f"quant_matmul: need x (M, K), wp (K/pack, N), scale (N,), got "
+             f"{tuple(x.shape)}, {tuple(wp.shape)}, {tuple(scale.shape)}")
+    m, k = x.shape
+    kp, n = wp.shape
+    _require(kp * (8 // bits) == k and scale.shape[0] == n,
+             f"quant_matmul: x {tuple(x.shape)} does not match wp "
+             f"{tuple(wp.shape)} at {bits} bits / scale {tuple(scale.shape)}")
+    _require(x.is_contiguous() and wp.is_contiguous()
+             and scale.is_contiguous(), "quant_matmul: operands must be "
+             "contiguous")
+    _require(wp.data_ptr() % 4 == 0, "quant_matmul: wp must be 4-byte "
+             "aligned")
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    _launch("quant_matmul", x.data_ptr(), wp.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), m, n, k, bits, _DTYPE_CODE[x.dtype], _stream())
+    return out
+
+
+def kv_decode_attention(q: torch.Tensor, kq: torch.Tensor,
+                        k_scale: torch.Tensor, vq: torch.Tensor,
+                        v_scale: torch.Tensor, positions: torch.Tensor,
+                        bits: int) -> torch.Tensor:
+    """One-query decode attention over an int8 / packed-int4 cache ->
+    (B, H, D) float32.  positions (B,) int32 must be >= 0."""
+    _on_card("kv_decode_attention", q, kq, k_scale, vq, v_scale, positions)
+    _require(bits in (4, 8), f"kv_decode_attention: bits must be 4 or 8, "
+             f"got {bits}")
+    _require(q.dtype in _DTYPE_CODE, f"kv_decode_attention: q must be "
+             f"float32 or bfloat16, got {q.dtype}")
+    b, h, d = q.shape
+    _require(d in (64, 128), f"kv_decode_attention: head_dim must be 64 or "
+             f"128, got {d}")
+    code = torch.int8 if bits == 8 else torch.uint8
+    _require(kq.dtype == code and vq.dtype == code,
+             f"kv_decode_attention: {bits}-bit codes must be {code}")
+    _, s, hkv, dp = kq.shape
+    _require(kq.shape == (b, s, hkv, d if bits == 8 else d // 2)
+             and vq.shape == kq.shape,
+             f"kv_decode_attention: bad code shapes {tuple(kq.shape)}, "
+             f"{tuple(vq.shape)} for q {tuple(q.shape)}")
+    _require(hkv > 0 and h % hkv == 0, f"kv_decode_attention: H={h} is not "
+             f"a multiple of Hkv={hkv}")
+    _require(tuple(k_scale.shape) == (b, hkv, d)
+             and tuple(v_scale.shape) == (b, s, hkv)
+             and k_scale.dtype == torch.float32
+             and v_scale.dtype == torch.float32,
+             "kv_decode_attention: k_scale must be (B, Hkv, D) and v_scale "
+             "(B, S, Hkv), float32")
+    _require(tuple(positions.shape) == (b,) and positions.dtype == torch.int32,
+             "kv_decode_attention: positions must be (B,) int32")
+    ts = (q, kq, k_scale, vq, v_scale, positions)
+    _require(all(t.is_contiguous() for t in ts),
+             "kv_decode_attention: operands must be contiguous")
+    _require(kq.data_ptr() % 4 == 0 and vq.data_ptr() % 4 == 0,
+             "kv_decode_attention: code buffers must be 4-byte aligned")
+    out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
+    if b == 0 or s == 0:
+        return out.zero_()
+    _launch("kv_decode_attention", q.data_ptr(), _DTYPE_CODE[q.dtype],
+            kq.data_ptr(), k_scale.data_ptr(), vq.data_ptr(),
+            v_scale.data_ptr(), positions.data_ptr(), out.data_ptr(),
+            b, h, s, hkv, d, bits, d ** -0.5, _stream())
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """q (B, H, S, D), k/v (B, Hkv, S, D) bf16, head_dim contiguous (any
+    batch/head/sequence strides) -> (B, H, S, D) bf16 with q's strides."""
+    _on_card("flash_attention", q, k, v)
+    _require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
+             "flash_attention: q, k, v must be bfloat16")
+    _require(q.ndim == 4 and k.shape == v.shape and k.ndim == 4,
+             "flash_attention: need q (B, H, S, D) and k, v (B, Hkv, S, D)")
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    _require(k.shape[0] == b and k.shape[2] == s and k.shape[3] == d,
+             f"flash_attention: k/v {tuple(k.shape)} do not match q "
+             f"{tuple(q.shape)} (self-attention needs equal lengths)")
+    _require(hkv > 0 and h % hkv == 0, f"flash_attention: H={h} is not a "
+             f"multiple of Hkv={hkv}")
+    _require(d in (64, 128), f"flash_attention: head_dim must be 64 or 128, "
+             f"got {d}")
+    out = torch.empty_like(q)
+    ts = (q, k, v, out)
+    _require(all(t.stride(3) == 1 for t in ts),
+             "flash_attention: head_dim must be contiguous")
+    strides = [t.stride(i) for t in ts for i in range(3)]
+    _require(all(st % 8 == 0 for st in strides)
+             and all(t.data_ptr() % 16 == 0 for t in ts),
+             "flash_attention: strides must be multiples of 8 elements and "
+             "bases 16-byte aligned")
+    if b == 0 or s == 0:
+        return out
+    arr = (_LL * 12)(*strides)
+    _launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), b, h, hkv, s, d, arr, int(causal), d ** -0.5,
+            _stream())
+    return out

@@ -12,3 +12,9 @@ import pytest
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the PyTorch port's hand-written "
+        "kernels); skips with the reason stated where there is none")

@@ -1,0 +1,281 @@
+"""Port kernels: each plain PyTorch version (repro_torch/kernels/ref.py)
+against the JAX Pallas kernel in interpret mode and the JAX oracle, on the
+same numpy inputs; plus CUDA-only cases of each hand-written kernel against
+its plain version, which skip without a card.
+
+Tolerances: integer outputs and lsq exact; float outputs within
+1e-5 * max|ref| (float32, different summation orders)."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+REL = 1e-5
+
+
+def _close(got, want, rel=REL):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    err = np.abs(got - want).max()
+    assert err <= rel * np.abs(want).max(), (err, np.abs(want).max())
+
+
+@pytest.fixture
+def jax_side():
+    pytest.importorskip("jax")
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+    return jops, jref
+
+
+def _t(a):
+    return torch.as_tensor(np.asarray(a))
+
+
+# ------------------------------------------------------------ lsq_fakequant
+@pytest.mark.parametrize("shape", [(33,), (4, 7, 64)])
+@pytest.mark.parametrize("bits", [2.0, 4.0, 8.0])
+def test_lsq_fakequant_exact(jax_side, shape, bits):
+    jops, jref = jax_side
+    import jax.numpy as jnp
+    x = np.random.default_rng(0).normal(size=shape).astype(np.float32)
+    # ties: values at exact half steps must round half to even
+    x.reshape(-1)[:4] = np.float32(0.1) * np.array([0.5, 1.5, 2.5, -0.5],
+                                                    np.float32)
+    step = np.float32(0.1)
+    want = np.asarray(jops.lsq_fakequant(jnp.asarray(x), jnp.float32(step),
+                                         bits, impl="interpret"))
+    got = tops.lsq_fakequant(_t(x), _t(step), bits).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, np.asarray(jref.lsq_fakequant(jnp.asarray(x), jnp.float32(step),
+                                           jnp.float32(bits))))
+
+
+# ------------------------------------------------------------- quant_matmul
+@pytest.mark.parametrize("bits", [4, 2])
+@pytest.mark.parametrize("m,k,n", [(3, 64, 40), (8, 256, 128)])
+def test_quant_matmul_ref_matches_pallas(jax_side, bits, m, k, n):
+    jops, jref = jax_side
+    import jax.numpy as jnp
+    rng = np.random.default_rng(1)
+    lo, hi = -(1 << (bits - 1)), (1 << (bits - 1)) - 1
+    codes = rng.integers(lo, hi + 1, size=(k, n))
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    scale = rng.uniform(0.01, 0.1, size=(n,)).astype(np.float32)
+    jpack = jref.pack_w4 if bits == 4 else jref.pack_w2
+    tpack = tref.pack_w4 if bits == 4 else tref.pack_w2
+    wp = np.asarray(jpack(jnp.asarray(codes)))
+    np.testing.assert_array_equal(tpack(_t(codes)).numpy(), wp)
+    tunpack = tref.unpack_w4 if bits == 4 else tref.unpack_w2
+    np.testing.assert_array_equal(tunpack(_t(wp), torch.float32).numpy(),
+                                  codes)
+    # ragged M and N: the Pallas kernel runs on tile-multiple shapes, the
+    # port's plain version (and CUDA kernel) on the ragged ones directly
+    want = np.asarray(jops.quant_matmul(jnp.asarray(x), jnp.asarray(wp),
+                                        jnp.asarray(scale), bits,
+                                        impl="interpret", bm=m, bn=n,
+                                        bk=k))
+    f = tref.quant_matmul_w4 if bits == 4 else tref.quant_matmul_w2
+    got = f(_t(x), _t(wp), _t(scale)).numpy()
+    _close(got, want)
+    jf = jref.quant_matmul_w4 if bits == 4 else jref.quant_matmul_w2
+    _close(got, jf(jnp.asarray(x), jnp.asarray(wp), jnp.asarray(scale)))
+    # the CPU serving path: dequantize then matmul (JAX's CPU op order)
+    _close(tref.dequant_matmul(_t(x), _t(wp), _t(scale), bits).numpy(),
+           jref.dequant_matmul(jnp.asarray(x), jnp.asarray(wp),
+                               jnp.asarray(scale), bits))
+
+
+# ------------------------------------------------------ kv_decode_attention
+def _kv_inputs(bits, b=3, s=24, hkv=2, group=2, d=32, seed=2):
+    from repro_torch.kernels import kv_quant
+    rng = np.random.default_rng(seed)
+    h = hkv * group
+    q = rng.normal(size=(b, h, d)).astype(np.float32)
+    k = torch.as_tensor(rng.normal(size=(b, s, hkv, d)).astype(np.float32))
+    v = torch.as_tensor(rng.normal(size=(b, s, hkv, d)).astype(np.float32))
+    lengths = torch.tensor([s, 5, 11], dtype=torch.int32)[:b]
+    qc = kv_quant.quantize_prefill({"k": k, "v": v}, lengths, bits)
+    # one slot off range (an inactive slot pinned at max_seq)
+    positions = np.array([s, 4, 10], np.int32)[:b]
+    return q, {kk: vv.numpy() for kk, vv in qc.items()}, positions
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_kv_decode_ref_matches_pallas(jax_side, bits):
+    jops, jref = jax_side
+    import jax.numpy as jnp
+    q, c, pos = _kv_inputs(bits)
+    args = (q, c["kq"], c["k_scale"], c["vq"], c["v_scale"], pos)
+    want = np.asarray(jops.kv_cache_attention(
+        *[jnp.asarray(a) for a in args], bits, impl="interpret"))
+    got = tops.kv_cache_attention(*[_t(a) for a in args], bits).numpy()
+    assert got.dtype == np.float32
+    _close(got, want)
+    _close(got, jref.kv_cache_attention(*[jnp.asarray(a) for a in args],
+                                        bits))
+
+
+# ---------------------------------------------------------- flash_attention
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [1, 2])
+def test_flash_ref_matches_pallas(jax_side, causal, group):
+    jops, jref = jax_side
+    import jax.numpy as jnp
+    rng = np.random.default_rng(3)
+    b, hkv, s, d = 2, 2, 32, 32
+    q = rng.normal(size=(b, hkv * group, s, d)).astype(np.float32)
+    k = rng.normal(size=(b, hkv, s, d)).astype(np.float32)
+    v = rng.normal(size=(b, hkv, s, d)).astype(np.float32)
+    want = np.asarray(jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                           jnp.asarray(v), causal=causal,
+                                           impl="interpret", bq=16, bk=16))
+    got = tops.flash_attention(_t(q), _t(k), _t(v), causal=causal).numpy()
+    _close(got, want)
+
+
+def test_chunked_attention_matches_jax(jax_side):
+    """The port's CPU prefill attention (ragged S: pad rows masked)."""
+    import jax.numpy as jnp
+    from repro.models import attention as jattn
+    from repro_torch.models import attention as tattn
+    rng = np.random.default_rng(4)
+    q, k, v = (rng.normal(size=(2, 40, 4, 32)).astype(np.float32)
+               for _ in range(3))
+    chunk = 16
+    n = -(-40 // chunk)
+    kp = jnp.pad(jnp.asarray(k), ((0, 0), (0, n * chunk - 40), (0, 0),
+                                  (0, 0)))
+    vp = jnp.pad(jnp.asarray(v), ((0, 0), (0, n * chunk - 40), (0, 0),
+                                  (0, 0)))
+
+    def kv_fn(i):
+        import jax
+        return (jax.lax.dynamic_slice_in_dim(kp, i * chunk, chunk, axis=1),
+                jax.lax.dynamic_slice_in_dim(vp, i * chunk, chunk, axis=1))
+
+    want = np.asarray(jattn.chunked_attention(jnp.asarray(q), kv_fn, n, chunk,
+                                              causal=True))
+    got = tattn.chunked_attention(_t(q), _t(k), _t(v), chunk, True).numpy()
+    _close(got, want)
+
+
+# ---------------------------------------------------- CUDA kernel vs plain
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels run only "
+                    "on the card (run `python3 chip_smoke.py` there)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 2])
+@pytest.mark.parametrize("m", [1, 5, 16, 17, 100])
+def test_cuda_quant_matmul(card, bits, m):
+    from repro_torch.kernels import cuda
+    g = torch.Generator(card).manual_seed(0)
+    k, n = 512, 200
+    lo, hi = -(1 << (bits - 1)), (1 << (bits - 1))
+    codes = torch.randint(lo, hi, (k, n), generator=g, device=card)
+    wp = (tref.pack_w4 if bits == 4 else tref.pack_w2)(codes)
+    x = torch.randn((m, k), generator=g, device=card).to(torch.bfloat16)
+    scale = torch.rand((n,), generator=g, device=card) * 0.1 + 0.01
+    got = cuda.quant_matmul(x, wp, scale, bits).float()
+    f = tref.quant_matmul_w4 if bits == 4 else tref.quant_matmul_w2
+    want = f(x, wp, scale)
+    ulp = 2.0 ** -7 * want.abs().max()          # 1 bf16 ulp of max|ref|
+    assert (got - want).abs().max() <= ulp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_cuda_kv_decode(card, bits):
+    from repro_torch.kernels import cuda
+    q, c, pos = _kv_inputs(bits, d=64)
+    args = [torch.as_tensor(a).to(card) for a in
+            (q, c["kq"], c["k_scale"], c["vq"], c["v_scale"], pos)]
+    got = cuda.kv_decode_attention(*args, bits)
+    want = tref.kv_cache_attention(*args, bits)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash(card, causal):
+    from repro_torch.kernels import cuda
+    g = torch.Generator(card).manual_seed(1)
+    q = torch.randn((2, 4, 100, 64), generator=g, device=card).bfloat16()
+    k = torch.randn((2, 2, 100, 64), generator=g, device=card).bfloat16()
+    v = torch.randn((2, 2, 100, 64), generator=g, device=card).bfloat16()
+    got = cuda.flash_attention(q, k, v, causal=causal).float()
+    # the plain version in float32: in bf16 its scores round to bf16
+    # before the softmax, which costs it more than the kernel's error
+    want = tops.flash_attention(q.float(), k.float(), v.float(),
+                                causal=causal, impl="ref")
+    assert (got - want).abs().max() <= 1e-2 * want.abs().max()
+    # each query row too: late causal rows are far smaller than max|ref|
+    row = torch.linalg.vector_norm(got - want, dim=-1)
+    assert (row <= 1e-2 * torch.linalg.vector_norm(want, dim=-1)).all()
+
+
+@pytest.mark.cuda
+def test_cuda_lsq_exact(card):
+    from repro_torch.kernels import cuda
+    g = torch.Generator(card).manual_seed(2)
+    x = torch.randn((3, 1000), generator=g, device=card).bfloat16()
+    step = torch.tensor(0.05, device=card)
+    for bits in (2, 4, 8):
+        torch.testing.assert_close(cuda.lsq_fakequant(x, step, bits),
+                                   tref.lsq_fakequant(x, step, bits),
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_never_falls_back(card):
+    """ops on a CUDA tensor launch the kernel (the counter moves)."""
+    from repro_torch.kernels import cuda
+    before = cuda.LAUNCHES["lsq_fakequant"]
+    tops.lsq_fakequant(torch.ones(8, device=card), 0.1, 4)
+    assert cuda.LAUNCHES["lsq_fakequant"] == before + 1
+
+
+def test_wrappers_refuse_cpu_tensors():
+    from repro_torch.kernels import cuda
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda.lsq_fakequant(torch.ones(4), 0.1, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda.flash_attention(*(torch.ones(1, 1, 8, 64, dtype=torch.bfloat16)
+                               for _ in range(3)))
+    with pytest.raises(ValueError, match="impl"):
+        tops.use_kernel(torch.ones(1), "pallas")
+
+
+@pytest.mark.parametrize("bits", [4, 2])
+def test_packed_matmul_pads_ragged_k(bits):
+    """K not divisible by the pack factor: the activations are zero-padded
+    to the packed K, whose padding rows hold zero codes."""
+    from repro_torch.core import quant
+    rng = np.random.default_rng(5)
+    w = _t(rng.normal(size=(67, 24)).astype(np.float32) * 0.1)
+    p = quant.pack_linear(w, 0.03, 0.5, bits)
+    assert p.k_padded == 68 and p.k_dim == 67
+    x = _t(rng.normal(size=(3, 67)).astype(np.float32))
+    got = tops.packed_matmul(x, p).numpy()
+    want = (x.double() @ quant.packed_weight_dense(p).double()).numpy()
+    _close(got, want)
+    with pytest.raises(ValueError, match="K=66"):
+        tops.packed_matmul(x[:, :66], p)
+
+
+def test_nvcc_missing_raises(monkeypatch, tmp_path):
+    from repro_torch.kernels import build
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.nvcc_path()

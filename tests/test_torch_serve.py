@@ -1,0 +1,327 @@
+"""The port's serving path against the JAX package on the CPU: the JAX
+raw param tree loads through ``from_jax_params``, packs byte-equal to the
+reference, prefills to the same logits and decodes the same greedy tokens.
+
+The greedy ladder mirrors tests/test_serve.py (its prompts: seed 16 for
+uniform int4, 17 for the mixed policy, 20 for the quantized caches).
+Token equality between two numerics stacks rests on ulp-level agreement:
+XLA's fused jit contracts multiply-adds and orders its reductions unlike
+PyTorch, and on exact rounding ties (frequent in the int4 KV quantizer,
+whose inputs are sums of small integer products) that decides a code.  The
+port matches the reference on these prompts; the prompts on which the
+int4 cache diverges are listed in ROADMAP Queue 3 — ``python
+tests/test_torch_serve.py`` reprints that table.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro import configs  # noqa: E402
+from repro.core import knapsack as jk  # noqa: E402
+from repro.models import transformer as jtf  # noqa: E402
+from repro.parallel.context import local_context  # noqa: E402
+from repro.serve import EngineSpec as JSpec  # noqa: E402
+from repro.serve import ServeEngine as JEngine  # noqa: E402
+from repro.serve import pack_params as jpack  # noqa: E402
+from repro_torch.configs import olmo_1b  # noqa: E402
+from repro_torch.convert import from_jax_params  # noqa: E402
+from repro_torch.core import knapsack as tk  # noqa: E402
+from repro_torch.core.quant import PackedLinear  # noqa: E402
+from repro_torch.models import transformer as ttf  # noqa: E402
+from repro_torch.serve import EngineSpec, ServeEngine, pack_params  # noqa: E402
+
+MAX_SEQ = 64
+CACHES = [("full", 8), ("quantized", 8), ("quantized", 4)]
+PROMPT_SEED = {("uniform", "full"): 16, ("mixed", "full"): 17}
+
+
+def _make_setup():
+    jcfg = configs.get_config("olmo-1b").smoke()
+    cfg = olmo_1b.config().smoke()
+    jparams = jtf.init_params(jcfg, jax.random.PRNGKey(0))
+    tparams = from_jax_params(jax.tree.map(np.asarray, jparams), device="cpu")
+    jpol, tpol = jtf.build_policy(jcfg), ttf.build_policy(cfg)
+    jtake = jk.select_for_budget(jpol, jk.synthetic_gains(jpol), 0.7).take
+    ttake = tk.select_for_budget(tpol, tk.synthetic_gains(tpol), 0.7).take
+    arrays = {"uniform": (jpol.as_arrays(), tpol.as_arrays()),
+              "mixed": (jpol.apply_selection(jtake).as_arrays(),
+                        tpol.apply_selection(ttake).as_arrays())}
+    return {"jcfg": jcfg, "cfg": cfg, "jparams": jparams, "tparams": tparams,
+            "arrays": arrays, "jengines": {}}
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _make_setup()
+
+
+def _prompt(policy, cache):
+    seed = PROMPT_SEED.get((policy, cache), 20)
+    rows = 2 if seed == 16 else 1
+    return np.random.default_rng(seed).integers(0, 512, (rows, 12)).astype(
+        np.int32)
+
+
+def _jax_engine(setup, policy, cache, bits):
+    key = (policy, cache, bits)
+    if key not in setup["jengines"]:
+        ja = setup["arrays"][policy][0]
+        setup["jengines"][key] = JEngine(
+            cfg=setup["jcfg"], params=jpack(setup["jparams"], ja,
+                                            setup["jcfg"]),
+            policy_arrays=jax.tree.map(jnp.asarray, ja), ctx=local_context(),
+            max_seq=MAX_SEQ, spec=JSpec(weights="packed", cache=cache,
+                                        cache_bits=bits))
+    return setup["jengines"][key]
+
+
+def _port_engine(setup, policy, cache, bits):
+    ta = setup["arrays"][policy][1]
+    params = pack_params(setup["tparams"], ta, setup["cfg"], device="cpu")
+    return ServeEngine(setup["cfg"], params, ta, MAX_SEQ,
+                       EngineSpec(cache=cache, cache_bits=bits),
+                       device="cpu")
+
+
+def _compare_packed(j, t, path=""):
+    if isinstance(t, PackedLinear):
+        assert (t.bits, t.k_dim) == (j.bits, j.k_dim), path
+        np.testing.assert_array_equal(t.wp.numpy(), np.asarray(j.wp), path)
+        np.testing.assert_array_equal(t.scale.numpy(), np.asarray(j.scale),
+                                      path)
+        np.testing.assert_array_equal(t.sa.numpy(), np.asarray(j.sa), path)
+        return 1
+    if isinstance(t, dict):
+        assert set(t) == set(j), path
+        return sum(_compare_packed(j[k], t[k], f"{path}/{k}") for k in t)
+    if isinstance(t, list):
+        assert len(t) == len(j), path
+        return sum(_compare_packed(a, b, f"{path}[{i}]")
+                   for i, (a, b) in enumerate(zip(j, t)))
+    np.testing.assert_array_equal(t.numpy(), np.asarray(j), path)
+    return 1
+
+
+def test_from_jax_params_layout(setup):
+    tp, jp = setup["tparams"], setup["jparams"]
+    assert len(tp["pat"]) == setup["cfg"].n_repeats
+    for r, layer in enumerate(tp["pat"]):
+        w = layer["p0"]["mlp"]["down"]["w"]
+        np.testing.assert_array_equal(
+            w.numpy(), np.asarray(jp["pat"]["p0"]["mlp"]["down"]["w"])[r])
+    np.testing.assert_array_equal(tp["embed"]["w"].numpy(),
+                                  np.asarray(jp["embed"]["w"]))
+
+
+@pytest.mark.parametrize("policy", ["uniform", "mixed"])
+def test_pack_params_byte_equal(setup, policy):
+    ja, ta = setup["arrays"][policy]
+    want = jpack(setup["jparams"], ja, setup["jcfg"], layout="unrolled")
+    got = pack_params(setup["tparams"], ta, setup["cfg"], device="cpu")
+    assert _compare_packed(want, got) > 0
+    bits = {p.bits for layer in got["pat"] for blk in layer.values()
+            for grp in (blk["attn"], blk["mlp"]) for p in grp.values()}
+    assert bits == ({4} if policy == "uniform" else {2, 4})
+
+
+def test_weight_bytes(setup):
+    """bf16 bytes count every packed projection and the int8 embedding at
+    2 bytes per weight; the packed tree is smaller by the bit-widths."""
+    from repro_torch.serve import packing
+    cfg = setup["cfg"]
+    ta = setup["arrays"]["mixed"][1]
+    got = pack_params(setup["tparams"], ta, cfg, device="cpu")
+    n_proj = (cfg.d_model * cfg.head_dim * (cfg.n_heads + 2 * cfg.n_kv_heads)
+              + cfg.n_heads * cfg.head_dim * cfg.d_model
+              + 3 * cfg.d_model * cfg.d_ff)
+    want = 2 * (cfg.vocab * cfg.d_model + cfg.n_repeats * n_proj)
+    assert packing.bf16_weight_bytes(got) == want
+    assert packing.resident_weight_bytes(got) < want // 2
+
+
+@pytest.mark.parametrize("policy", ["uniform", "mixed"])
+def test_prefill_logits_match(setup, policy):
+    """Prefill logits within 1e-4 * max|logit| of the JAX packed engine
+    (float32; the engines differ in summation order only)."""
+    prompt = np.random.default_rng(7).integers(0, 512, (2, 12)).astype(
+        np.int32)
+    lengths = np.array([12, 7], np.int32)
+    je = _jax_engine(setup, policy, "full", 8)
+    want, jpre = je.prefill(jnp.asarray(prompt), jnp.asarray(lengths))
+    te = _port_engine(setup, policy, "full", 8)
+    got, tpre = te.prefill(torch.as_tensor(prompt), torch.as_tensor(lengths))
+    want = np.asarray(want)
+    assert np.abs(got.numpy() - want).max() <= 1e-4 * np.abs(want).max()
+    jk_ = np.asarray(jax.tree.leaves(jpre)[0])   # first layer's K (bucketed)
+    tk_ = tpre["pat"][0]["p0"]["k"].numpy()
+    assert np.abs(tk_ - jk_[0]).max() <= 1e-4 * np.abs(jk_).max()
+
+
+@pytest.mark.parametrize("cache,bits", CACHES[:2])
+@pytest.mark.parametrize("policy", ["uniform", "mixed"])
+def test_greedy_ladder_matches_jax(setup, policy, cache, bits):
+    """16 greedy tokens equal to the JAX packed engine's (full and int8
+    caches)."""
+    prompt = _prompt(policy, cache)
+    want = np.asarray(_jax_engine(setup, policy, cache, bits).generate(
+        jnp.asarray(prompt), n_new=16))
+    got = _port_engine(setup, policy, cache, bits).generate(prompt, 16)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("policy", ["uniform", "mixed"])
+def test_int4_cache_ladder(setup, policy):
+    """The int4-cache rows of the ladder.  Token equality with JAX is a
+    recorded miss (ROADMAP Queue 3): the int4 quantizer meets exact
+    rounding ties that ulp-level differences decide.  What holds: the
+    spliced int4 cache dequantizes to within one code step of the
+    reference's, the first token (cache-free prefill) is JAX's, and the
+    engine equals the port's own stepwise decode over the same cache."""
+    from repro.serve import kv_cache as jkv
+    from repro_torch.serve import kv_cache as tkv
+    prompt = _prompt(policy, "quantized")
+    je = _jax_engine(setup, policy, "quantized", 4)
+    te = _port_engine(setup, policy, "quantized", 4)
+    lengths = np.array([prompt.shape[1]], np.int32)
+    jlast, jpre = je.prefill(jnp.asarray(prompt))
+    tlast, tpre = te.prefill(torch.as_tensor(prompt))
+    jc = jkv.splice_prefill(je.new_cache(1), jpre, jnp.asarray(lengths))
+    tc = tkv.splice_prefill(te.new_cache(1), tpre, torch.as_tensor(lengths))
+    jleaves = jax.tree.leaves(jc.layers)       # bucketed: (1, ...) stacks
+    for r in range(setup["cfg"].n_repeats):
+        got = tc.layers["pat"][r]["p0"]
+        want = {k: np.concatenate([np.asarray(a) for a in jleaves[i::4]])[r]
+                for i, k in enumerate(sorted(got))}
+        for kind in ("k", "v"):
+            deq = getattr(tkv.kvq, f"dequant_{kind}")
+            a = deq(got[f"{kind}q"], got[f"{kind}_scale"], 4).numpy()
+            b = deq(torch.as_tensor(want[f"{kind}q"]),
+                    torch.as_tensor(want[f"{kind}_scale"]), 4).numpy()
+            step = np.abs(want[f"{kind}_scale"]).max()
+            assert np.abs(a - b).max() <= 1.001 * step, (r, kind)
+    assert int(np.argmax(np.asarray(jlast)[0])) == int(tlast[0].argmax())
+    tokens = te.generate(prompt, 16)[0]
+    tok = tokens[:1][None]
+    for i in range(1, 16):
+        tc, logits = te.decode_step(tc, tok)
+        tok = logits.argmax(-1, keepdim=True)
+        assert int(tok) == int(tokens[i]), i
+
+
+@pytest.mark.parametrize("cache,bits", [("full", 8), ("quantized", 4)])
+def test_batched_unequal_prompts_equal_solo(setup, cache, bits):
+    engine = _port_engine(setup, "mixed", cache, bits)
+    rng = np.random.default_rng(6)
+    toks = np.zeros((2, 16), np.int32)
+    toks[0, :10] = rng.integers(0, 512, 10)
+    toks[1, :16] = rng.integers(0, 512, 16)
+    out = engine.generate(toks, 16, lengths=[10, 16]).numpy()
+    solo0 = engine.generate(toks[:1], 16, lengths=[10]).numpy()
+    solo1 = engine.generate(toks[1:], 16).numpy()
+    np.testing.assert_array_equal(out[0], solo0[0])
+    np.testing.assert_array_equal(out[1], solo1[0])
+
+
+def test_cache_write_drops_inactive_rows():
+    """A decode write lands at each request's own position; a position at
+    or past S_max (an inactive slot) leaves its row untouched."""
+    from repro_torch.models.attention import cache_write
+    cache = torch.zeros((3, 4, 2))
+    new = torch.arange(1, 7, dtype=torch.float32).reshape(3, 1, 2)
+    cache_write(cache, new, torch.tensor([[0], [3], [4]]))
+    want = torch.zeros((3, 4, 2))
+    want[0, 0] = new[0, 0]
+    want[1, 3] = new[1, 0]
+    assert torch.equal(cache, want)
+
+
+def test_unported_options_raise(setup):
+    from repro_torch.serve.sampling import SamplerConfig
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        EngineSpec(cache_layout="paged").validate()
+    with pytest.raises(NotImplementedError, match="item 11"):
+        EngineSpec(sampler=SamplerConfig("top_k", top_k=4)).validate()
+    with pytest.raises(NotImplementedError, match="item 5"):
+        EngineSpec(weights="fake_quant").validate()
+    for kw in ({"mesh": object()}, {"draft": object()},
+               {"prefill_chunk": 4}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            EngineSpec(**kw).validate()
+    ta = setup["arrays"]["uniform"][1]
+    with pytest.raises(ValueError, match="packed"):
+        ServeEngine(setup["cfg"], setup["tparams"], ta, MAX_SEQ,
+                    device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            pack_params(setup["tparams"], ta, setup["cfg"])
+
+
+def test_chip_smoke_check_runs_on_cpu(setup):
+    """chip_smoke.py's end-to-end check at smoke size on the CPU, where the
+    kernel path and the plain path are one code path: every reading covers
+    the prefill and each decode step (of every block), the kernel path's
+    read 0, and the control (float64 prefill attention) stays finite."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    cfg, ta = setup["cfg"], setup["arrays"]["mixed"][1]
+    packed = pack_params(setup["tparams"], ta, cfg, device="cpu")
+    lengths = np.array([5, 9, 12], np.int32)
+    tokens = np.random.default_rng(8).integers(0, 512, (3, 12))
+    res = chip_smoke.phase_check(cfg, packed, ta, torch.device("cpu"),
+                                 tokens, lengths, n_decode=3)
+    for bits in (8, 4):
+        r = res[bits]
+        for key in ("rel_logit_err", "control_rel_logit_err",
+                    "one_block_rel_logit_err"):
+            assert len(r[key]) == 4
+        assert [len(row) for row in r["block_rel_rms_err"]] == \
+            [cfg.n_repeats] * 4
+        assert max(r["rel_logit_err"]) == 0.0
+        assert max(r["one_block_rel_logit_err"]) == 0.0
+        assert max(max(row) for row in r["block_rel_rms_err"]) == 0.0
+        assert np.isfinite(r["control_rel_logit_err"]).all()
+
+
+def divergence_table(seeds=range(1, 11)):
+    """(policy, cache, bits, seed, first differing step or None, the
+    port's logit margin for its token over JAX's there) for (1, 12)
+    prompts; reproduces the ROADMAP Queue 3 entry."""
+    from repro_torch.serve import kv_cache
+    st = _make_setup()
+    rows = []
+    for policy in ("uniform", "mixed"):
+        for cache, bits in CACHES:
+            te = _port_engine(st, policy, cache, bits)
+            for seed in seeds:
+                prompt = np.random.default_rng(seed).integers(
+                    0, 512, (1, 12)).astype(np.int32)
+                want = np.asarray(_jax_engine(st, policy, cache, bits)
+                                  .generate(jnp.asarray(prompt), n_new=16))[0]
+                got = te.generate(prompt, 16).numpy()[0]
+                diff = np.flatnonzero(got != want)
+                if not diff.size:
+                    rows.append((policy, cache, bits, seed, None, None))
+                    continue
+                step = int(diff[0])
+                # replay the port on the shared prefix to read its logits
+                logit, pre = te.prefill(torch.as_tensor(prompt))
+                state = kv_cache.splice_prefill(te.new_cache(1), pre,
+                                                torch.tensor([12]))
+                for tok in want[:step]:
+                    state, logit = te.decode_step(
+                        state, torch.tensor([[int(tok)]]))
+                logit = logit[0].numpy()
+                rows.append((policy, cache, bits, seed, step,
+                             float(logit[got[step]] - logit[want[step]])))
+    return rows
+
+
+if __name__ == "__main__":
+    for row in divergence_table():
+        print(*row)
