@@ -5,16 +5,22 @@
 
 Phases, in order; any failure exits non-zero:
   1. device  - the card's name and power limit (nvidia-smi); no card fails.
-  2. build   - nvcc builds the four kernels from src/repro_torch/csrc into
+  2. build   - nvcc builds the kernels from src/repro_torch/csrc into
                build/kernels/ (parallel, one process per source).
-  3. kernels - each kernel against its plain PyTorch version at the main
-               path's shapes, with its tolerance, kernel / plain / library
-               times (CUDA events, warm-up excluded, L2 flushed) and bound.
-  4. serve   - olmo-1b at full width, weights drawn on the card from seed 0,
-               knapsack-mixed 4/2 packed (budget 0.7), 8 prompts of 128-512
-               tokens right-padded to 512, 64 new tokens, max_seq 1024, over
-               an int8 and an int4 KV cache; counts every kernel's launches;
-               a torch.profiler breakdown of one prefill and 8 decode steps.
+  3. kernels - each of the six kernels against its plain PyTorch version at
+               the main path's shapes, with its tolerance, kernel / plain /
+               library times (CUDA events, warm-up excluded, L2 flushed) and
+               bound; the paged decode also bit for bit against the
+               contiguous kernel on the gathered cache.
+  select     - EAGL gains of olmo-1b at full width, weights drawn on the
+               card from seed 0, through the histogram kernel and through
+               impl="ref" (the same knapsack take), and the 4/2 mix the
+               knapsack takes from them at budget 0.7.
+  4. serve   - that mix packed, 8 prompts of 128-512 tokens right-padded to
+               512, 64 new tokens, max_seq 1024, over an int8 and an int4
+               KV cache, contiguous and paged (page 16; the same tokens);
+               counts every kernel's launches; a torch.profiler breakdown
+               of one prefill and 8 decode steps.
   5. check   - kernel path against the plain path (impl="ref") on the same
                weights, teacher-forced with the kernel path's tokens over
                the prefill and 16 decode steps, beside a control: the plain
@@ -49,9 +55,10 @@ TPU_SOURCES = {
     "kv_decode_attention": "src/repro/kernels/flash_attention.py:131",
     "flash_attention": "src/repro/kernels/flash_attention.py:318",
     "lsq_fakequant": "src/repro/kernels/lsq_fakequant.py:31",
+    "histogram": "src/repro/kernels/entropy_hist.py:37",
+    "paged_kv_decode_attention": "src/repro/kernels/flash_attention.py:237",
 }
-CUDA_SOURCES = {name: f"src/repro_torch/csrc/{name}.cu"
-                for name in TPU_SOURCES}
+PAGE = 16                        # the paged serve runs' page size
 
 
 def log(*args):
@@ -291,6 +298,147 @@ def check_lsq(timer, dev, gen):
     return cases[1], cases
 
 
+def check_histogram(timer, dev, gen):
+    """EAGL's histogram at the largest olmo-1b tensor (2048 x 8192 codes of
+    normal weights quantized at 4 and 2 bits), and a ragged length with
+    negatives and the sentinel n_bins.  Exact against the plain version;
+    timed against torch.bincount on the in-range codes."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import cuda, ref
+    cases = []
+    w = torch.randn((2048 * 8192,), generator=gen, device=dev) * 0.02
+    for n_bins in (16, 4):
+        bits = float(n_bins.bit_length() - 1)
+        step = quant.init_step_from_tensor(w, bits)
+        codes = (quant.quantize_int(w, step, bits) + n_bins // 2).to(
+            torch.int32)
+        cases.append((n_bins, codes))
+    ragged = torch.randint(-3, 16 + 3, (1_000_003,), generator=gen,
+                           device=dev, dtype=torch.int32)
+    cases.append((16, ragged))
+    out = []
+    for n_bins, codes in cases:
+        got = cuda.histogram(codes, n_bins)
+        want = ref.histogram(codes, n_bins)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        kept = codes[(codes >= 0) & (codes < n_bins)]
+        n = codes.numel()
+        rec = {"n": n, "n_bins": n_bins, "max_abs_err": err, "tol": 0.0,
+               "ok": err == 0.0 and float(got.sum()) == kept.numel(),
+               "ms": timer(lambda: cuda.histogram(codes, n_bins)),
+               "plain_ms": timer(lambda: ref.histogram(codes, n_bins)),
+               "library_ms": timer(lambda: torch.bincount(
+                   kept, minlength=n_bins))}
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            4.0 * n + 4.0 * n_bins, float(n), F32_OPS_PER_S)
+        log(f"  histogram n={n} bins={n_bins}: err {err} (exact) "
+            f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}, bincount "
+            f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} "
+            f"({rec['bound_by']})")
+        out.append(rec)
+    return out[0], out
+
+
+def paged_case(gen, dev, bits, b, h, hkv, d, n, page, pos):
+    """A quantized cache of n * page rows a slot, and the same rows in
+    shuffled pools: each slot maps the pages its position needs, the table
+    past them holds stale ids and -1, the free pages hold garbage codes and
+    NaN V scales.  Returns (q, contiguous cache, (kq, vq, v_scale) pools,
+    tbl)."""
+    from repro_torch.kernels import kv_quant
+    s = n * page
+    k = torch.randn((b, s, hkv, d), generator=gen, device=dev)
+    v = torch.randn((b, s, hkv, d), generator=gen, device=dev)
+    qc = kv_quant.quantize_prefill({"k": k, "v": v}, torch.full(
+        (b,), s, dtype=torch.int32, device=dev), bits)
+    p = b * n + 32
+    perm = torch.randperm(p, generator=gen, device=dev).to(torch.int32)
+    pools = [torch.randint(-128 if bits == 8 else 0, 128 if bits == 8
+                           else 256, (p, page) + tuple(qc[key].shape[2:]),
+                           generator=gen, device=dev).to(qc[key].dtype)
+             for key in ("kq", "vq")]
+    pools.append(torch.full((p, page, hkv), float("nan"), device=dev))
+    tbl = torch.randint(0, p, (b, n), generator=gen, device=dev,
+                        dtype=torch.int32)
+    tbl[:, 1::2] = -1
+    for i in range(b):
+        npg = int(pos[i]) // page + 1
+        ids = perm[i * n:i * n + npg]
+        tbl[i, :npg] = ids
+        for pool, key in zip(pools, ("kq", "vq", "v_scale")):
+            pool[ids.long()] = qc[key][i, :npg * page].reshape(
+                (npg, page) + tuple(qc[key].shape[2:]))
+    q = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    return q, qc, pools, tbl
+
+
+def check_paged_kv_decode(timer, dev, gen):
+    """The paged decode at the serve shapes (B = 8, D = 128, page 16, 64
+    pages a slot, positions up to 1023), int8 and int4, and GQA 16/4:
+    bit for bit the contiguous kernel on the gathered cache, within
+    1e-4 * max|ref| of the plain version, finite over NaN-poisoned free
+    pages.  Timed against SDPA on the dequantized bf16 cache (no
+    gather)."""
+    from repro_torch.kernels import cuda, kv_quant, ref
+    b, d, n, page = 8, 128, 64, PAGE
+    s = n * page
+    pos = torch.tensor([int(x) for x in np.linspace(100, s - 1, b)],
+                       dtype=torch.int32, device=dev)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cases = []
+    for bits, h, hkv in ((8, 16, 16), (4, 16, 16), (4, 16, 4)):
+        q, qc, (kqp, vqp, vsp), tbl = paged_case(gen, dev, bits, b, h, hkv,
+                                                 d, n, page, pos)
+        args = (q, kqp, qc["k_scale"], vqp, vsp, tbl, pos)
+        got = cuda.paged_kv_decode_attention(*args, bits)
+        gathered = (q, kv_quant.gather_pages(kqp, tbl), qc["k_scale"],
+                    kv_quant.gather_pages(vqp, tbl),
+                    kv_quant.gather_pages(vsp, tbl), pos)
+        contiguous = cuda.kv_decode_attention(*gathered, bits)
+        want = ref.paged_kv_cache_attention(*args, bits)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = 1e-4 * float(want.abs().max())
+        same = bool(torch.equal(got, contiguous))
+        kd = kv_quant.dequant_k(qc["kq"], qc["k_scale"], bits,
+                                torch.bfloat16).transpose(1, 2)
+        vd = kv_quant.dequant_v(qc["vq"], qc["v_scale"], bits,
+                                torch.bfloat16).transpose(1, 2)
+        mask = (torch.arange(s, device=dev)[None, :] <= pos[:, None])[
+            :, None, None, :]
+        rec = {"bits": bits, "b": b, "h": h, "hkv": hkv, "d": d,
+               "page": page, "pages_per_slot": n, "max_abs_err": err,
+               "tol": tol, "equals_contiguous_kernel": same,
+               "ok": err <= tol and same and bool(torch.isfinite(got).all()),
+               "ms": timer(lambda: cuda.paged_kv_decode_attention(*args,
+                                                                  bits)),
+               "contiguous_ms": timer(lambda: cuda.kv_decode_attention(
+                   *gathered, bits)),
+               "plain_ms": timer(lambda: ref.paged_kv_cache_attention(
+                   *args, bits)),
+               "library_ms": timer(lambda: sdpa(q[:, :, None], kd, vd,
+                                                 attn_mask=mask,
+                                                 enable_gqa=hkv != h))}
+        rows = int(pos.sum()) + b
+        dp = d if bits == 8 else d // 2
+        pages_read = int((pos // page + 1).sum())
+        nb = (b * h * d * 2 + rows * hkv * (2 * dp + 4) + b * hkv * d * 4
+              + pages_read * 4 + b * 4 + b * h * d * 4)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            nb, 4.0 * rows * (h * d), F32_OPS_PER_S)
+        log(f"  paged_kv_decode_attention int{bits} B={b} H={h} Hkv={hkv} "
+            f"D={d} page={page} x{n}: err {err:.3g} (tol {tol:.3g}), equal "
+            f"to the contiguous kernel: {same}; {rec['ms']:.4f} ms "
+            f"(contiguous {rec['contiguous_ms']:.4f}), plain "
+            f"{rec['plain_ms']:.4f}, SDPA on dequantized bf16 "
+            f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} "
+            f"({rec['bound_by']})")
+        cases.append(rec)
+        del q, qc, kqp, vqp, vsp, tbl, args, gathered, kd, vd
+    return cases[0], cases
+
+
 # ---------------------------------------------------------------- main path
 def make_prompts(cfg, rng):
     lengths = np.linspace(128, 512, 8).astype(np.int32)
@@ -323,92 +471,207 @@ def device_breakdown(fn, top: int = 10) -> dict:
     busy_us = sum(r[1] for r in rows)
     return {"wall_ms": wall_us / 1e3, "device_ms": busy_us / 1e3,
             "idle_share": 1.0 - busy_us / wall_us if wall_us else None,
+            # each one a point where the host waited for the device
+            "dtoh_copies": sum(n for k, _, n in rows
+                               if k.startswith("Memcpy DtoH")),
+            "device_ops": sum(n for _, _, n in rows),
             "top": [{"kernel": k[:90], "ms": us / 1e3, "count": n}
                     for k, us, n in rows[:top]]}
 
 
 def log_breakdown(what: str, rec: dict) -> None:
     log(f"    profile {what}: wall {rec['wall_ms']:.2f} ms, device busy "
-        f"{rec['device_ms']:.2f} ms, idle share {rec['idle_share']:.3f}")
+        f"{rec['device_ms']:.2f} ms, idle share {rec['idle_share']:.3f}, "
+        f"{rec['device_ops']} device ops, {rec['dtoh_copies']} "
+        f"device-to-host copies")
     for row in rec["top"][:6]:
         log(f"      {row['ms']:9.3f} ms  x{row['count']:<5d} {row['kernel']}")
 
 
-def phase_serve(cfg, packed, pa, dev, tokens, lengths):
+def phase_select(cfg, raw, dev):
+    """EAGL gains of every selectable unit, through the histogram kernel
+    (the launches are counted) and through impl="ref"; the knapsack take at
+    budget 0.7 from each.  The counts are exact on both paths, so the gains
+    agree to float32 rounding and the takes are equal.  Returns the mixed
+    policy and the record."""
+    from repro_torch.core import knapsack
+    from repro_torch.core.metrics import eagl_gains
     from repro_torch.kernels import cuda
-    from repro_torch.serve import EngineSpec, ServeEngine, kv_cache
+    from repro_torch.models import transformer as tf
+    policy = tf.build_policy(cfg)
+
+    def fetch(u, t):
+        return tf.fetch_unit_tensor(raw, u, t)
+
+    def timed(impl):
+        sync(dev)
+        t0 = time.perf_counter()
+        gains = eagl_gains(policy, fetch, impl=impl)
+        sync(dev)
+        return gains, time.perf_counter() - t0
+
+    cuda.reset_launches()
+    gains, wall = timed("auto")
+    launches = dict(cuda.LAUNCHES)
+    plain, plain_wall = timed("ref")
+    rel = max(abs(gains[k] - plain[k]) / max(abs(plain[k]), 1e-30)
+              for k in gains)
+    sel = knapsack.select_for_budget(policy, gains, budget_frac=0.7)
+    sel_ref = knapsack.select_for_budget(policy, plain, budget_frac=0.7)
+    mixed = policy.apply_selection(sel.take)
+    units = policy.selectable_units()
+    n4 = sum(mixed.bits_of(u.name) == 4.0 for u in units)
+    n2 = sum(mixed.bits_of(u.name) == 2.0 for u in units)
+    rec = {"units": len(units), "tensors": sum(len(u.tensors) for u in units),
+           "wall_s": wall, "plain_wall_s": plain_wall, "launches": launches,
+           "gains_max_rel_diff": rel, "take_equal": sel.take == sel_ref.take,
+           "n4": n4, "n2": n2, "gains": gains,
+           "mix": {u.name: mixed.bits_of(u.name) for u in units}}
+    log(f"  EAGL over {rec['units']} units ({rec['tensors']} tensors): "
+        f"{wall:.2f} s through the histogram kernel, {plain_wall:.2f} s "
+        f"plain; gains agree to {rel:.3g} relative, takes equal: "
+        f"{rec['take_equal']}")
+    log(f"  knapsack at budget 0.7 on the EAGL gains: {n4} units at 4 bits, "
+        f"{n2} at 2 bits: " + " ".join(
+            f"{name.replace('pat0.', '')}={int(b)}"
+            for name, b in rec["mix"].items()))
+    log("  the weights are random (seed 0), so this mix says nothing about "
+        "which layers of a trained OLMo-1B need 4 bits")
+    if not (rel <= 1e-6 and rec["take_equal"]):
+        raise RuntimeError(f"EAGL through the kernel disagrees with "
+                           f"impl='ref': max relative gain difference {rel}, "
+                           f"takes equal {rec['take_equal']}")
+    if not (n4 and n2):
+        raise RuntimeError("the knapsack did not select a 4/2 mix")
+    return mixed, rec
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+# the kernels each serve path must launch, and those it must not
+SERVE_PATHS = {
+    "contiguous": ({"quant_matmul", "kv_decode_attention", "flash_attention",
+                    "lsq_fakequant"}, {"paged_kv_decode_attention"}),
+    "paged": ({"quant_matmul", "paged_kv_decode_attention",
+               "flash_attention", "lsq_fakequant"}, {"kv_decode_attention"}),
+}
+
+
+def phase_serve(cfg, packed, pa, dev, tokens, lengths):
+    from repro_torch.serve import EngineSpec, ServeEngine
     runs = {}
     tok_t = torch.as_tensor(tokens, device=dev)
     len_t = torch.as_tensor(lengths, device=dev)
-    for bits in (8, 4):
-        engine = ServeEngine(cfg, packed, pa, max_seq=1024,
-                             spec=EngineSpec(cache="quantized",
-                                             cache_bits=bits), device=dev)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        cuda.reset_launches()
-        t0 = time.perf_counter()
-        out = engine.generate(tok_t, 64, lengths=lengths)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(cuda.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated()
-        if tuple(out.shape) != (8, 64) or out.dtype != torch.int32:
-            raise RuntimeError(f"generate returned {tuple(out.shape)} "
-                               f"{out.dtype}")
-        if int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
-            raise RuntimeError("generated token ids out of the vocabulary")
-        missing = [k for k, n in launches.items() if n == 0]
-        if missing:
-            raise RuntimeError(f"main path launched no {missing}")
-        # the breakdown: one prefill, then the decode steps, timed apart
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        last, pre = engine.prefill(tok_t, len_t)
-        cache = kv_cache.splice_prefill(engine.new_cache(8), pre, len_t)
-        torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
-        tok = last.argmax(-1, keepdim=True)
-        cuda.reset_launches()
-        cache, _ = engine.decode_step(cache, tok)
-        per_step = dict(cuda.LAUNCHES)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        cache, tok, _ = engine.decode_chunk_step(cache, tok, n_steps=62)
-        torch.cuda.synchronize()
-        decode_s = (time.perf_counter() - t0) / 62
-        cuda.reset_launches()
-        engine.prefill(tok_t, len_t)
-        per_prefill = dict(cuda.LAUNCHES)
-        prof = {"prefill": device_breakdown(
-                    lambda: engine.prefill(tok_t, len_t)),
-                "decode_8_steps": device_breakdown(
-                    lambda: engine.decode_chunk_step(cache, tok, n_steps=8))}
-        wb = engine.weight_bytes()
-        rec = {"cache_bits": bits, "generate_s": wall,
-               "tokens_per_s": 8 * 64 / wall, "prefill_ms": prefill_s * 1e3,
-               "decode_ms_per_step": decode_s * 1e3,
-               "launches": launches, "launches_per_prefill": per_prefill,
-               "launches_per_decode_step": per_step,
-               "weight_bytes_packed": wb["packed"],
-               "weight_bytes_bf16": wb["bf16"],
-               "kv_bytes": kv_cache.cache_bytes(cache),
-               "max_memory_allocated": peak, "profile": prof,
-               "first_tokens": out[:, :8].tolist()}
-        log(f"  serve int{bits} cache: generate 8x64 in {wall:.3f} s "
-            f"({rec['tokens_per_s']:.1f} tok/s), prefill "
-            f"{rec['prefill_ms']:.1f} ms, decode {rec['decode_ms_per_step']:.2f}"
-            f" ms/step, weights {wb['packed'] / 1e6:.1f} MB packed vs "
-            f"{wb['bf16'] / 1e6:.1f} MB bf16, KV {rec['kv_bytes'] / 1e6:.1f}"
-            f" MB, peak {peak / 1e9:.2f} GB")
-        log(f"    launches in generate: {launches}")
-        log(f"    per prefill: {per_prefill}; per decode step: {per_step}")
-        for what, brk in prof.items():
-            log_breakdown(what, brk)
-        runs[bits] = rec
-        # free this run's cache before the next run's peak is taken
-        del engine, cache, out, last, pre, tok
+    for layout, (need, never) in SERVE_PATHS.items():
+        for bits in (8, 4):
+            name = f"{layout}-int{bits}"
+            engine = ServeEngine(cfg, packed, pa, max_seq=1024,
+                                 spec=EngineSpec(cache="quantized",
+                                                 cache_bits=bits,
+                                                 cache_layout=layout,
+                                                 page_size=PAGE),
+                                 device=dev)
+            rec = serve_run(engine, cfg, tok_t, len_t, lengths)
+            launches = rec["launches"]
+            missing = sorted(k for k in need if launches[k] == 0)
+            stray = sorted(k for k in never if launches[k] != 0)
+            if missing or stray:
+                raise RuntimeError(f"{name}: the path launched no {missing}"
+                                   f" and launched {stray}")
+            step = rec["launches_per_decode_step"]
+            decode_kernel = ("paged_kv_decode_attention" if layout == "paged"
+                             else "kv_decode_attention")
+            if step[decode_kernel] != cfg.n_repeats:
+                raise RuntimeError(f"{name}: {step[decode_kernel]} "
+                                   f"{decode_kernel} launches per decode "
+                                   f"step, expected {cfg.n_repeats}")
+            if layout == "paged":
+                base = runs[f"contiguous-int{bits}"]
+                if rec["tokens"] != base["tokens"]:
+                    raise RuntimeError(f"{name}: tokens differ from the "
+                                       f"contiguous run's")
+                syncs = [r["profile"]["decode_8_steps"]["dtoh_copies"]
+                         for r in (rec, base)]
+                if syncs[0] > syncs[1]:
+                    raise RuntimeError(f"{name}: {syncs[0]} device-to-host "
+                                       f"copies in 8 decode steps, "
+                                       f"contiguous {syncs[1]}")
+            wb = engine.weight_bytes()
+            rec.update(weight_bytes_packed=wb["packed"],
+                       weight_bytes_bf16=wb["bf16"])
+            log(f"  serve {name} cache: generate 8x64 in "
+                f"{rec['generate_s']:.3f} s ({rec['tokens_per_s']:.1f} "
+                f"tok/s), prefill {rec['prefill_ms']:.1f} ms, decode "
+                f"{rec['decode_ms_per_step']:.2f} ms/step, weights "
+                f"{wb['packed'] / 1e6:.1f} MB packed vs {wb['bf16'] / 1e6:.1f}"
+                f" MB bf16, KV {rec['kv_bytes'] / 1e6:.1f} MB, peak "
+                f"{rec['max_memory_allocated'] / 1e9:.2f} GB")
+            log(f"    launches in generate: {launches}")
+            log(f"    per prefill: {rec['launches_per_prefill']}; per decode "
+                f"step: {step}")
+            for what, brk in rec["profile"].items():
+                log_breakdown(what, brk)
+            if layout == "paged":
+                log(f"    tokens equal to the contiguous int{bits} run's")
+            runs[name] = rec
+            # free this run's cache before the next run's peak is taken
+            del engine
+            torch.cuda.empty_cache()
     return runs
+
+
+def serve_run(engine, cfg, tok_t, len_t, lengths):
+    """One engine: generate 8 x 64 with the launches counted, then one
+    prefill and the decode steps timed apart, and their profiles."""
+    from repro_torch.kernels import cuda
+    from repro_torch.serve import kv_cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    out = engine.generate(tok_t, 64, lengths=lengths)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(out.shape) != (8, 64) or out.dtype != torch.int32:
+        raise RuntimeError(f"generate returned {tuple(out.shape)} "
+                           f"{out.dtype}")
+    if int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
+        raise RuntimeError("generated token ids out of the vocabulary")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, pre = engine.prefill(tok_t, len_t)
+    cache = engine.splice_prefill(pre, len_t)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok = last.argmax(-1, keepdim=True)
+    cuda.reset_launches()
+    cache, _ = engine.decode_step(cache, tok)
+    per_step = dict(cuda.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, tok, _ = engine.decode_chunk_step(cache, tok, n_steps=62)
+    torch.cuda.synchronize()
+    decode_s = (time.perf_counter() - t0) / 62
+    cuda.reset_launches()
+    engine.prefill(tok_t, len_t)
+    per_prefill = dict(cuda.LAUNCHES)
+    prof = {"prefill": device_breakdown(
+                lambda: engine.prefill(tok_t, len_t)),
+            "decode_8_steps": device_breakdown(
+                lambda: engine.decode_chunk_step(cache, tok, n_steps=8))}
+    return {"generate_s": wall, "tokens_per_s": 8 * 64 / wall,
+            "prefill_ms": prefill_s * 1e3,
+            "decode_ms_per_step": decode_s * 1e3, "launches": launches,
+            "launches_per_prefill": per_prefill,
+            "launches_per_decode_step": per_step,
+            "kv_bytes": kv_cache.cache_bytes(cache),
+            "max_memory_allocated": peak, "profile": prof,
+            "tokens": out.tolist()}
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -470,7 +733,7 @@ def teacher_forced(cfg, packed, pa, dev, tok_t, len_t, bits, n_decode):
     blocks."""
     from repro_torch.models import attention as attn
     from repro_torch.models import transformer as tf
-    from repro_torch.serve import EngineSpec, ServeEngine, kv_cache
+    from repro_torch.serve import EngineSpec, ServeEngine
     spec = EngineSpec(cache="quantized", cache_bits=bits)
     engines = {name: ServeEngine(cfg, packed, pa, 1024, spec, device=dev,
                                  impl=impl)
@@ -489,7 +752,7 @@ def teacher_forced(cfg, packed, pa, dev, tok_t, len_t, bits, n_decode):
     logits, caches = {}, {}
     for name, eng in engines.items():
         last, pre = run(name, eng.prefill, tok_t, len_t)
-        caches[name] = kv_cache.splice_prefill(eng.new_cache(b), pre, len_t)
+        caches[name] = eng.splice_prefill(pre, len_t)
         logits[name] = [last]
     for step in range(n_decode + 1):
         blocks.append(errs[:])
@@ -591,7 +854,6 @@ def main():
     smi_line = phase_device()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import olmo_1b
-    from repro_torch.core import knapsack
     from repro_torch.kernels import cuda
     from repro_torch.models import transformer as tf
     from repro_torch.serve import pack_params
@@ -604,7 +866,10 @@ def main():
     checks = {"quant_matmul": check_quant_matmul(timer, dev, gen),
               "kv_decode_attention": check_kv_decode(timer, dev, gen),
               "flash_attention": check_flash(timer, dev, gen),
-              "lsq_fakequant": check_lsq(timer, dev, gen)}
+              "lsq_fakequant": check_lsq(timer, dev, gen),
+              "histogram": check_histogram(timer, dev, gen),
+              "paged_kv_decode_attention": check_paged_kv_decode(timer, dev,
+                                                                 gen)}
     bad = [(name, c) for name, (_, cases) in checks.items() for c in cases
            if not c["ok"]]
     if bad:
@@ -614,35 +879,37 @@ def main():
     torch.cuda.empty_cache()
 
     cfg = olmo_1b.config()
-    log(f"serve: {cfg.name} d_model={cfg.d_model} layers={cfg.n_repeats} "
+    log(f"select: {cfg.name} d_model={cfg.d_model} layers={cfg.n_repeats} "
         f"heads={cfg.n_heads} d_ff={cfg.d_ff} vocab={cfg.vocab}")
     t0 = time.perf_counter()
     raw = tf.init_params(cfg, seed=0, device=dev)
-    policy = tf.build_policy(cfg)
-    sel = knapsack.select_for_budget(policy, knapsack.synthetic_gains(policy),
-                                     budget_frac=0.7)
-    mixed = policy.apply_selection(sel.take)
+    mixed, select = phase_select(cfg, raw, dev)
+    if select["launches"]["histogram"] != select["tensors"]:
+        raise RuntimeError(f"EAGL launched the histogram kernel "
+                           f"{select['launches']['histogram']} times for "
+                           f"{select['tensors']} tensors")
     pa = mixed.as_arrays()
-    n4 = sum(mixed.bits_of(u.name) == 4.0 for u in policy.selectable_units())
-    n2 = sum(mixed.bits_of(u.name) == 2.0 for u in policy.selectable_units())
     packed = pack_params(raw, pa, cfg, device=dev)
     del raw
     torch.cuda.synchronize()
-    log(f"  knapsack at budget 0.7: {n4} units at 4 bits, {n2} at 2 bits; "
-        f"init + pack {time.perf_counter() - t0:.1f} s")
-    if not (n4 and n2):
-        raise RuntimeError("the knapsack did not select a 4/2 mix")
+    log(f"  init + select + pack {time.perf_counter() - t0:.1f} s")
     tokens, lengths = make_prompts(cfg, np.random.default_rng(0))
+    log("serve:")
     runs = phase_serve(cfg, packed, pa, dev, tokens, lengths)
     log("check (kernel path vs plain path):")
     check = phase_check(cfg, packed, pa, dev, tokens, lengths)
 
+    # each kernel's launches on the path that runs it
+    launches = dict(runs["contiguous-int8"]["launches"])
+    launches["paged_kv_decode_attention"] = \
+        runs["paged-int8"]["launches"]["paged_kv_decode_attention"]
+    launches["histogram"] = select["launches"]["histogram"]
     kernels = []
     for name, (head, _) in checks.items():
         kernels.append({
-            "name": name, "route": "cuda", "source": CUDA_SOURCES[name],
-            "replaces": TPU_SOURCES[name],
-            "launches": runs[8]["launches"][name],
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{cuda.source_of(name)}.cu",
+            "replaces": TPU_SOURCES[name], "launches": launches[name],
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"]})
@@ -650,7 +917,7 @@ def main():
     with open(OUT / "chip_smoke.json", "w") as f:
         json.dump({"device": smi_line, "build_s": build_s,
                    "kernels": {k: cases for k, (_, cases) in checks.items()},
-                   "serve": runs, "check": check,
+                   "select": select, "serve": runs, "check": check,
                    "launch_counts_after": dict(cuda.LAUNCHES)}, f, indent=1)
     log(smi_line)
     log(json.dumps({"kernels": kernels}))

@@ -1,10 +1,11 @@
-"""Load the JAX package's raw QAT param tree into the port's layout.
+"""Load the JAX package's raw QAT param tree, or a serving cache, into the
+port's layout.
 
 The JAX model stacks the repeat pattern on a leading ``n_repeats`` axis
-under ``"pat"``; the port keeps a per-layer list.  ``from_jax_params``
-takes the tree as numpy arrays (``jax.tree.map(np.asarray, params)``, so
-this module never needs JAX) and returns torch tensors on ``device``;
-``serve.packing.pack_params`` then packs it in the port.
+under ``"pat"``; the port keeps a per-layer list.  Both functions take the
+tree as numpy arrays (``jax.tree.map(np.asarray, tree)``, so this module
+never needs JAX) and return torch tensors on ``device``;
+``serve.packing.pack_params`` then packs the params in the port.
 """
 from __future__ import annotations
 
@@ -43,6 +44,23 @@ def from_jax_params(tree: dict, device="cuda") -> dict:
         else:
             out[key] = _map(node, lambda a: _tensor(a, dev))
     return out
+
+
+def from_jax_cache(layers: dict, lengths, block_tbl=None, device="cuda"):
+    """A JAX serving cache -> the port's ``ServeCache``, or its
+    ``PagedServeCache`` when ``block_tbl`` is given.  ``layers`` is the
+    cache's layer tree with numpy leaves and ``"pat"`` stacked on a leading
+    layer axis (a bucketed JAX cache concatenated along it)."""
+    from repro_torch.serve.kv_cache import ServeCache
+    from repro_torch.serve.paging import PagedServeCache
+    dev = resolve_device(device)
+    tree = from_jax_params(layers, dev)
+    lengths = _tensor(np.asarray(lengths, np.int32), dev)
+    if block_tbl is None:
+        return ServeCache(layers=tree, lengths=lengths)
+    return PagedServeCache(layers=tree, lengths=lengths,
+                           block_tbl=_tensor(np.asarray(block_tbl, np.int32),
+                                             dev))
 
 
 def _leaves(node):

@@ -1,4 +1,4 @@
-"""ctypes wrappers of the four CUDA kernels, with their launch counters.
+"""ctypes wrappers of the CUDA kernels, with their launch counters.
 
 Each wrapper checks device, dtype, shape, contiguity and alignment and
 raises on anything its kernel does not take; allocates the output with
@@ -19,7 +19,10 @@ import torch
 from repro_torch.kernels import build
 
 LAUNCHES: Dict[str, int] = {"quant_matmul": 0, "kv_decode_attention": 0,
-                            "flash_attention": 0, "lsq_fakequant": 0}
+                            "flash_attention": 0, "lsq_fakequant": 0,
+                            "histogram": 0, "paged_kv_decode_attention": 0}
+HIST_MAX_BINS = 4096            # the kernel's shared-memory counters
+PAGED_MAX_PAGES = 8192          # table entries a slot stages in shared memory
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
@@ -37,7 +40,21 @@ _SIGNATURES = {
                          ctypes.POINTER(_LL), _I, _F, _P]),
     "lsq_fakequant": ("lsq_fakequant_launch",
                       [_P, _P, _LL, _P, _F, _I, _I, _P]),
+    "histogram": ("histogram_launch", [_P, _LL, _I, _P, _P, _P]),
+    "paged_kv_decode_attention": ("paged_kv_decode_attention_launch",
+                                  [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                                   _I, _I, _I, _I, _I, _I, _I, _F, _P]),
 }
+_SHARED_SOURCE = {"histogram": "entropy_hist",
+                  "paged_kv_decode_attention": "kv_decode_attention"}
+
+
+def source_of(name: str) -> str:
+    """The ``csrc/*.cu`` source (and ``build.SOURCES`` library) that holds
+    a kernel's launcher."""
+    return _SHARED_SOURCE.get(name, name)
+
+
 _FNS: Dict[str, object] = {}
 
 
@@ -49,7 +66,7 @@ def reset_launches() -> None:
 def _fn(name: str):
     if name not in _FNS:
         symbol, argtypes = _SIGNATURES[name]
-        fn = getattr(build.load(name), symbol)
+        fn = getattr(build.load(source_of(name)), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _FNS[name] = fn
@@ -137,43 +154,71 @@ def quant_matmul(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
     return out
 
 
+def histogram(codes: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """Counts of int32 codes in [0, n_bins) -> (n_bins,) float32; codes
+    outside the range fall in no bin.  codes: contiguous, 16-byte
+    aligned, any length."""
+    _on_card("histogram", codes)
+    _require(codes.dtype == torch.int32 and codes.ndim == 1,
+             f"histogram: codes must be (n,) int32, got "
+             f"{tuple(codes.shape)} {codes.dtype}")
+    _require(1 <= n_bins <= HIST_MAX_BINS, f"histogram: n_bins must be in "
+             f"[1, {HIST_MAX_BINS}], got {n_bins}")
+    _require(codes.is_contiguous() and codes.data_ptr() % 16 == 0,
+             "histogram: codes must be contiguous and 16-byte aligned")
+    counts = torch.empty((n_bins,), dtype=torch.int32, device=codes.device)
+    out = torch.empty((n_bins,), dtype=torch.float32, device=codes.device)
+    _launch("histogram", codes.data_ptr(), codes.numel(), n_bins,
+            counts.data_ptr(), out.data_ptr(), _stream())
+    return out
+
+
+def _check_decode_operands(name, q, kq, vq, k_scale, bits):
+    """The operands both decode kernels share; returns (b, h, d, hkv)."""
+    _require(bits in (4, 8), f"{name}: bits must be 4 or 8, got {bits}")
+    _require(q.dtype in _DTYPE_CODE, f"{name}: q must be float32 or "
+             f"bfloat16, got {q.dtype}")
+    _require(q.ndim == 3 and kq.ndim == 4, f"{name}: need q (B, H, D) and "
+             f"4-d code buffers, got {tuple(q.shape)}, {tuple(kq.shape)}")
+    b, h, d = q.shape
+    _require(d in (64, 128), f"{name}: head_dim must be 64 or 128, got {d}")
+    code = torch.int8 if bits == 8 else torch.uint8
+    _require(kq.dtype == code and vq.dtype == code,
+             f"{name}: {bits}-bit codes must be {code}")
+    hkv = kq.shape[2]
+    _require(kq.shape[3] == (d if bits == 8 else d // 2)
+             and vq.shape == kq.shape,
+             f"{name}: bad code shapes {tuple(kq.shape)}, {tuple(vq.shape)} "
+             f"for q {tuple(q.shape)}")
+    _require(hkv > 0 and h % hkv == 0, f"{name}: H={h} is not a multiple "
+             f"of Hkv={hkv}")
+    _require(tuple(k_scale.shape) == (b, hkv, d)
+             and k_scale.dtype == torch.float32,
+             f"{name}: k_scale must be (B, Hkv, D) float32")
+    _require(kq.data_ptr() % 4 == 0 and vq.data_ptr() % 4 == 0,
+             f"{name}: code buffers must be 4-byte aligned")
+    return b, h, d, hkv
+
+
 def kv_decode_attention(q: torch.Tensor, kq: torch.Tensor,
                         k_scale: torch.Tensor, vq: torch.Tensor,
                         v_scale: torch.Tensor, positions: torch.Tensor,
                         bits: int) -> torch.Tensor:
     """One-query decode attention over an int8 / packed-int4 cache ->
     (B, H, D) float32.  positions (B,) int32 must be >= 0."""
-    _on_card("kv_decode_attention", q, kq, k_scale, vq, v_scale, positions)
-    _require(bits in (4, 8), f"kv_decode_attention: bits must be 4 or 8, "
-             f"got {bits}")
-    _require(q.dtype in _DTYPE_CODE, f"kv_decode_attention: q must be "
-             f"float32 or bfloat16, got {q.dtype}")
-    b, h, d = q.shape
-    _require(d in (64, 128), f"kv_decode_attention: head_dim must be 64 or "
-             f"128, got {d}")
-    code = torch.int8 if bits == 8 else torch.uint8
-    _require(kq.dtype == code and vq.dtype == code,
-             f"kv_decode_attention: {bits}-bit codes must be {code}")
-    _, s, hkv, dp = kq.shape
-    _require(kq.shape == (b, s, hkv, d if bits == 8 else d // 2)
-             and vq.shape == kq.shape,
-             f"kv_decode_attention: bad code shapes {tuple(kq.shape)}, "
-             f"{tuple(vq.shape)} for q {tuple(q.shape)}")
-    _require(hkv > 0 and h % hkv == 0, f"kv_decode_attention: H={h} is not "
-             f"a multiple of Hkv={hkv}")
-    _require(tuple(k_scale.shape) == (b, hkv, d)
-             and tuple(v_scale.shape) == (b, s, hkv)
-             and k_scale.dtype == torch.float32
+    name = "kv_decode_attention"
+    _on_card(name, q, kq, k_scale, vq, v_scale, positions)
+    b, h, d, hkv = _check_decode_operands(name, q, kq, vq, k_scale, bits)
+    s = kq.shape[1]
+    _require(kq.shape[0] == b and tuple(v_scale.shape) == (b, s, hkv)
              and v_scale.dtype == torch.float32,
-             "kv_decode_attention: k_scale must be (B, Hkv, D) and v_scale "
-             "(B, S, Hkv), float32")
+             f"{name}: codes must be (B, S, ...) and v_scale (B, S, Hkv) "
+             f"float32")
     _require(tuple(positions.shape) == (b,) and positions.dtype == torch.int32,
-             "kv_decode_attention: positions must be (B,) int32")
+             f"{name}: positions must be (B,) int32")
     ts = (q, kq, k_scale, vq, v_scale, positions)
     _require(all(t.is_contiguous() for t in ts),
-             "kv_decode_attention: operands must be contiguous")
-    _require(kq.data_ptr() % 4 == 0 and vq.data_ptr() % 4 == 0,
-             "kv_decode_attention: code buffers must be 4-byte aligned")
+             f"{name}: operands must be contiguous")
     out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
     if b == 0 or s == 0:
         return out.zero_()
@@ -181,6 +226,44 @@ def kv_decode_attention(q: torch.Tensor, kq: torch.Tensor,
             kq.data_ptr(), k_scale.data_ptr(), vq.data_ptr(),
             v_scale.data_ptr(), positions.data_ptr(), out.data_ptr(),
             b, h, s, hkv, d, bits, d ** -0.5, _stream())
+    return out
+
+
+def paged_kv_decode_attention(q: torch.Tensor, kq_pool: torch.Tensor,
+                              k_scale: torch.Tensor, vq_pool: torch.Tensor,
+                              v_scale_pool: torch.Tensor, tbl: torch.Tensor,
+                              positions: torch.Tensor,
+                              bits: int) -> torch.Tensor:
+    """``kv_decode_attention`` over page pools (P, page, Hkv, D or D/2)
+    with per-page V scales (P, page, Hkv), a per-slot K scale (B, Hkv, D)
+    and a (B, n) int32 block table -> (B, H, D) float32.  Table entries
+    clamp to [0, P - 1]; positions (B,) int32 must be >= 0."""
+    name = "paged_kv_decode_attention"
+    _on_card(name, q, kq_pool, k_scale, vq_pool, v_scale_pool, tbl,
+             positions)
+    b, h, d, hkv = _check_decode_operands(name, q, kq_pool, vq_pool, k_scale,
+                                          bits)
+    p, page = kq_pool.shape[:2]
+    _require(tuple(v_scale_pool.shape) == (p, page, hkv)
+             and v_scale_pool.dtype == torch.float32,
+             f"{name}: v_scale_pool must be (P, page, Hkv) float32")
+    _require(tbl.ndim == 2 and tbl.shape[0] == b and tbl.dtype == torch.int32
+             and tbl.shape[1] <= PAGED_MAX_PAGES,
+             f"{name}: tbl must be (B, n) int32 with n <= {PAGED_MAX_PAGES}, "
+             f"got {tuple(tbl.shape)} {tbl.dtype}")
+    _require(tuple(positions.shape) == (b,) and positions.dtype == torch.int32,
+             f"{name}: positions must be (B,) int32")
+    ts = (q, kq_pool, k_scale, vq_pool, v_scale_pool, tbl, positions)
+    _require(all(t.is_contiguous() for t in ts),
+             f"{name}: operands must be contiguous")
+    out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
+    n = tbl.shape[1]
+    if b == 0 or n == 0 or p == 0 or page == 0:
+        return out.zero_()
+    _launch(name, q.data_ptr(), _DTYPE_CODE[q.dtype], kq_pool.data_ptr(),
+            k_scale.data_ptr(), vq_pool.data_ptr(), v_scale_pool.data_ptr(),
+            tbl.data_ptr(), positions.data_ptr(), out.data_ptr(), b, h, p,
+            page, n, hkv, d, bits, d ** -0.5, _stream())
     return out
 
 

@@ -1,7 +1,5 @@
-"""KV-cache quantization primitives, contiguous layout — port of
-``repro/kernels/kv_quant.py`` (lines 1-141, 218-228).  Plain tensor code,
-as in the reference; the paged primitives follow with ROADMAP Queue 1
-item 9.
+"""KV-cache quantization primitives and the page read/write layout — port
+of ``repro/kernels/kv_quant.py``.  Plain tensor code, as in the reference.
 
 K uses per-channel scales (..., B, Hkv, D) calibrated once per request on
 its valid prefill rows with a 1.5x headroom margin; V uses exact per-token
@@ -19,8 +17,10 @@ _EPS = 1e-8
 
 
 def cache_bits(cache: dict) -> int:
-    """Bit-width of a quantized cache dict, from its code container."""
-    return 8 if cache["kq"].dtype == torch.int8 else 4
+    """Bit-width of a quantized cache dict (contiguous ``kq`` or paged
+    ``pkq``), from its code container."""
+    codes = cache["kq"] if "kq" in cache else cache["pkq"]
+    return 8 if codes.dtype == torch.int8 else 4
 
 
 def code_dtype(bits: int) -> torch.dtype:
@@ -107,6 +107,67 @@ def dequant_v(vq: torch.Tensor, v_scale: torch.Tensor, bits: int,
               dtype=torch.float32) -> torch.Tensor:
     codes = vq.float() if bits == 8 else unpack4(vq)
     return (codes * v_scale[..., None].float()).to(dtype)
+
+
+# ------------------------------------------------------------ page layout
+# The paged cache stores K/V in pools (P, page, Hkv, X) addressed through a
+# (B, n) int32 block table: logical row s of slot b is
+# pool[tbl[b, s // page], s % page].  These functions are the one definition
+# of that layout (attention writes and full-dtype reads, the paged plain
+# attention, paging.splice_prefill).
+
+def page_count(n_tokens: int, page_size: int) -> int:
+    """Pages needed to hold ``n_tokens`` rows."""
+    return -(-int(n_tokens) // int(page_size))
+
+
+def gather_pages(pool: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
+    """pool (P, page, ...), tbl (B, n) -> each slot's virtual sequence
+    (B, n * page, ...).  Table entries clamp to [0, P - 1]: an unmapped
+    entry (-1 or stale) resolves to some page whose rows sit at masked
+    positions."""
+    b, n = tbl.shape
+    idx = torch.clamp(tbl.long(), 0, pool.shape[0] - 1)
+    return pool[idx].reshape((b, n * pool.shape[1]) + pool.shape[2:])
+
+
+def paged_write_rows(writes, positions: torch.Tensor,
+                     tbl: torch.Tensor) -> None:
+    """Write decode rows through the block table, in place — the
+    reference's ``paged_write_row`` for several (pool, new) pairs of one
+    page geometry (a layer's codes and scales), addressed once.
+
+    pool (P, page, ...); new (B, S, ...); positions (B, S) logical
+    positions; tbl (B, n).  Position ``pos`` of slot b lands in page
+    ``tbl[b, pos // page]`` at row ``pos % page``.  A write through a table
+    entry < 0 or at a position >= n * page is dropped, never redirected:
+    it would land in another request's page.
+
+    Sync-free: a dropped row is rewritten onto the target of the first
+    kept row with that row's own value (duplicate targets then carry equal
+    values, so the scatter's order does not matter); with no kept row at
+    all, it rewrites its clamped target with the value already there.
+    """
+    b, n = tbl.shape
+    n_pool, page = writes[0][0].shape[:2]
+    s = positions.shape[1]
+    pos = positions.reshape(b * s).long()
+    rows = torch.arange(b, device=pos.device).repeat_interleave(s)
+    phys = tbl[rows, torch.clamp(pos // page, 0, n - 1)].long()
+    keep = (pos < n * page) & (phys >= 0)
+    phys = torch.clamp(phys, 0, n_pool - 1)
+    off = torch.clamp(pos, max=n * page - 1) % page
+    # a (1,) index, not a 0-d one: indexing with a 0-d tensor reads it on
+    # the host, a sync per call
+    first = torch.argmax(keep.int()).reshape(1)   # 0 when nothing is kept
+    any_kept = keep[first]
+    phys = torch.where(keep | ~any_kept, phys, phys[first])
+    off = torch.where(keep | ~any_kept, off, off[first])
+    for pool, new in writes:
+        vals = new.reshape((b * s,) + new.shape[2:]).to(pool.dtype)
+        sel = keep.reshape((-1,) + (1,) * (vals.ndim - 1))
+        fill = torch.where(any_kept, vals[first], pool[phys, off])
+        pool[phys, off] = torch.where(sel, vals, fill)
 
 
 def quantize_prefill(got: dict, lengths: torch.Tensor, bits: int) -> dict:

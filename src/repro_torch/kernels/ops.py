@@ -27,6 +27,22 @@ def use_kernel(t: torch.Tensor, impl: str) -> bool:
     return impl == "auto" and t.is_cuda
 
 
+def histogram(codes: torch.Tensor, n_bins: int, impl: str = "auto"
+              ) -> torch.Tensor:
+    """Counts of int32 codes in [0, n_bins) -> (n_bins,) float32."""
+    if use_kernel(codes, impl):
+        return cuda.histogram(codes.contiguous(), n_bins)
+    return ref.histogram(codes, n_bins)
+
+
+def entropy_bits(codes: torch.Tensor, n_bins: int, impl: str = "auto"
+                 ) -> torch.Tensor:
+    """H(p) in bits of the codes' histogram.  Only the histogram
+    dispatches; the counts-to-H formula is ``ref.entropy_from_counts`` on
+    every path."""
+    return ref.entropy_from_counts(histogram(codes, n_bins, impl=impl))
+
+
 def lsq_fakequant(x: torch.Tensor, step, bits, impl: str = "auto"
                   ) -> torch.Tensor:
     """Forward-only LSQ fake-quant of an activation tensor."""
@@ -82,6 +98,23 @@ def kv_cache_attention(q: torch.Tensor, kq: torch.Tensor,
             positions.to(torch.int32).contiguous(), bits)
     return ref.kv_cache_attention(q, kq, k_scale, vq, v_scale, positions,
                                   bits)
+
+
+def paged_kv_cache_attention(q: torch.Tensor, kq_pool: torch.Tensor,
+                             k_scale: torch.Tensor, vq_pool: torch.Tensor,
+                             v_scale_pool: torch.Tensor, tbl: torch.Tensor,
+                             positions: torch.Tensor, bits: int,
+                             impl: str = "auto") -> torch.Tensor:
+    """Decode attention over a paged quantized cache -> (B, H, D) float32;
+    on the card the kernel reads the pages through the block table and
+    never gathers them."""
+    if use_kernel(q, impl):
+        return cuda.paged_kv_decode_attention(
+            q.contiguous(), kq_pool, k_scale, vq_pool, v_scale_pool,
+            tbl.to(torch.int32).contiguous(),
+            positions.to(torch.int32).contiguous(), bits)
+    return ref.paged_kv_cache_attention(q, kq_pool, k_scale, vq_pool,
+                                        v_scale_pool, tbl, positions, bits)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

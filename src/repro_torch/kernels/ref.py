@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four ported kernels (and the CPU serving
+"""Plain PyTorch versions of the six ported kernels (and the CPU serving
 path) — port of ``repro/kernels/ref.py``.
 
 Each CUDA kernel in ``repro_torch/csrc`` is held against the function here of
@@ -14,6 +14,28 @@ from repro_torch.core import quant
 from repro_torch.kernels import kv_quant
 
 NEG_INF = -1e30
+
+
+# ------------------------------------------------------------- entropy_hist
+def histogram(codes: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """Counts of int codes in [0, n_bins); codes (n,) int32 -> (n_bins,)
+    float32.  Codes outside the range fall in no bin."""
+    bins = torch.arange(n_bins, dtype=codes.dtype, device=codes.device)
+    return (codes[:, None] == bins[None, :]).sum(dim=0).float()
+
+
+def entropy_from_counts(counts: torch.Tensor) -> torch.Tensor:
+    """H(p) in bits (paper Eq. 3) with masked p*log2(p): empty bins add
+    exactly 0, so H does not depend on how many unused bins the histogram
+    carries.  ``kernels/ops.entropy_bits`` shares this formula."""
+    p = counts / torch.clamp(counts.sum(), min=1.0)
+    plogp = torch.where(p > 0, p * torch.log2(torch.clamp(p, min=1e-30)),
+                        0.0)
+    return -plogp.sum()
+
+
+def entropy_bits(codes: torch.Tensor, n_bins: int) -> torch.Tensor:
+    return entropy_from_counts(histogram(codes, n_bins))
 
 
 # ------------------------------------------------------------ lsq_fakequant
@@ -117,6 +139,30 @@ def kv_cache_attention(q: torch.Tensor, kq: torch.Tensor,
     logits = torch.where(mask, logits, NEG_INF)
     p = torch.softmax(logits, dim=-1)
     return torch.einsum("bhs,bshd->bhd", p, v)
+
+
+def paged_kv_cache_attention(q: torch.Tensor, kq_pool: torch.Tensor,
+                             k_scale: torch.Tensor, vq_pool: torch.Tensor,
+                             v_scale_pool: torch.Tensor, tbl: torch.Tensor,
+                             positions: torch.Tensor,
+                             bits: int) -> torch.Tensor:
+    """Decode attention over a paged quantized cache: gather each slot's
+    pages, zero the V rows past its position (their softmax weight is 0,
+    but 0 * NaN from a poisoned free page would still smear), then the
+    contiguous math above.
+
+    q (B, H, D); kq_pool/vq_pool (P, page, Hkv, D or D//2); k_scale
+    (B, Hkv, D) per slot; v_scale_pool (P, page, Hkv); tbl (B, n) int32;
+    positions (B,).  Returns (B, H, D) float32.
+    """
+    kq = kv_quant.gather_pages(kq_pool, tbl)
+    vq = kv_quant.gather_pages(vq_pool, tbl)
+    vs = kv_quant.gather_pages(v_scale_pool, tbl)
+    live = (torch.arange(kq.shape[1], device=q.device)[None, :]
+            <= positions.to(q.device)[:, None])
+    vq = torch.where(live[..., None, None], vq, 0).to(vq.dtype)
+    vs = torch.where(live[..., None], vs, 0.0)
+    return kv_cache_attention(q, kq, k_scale, vq, vs, positions, bits)
 
 
 # ---------------------------------------------------------- flash_attention

@@ -1,13 +1,19 @@
 """GQA attention — port of the GQA branches of ``repro/models/attention.py``
-(train/prefill, full-dtype contiguous decode, quantized contiguous decode
-with one query per request).
+(train/prefill; decode with one query per request over a full-dtype or
+quantized cache, contiguous or paged).
 
 Prefill attention runs the CUDA ``flash_attention`` kernel on the card.  On
 the CPU (or with ``impl="ref"``) it runs ``chunked_attention``, the math of
 the JAX model's XLA scan (q pre-scaled, 512-row chunks, causal mask), so
 the CPU tests match the reference.  Decode over a quantized cache runs the
-CUDA ``kv_decode_attention`` kernel on the card.  Caches are updated in
-place (the engine owns them); the JAX functions return new arrays.
+CUDA ``kv_decode_attention`` kernel on the card, over a paged quantized
+cache ``paged_kv_decode_attention``.  Caches are updated in place (the
+engine owns them); the JAX functions return new arrays.
+
+A paged leaf holds page pools (P, page, ...) and, for the call, the block
+table under ``"tbl"`` (``serve/paging.with_tables``).  Its S > 1 decode
+(speculative verify), the chunked-prefill ``role`` staging and the suffix
+prefill over shared pages are not ported.
 """
 from __future__ import annotations
 
@@ -104,6 +110,18 @@ def _dense_decode_attention(q, ck, cv, positions, group) -> torch.Tensor:
     return torch.einsum("bhqs,bshd->bqhd", pr, vv.float())
 
 
+def _check_paged_call(cache: dict, mode: str, s: int) -> None:
+    if mode != "decode":
+        raise NotImplementedError("prefill over a paged cache (the suffix "
+                                  "prefill over shared prefix pages) is "
+                                  "ROADMAP Queue 1 item 9")
+    if "role" in cache or s != 1:
+        raise NotImplementedError("a paged decode takes one token per "
+                                  "request: chunked-prefill staging and "
+                                  "speculative verify are ROADMAP Queue 1 "
+                                  "item 10")
+
+
 def init_gqa(gen: torch.Generator, cfg, device) -> dict:
     d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = cfg.param_dtype
@@ -127,6 +145,35 @@ def gqa_apply(p: dict, x: torch.Tensor, bits: dict, cfg, mode: str, cache,
     if cfg.rope == "rope":
         cos, sin = common.rope_angles(positions, dh, cfg.rope_base)
         q, k = common.apply_rope(q, cos, sin), common.apply_rope(k, cos, sin)
+
+    if cache is not None and ("pk" in cache or "pkq" in cache):
+        _check_paged_call(cache, mode, s)
+        tbl = cache["tbl"]
+        if "pkq" in cache:
+            # the contiguous quantized semantics, rows addressed by table
+            cbits = kvq.cache_bits(cache)
+            vs_new = kvq.v_token_scale(v, cbits)
+            kvq.paged_write_rows(
+                [(cache["pkq"], kvq.quantize_k(k, cache["k_scale"], cbits)),
+                 (cache["pvq"], kvq.quantize_v(v, vs_new, cbits)),
+                 (cache["pv_scale"], vs_new)], positions, tbl)
+            out = kops.paged_kv_cache_attention(
+                q[:, 0], cache["pkq"], cache["k_scale"], cache["pvq"],
+                cache["pv_scale"], tbl, positions[:, 0], cbits,
+                impl=impl)[:, None]
+        else:
+            # gather, zero the V rows past the position (0 * NaN from a
+            # free page would smear), then the contiguous full-dtype math
+            kvq.paged_write_rows([(cache["pk"], k), (cache["pv"], v)],
+                                 positions, tbl)
+            kk = kvq.gather_pages(cache["pk"], tbl)
+            vv = kvq.gather_pages(cache["pv"], tbl)
+            live = (torch.arange(vv.shape[1], device=x.device)[None, :]
+                    <= positions[:, -1:])
+            vv = torch.where(live[..., None, None], vv, torch.zeros_like(vv))
+            out = _dense_decode_attention(q, kk, vv, positions, group)
+        out = out.to(x.dtype).reshape(b, s, h * dh)
+        return qproj(out, p["wo"], bits["attn_wo"], impl), cache
 
     if mode == "decode" and "kq" in cache:
         # quantized cache: the new row quantizes against the request's
@@ -194,4 +241,34 @@ def init_gqa_quant_cache(cfg, batch: int, max_seq: int, bits: int,
         "vq": torch.zeros((batch, max_seq, hkv, dp), dtype=dt, device=device),
         "v_scale": torch.zeros((batch, max_seq, hkv), dtype=torch.float32,
                                device=device),
+    }
+
+
+def init_gqa_paged_cache(cfg, n_pages: int, page_size: int, dtype,
+                         device) -> dict:
+    """Paged full-dtype cache: pools (P, page, Hkv, D) with no batch axis;
+    slots reach them through the engine's block table."""
+    shape = (n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    return {"pk": torch.zeros(shape, dtype=dtype, device=device),
+            "pv": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_gqa_paged_quant_cache(cfg, batch: int, n_pages: int,
+                               page_size: int, bits: int, device) -> dict:
+    """Paged quantized cache: codes and per-token V scales ride the pages
+    (P, page, ...); the per-channel K scale stays per slot (B, Hkv, D), as
+    in the contiguous layout, which keeps paged decode equal to contiguous
+    decode.  K scales start at ones, as there."""
+    if bits not in (4, 8):
+        raise ValueError(f"quantized cache bits must be 4 or 8, got {bits}")
+    hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    shape = (n_pages, page_size, hkv, kvq.packed_dim(dh, bits))
+    dt = kvq.code_dtype(bits)
+    return {
+        "pkq": torch.zeros(shape, dtype=dt, device=device),
+        "k_scale": torch.ones((batch, hkv, dh), dtype=torch.float32,
+                              device=device),
+        "pvq": torch.zeros(shape, dtype=dt, device=device),
+        "pv_scale": torch.zeros(shape[:3], dtype=torch.float32,
+                                device=device),
     }

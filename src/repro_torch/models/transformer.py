@@ -80,11 +80,21 @@ def block_apply(p: dict, x: torch.Tensor, bits: dict, cfg, mode: str, cache,
 
 
 def init_caches(cfg, batch: int, max_seq: int, cache_dtype, device,
-                cache_bits: Optional[int] = None) -> dict:
+                cache_bits: Optional[int] = None,
+                page_geom: Optional[tuple] = None) -> dict:
     """Preallocated per-layer decode caches: {"pat": [{"p0": leaf}, ...]}
     with full-dtype {'k','v'} leaves, or quantized code+scale leaves at
-    ``cache_bits`` (4 or 8) in every layer."""
+    ``cache_bits`` (4 or 8) in every layer.  ``page_geom`` = (n_pages,
+    page_size) gives page pools in place of the (B, S_max) buffers."""
     def leaf():
+        if page_geom is not None:
+            n_pages, page_size = page_geom
+            if cache_bits is None:
+                return attn.init_gqa_paged_cache(cfg, n_pages, page_size,
+                                                 cache_dtype, device)
+            return attn.init_gqa_paged_quant_cache(cfg, batch, n_pages,
+                                                   page_size, cache_bits,
+                                                   device)
         if cache_bits is None:
             return attn.init_gqa_cache(cfg, batch, max_seq, cache_dtype,
                                        device)
@@ -206,6 +216,20 @@ def build_policy(cfg, b_hi: float = 4.0, b_lo: float = 2.0
                 kv_elems_per_token=2 * cfg.n_kv_heads * cfg.head_dim))
     return PrecisionPolicy(units, b_hi=b_hi, b_lo=b_lo,
                            cache_units=cache_units)
+
+
+def fetch_unit_tensor(params: dict, unit: QuantUnit, path: tuple):
+    """Weight tensor and LSQ step of one member tensor of a unit (the
+    reference's, for the port's layout: pattern layer ``r`` is
+    ``params["pat"][r]``, not index ``r`` of a stacked leaf)."""
+    node = params
+    for key in path[:-1]:
+        node = node[key]
+        if key == "pat":
+            node = node[unit.layer]
+    if "sw" not in node:
+        raise KeyError(f"no step size for {path}")
+    return node[path[-1]], node["sw"]
 
 
 def slot_index(cfg) -> Dict[tuple, tuple]:

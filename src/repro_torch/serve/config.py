@@ -1,11 +1,11 @@
 """EngineSpec: every serving knob of ``ServeEngine`` in one validated spec
 (port of ``repro/serve/config.py``).
 
-The port serves packed weights over a contiguous full or quantized KV
-cache with greedy sampling.  Every other value the reference accepts is
-refused here with ``NotImplementedError`` naming the ROADMAP item that
-ports it, so a request the port cannot honour never runs as something
-else.
+The port serves packed weights over a contiguous or paged, full or
+quantized KV cache with greedy sampling.  Every other value the reference
+accepts is refused here with ``NotImplementedError`` naming the ROADMAP
+item that ports it, so a request the port cannot honour never runs as
+something else.
 """
 from __future__ import annotations
 
@@ -20,7 +20,9 @@ class EngineSpec:
     weights: str = "packed"         # the port serves the packed layout
     cache: str = "full"             # "full" | "quantized"
     cache_bits: int = 8             # 8 or 4 (quantized cache)
-    cache_layout: str = "contiguous"
+    cache_layout: str = "contiguous"  # "contiguous" | "paged"
+    page_size: int = 16             # tokens per physical page (paged)
+    n_pages: Optional[int] = None   # pool size; None -> B * max_pages
     decode_chunk: int = 16          # decode steps per decode_chunk_step
     prefill_chunk: Optional[int] = None
     sampler: sampling.SamplerConfig = sampling.GREEDY
@@ -28,7 +30,9 @@ class EngineSpec:
     mesh: Any = None
     draft: Any = None
 
-    def validate(self) -> None:
+    def validate(self, cfg=None) -> None:
+        """Every cross-field rule; ``cfg`` adds the checks that need the
+        model (the engine passes it)."""
         if self.weights == "fake_quant":
             raise NotImplementedError(
                 "weights='fake_quant' stores codes as jnp.int4 in the "
@@ -39,12 +43,19 @@ class EngineSpec:
         if self.cache not in ("full", "quantized"):
             raise ValueError(f"cache must be 'full' or 'quantized', "
                              f"got {self.cache!r}")
+        if self.cache_layout not in ("contiguous", "paged"):
+            raise ValueError(f"cache_layout must be 'contiguous' or "
+                             f"'paged', got {self.cache_layout!r}")
         if self.cache_layout == "paged":
-            raise NotImplementedError("cache_layout='paged' is ROADMAP Queue "
-                                      "1 item 9 (and Queue 2 item 6)")
-        if self.cache_layout != "contiguous":
-            raise ValueError(f"cache_layout must be 'contiguous', "
-                             f"got {self.cache_layout!r}")
+            if self.page_size < 1:
+                raise ValueError(f"page_size must be >= 1, "
+                                 f"got {self.page_size}")
+            if self.n_pages is not None and int(self.n_pages) < 1:
+                raise ValueError(f"n_pages must be >= 1 when given, "
+                                 f"got {self.n_pages}")
+            if cfg is not None and not cfg.causal:
+                raise ValueError("cache_layout='paged' serves causal "
+                                 "attention caches only")
         if self.decode_chunk < 1:
             raise ValueError(f"decode_chunk must be >= 1, "
                              f"got {self.decode_chunk}")

@@ -1,11 +1,13 @@
 """Serving engine: packed low-bit weights, prefill + greedy decode over a
-contiguous full or quantized KV cache — port of ``repro/serve/engine.py``.
+contiguous or paged, full or quantized KV cache — port of
+``repro/serve/engine.py``.
 
 On the card every projection streams its packed codes through the CUDA
 ``quant_matmul`` (prefill and every decode step; nothing is dequantized per
 dispatch), each projection's input goes through the CUDA ``lsq_fakequant``,
 prefill attention through ``flash_attention`` and quantized-cache decode
-attention through ``kv_decode_attention``.  On the CPU the engine runs the
+attention through ``kv_decode_attention`` (``paged_kv_decode_attention``
+over a paged cache).  On the CPU the engine runs the
 reference's CPU path: prefill through ``ref.dequant_matmul`` and decode
 over a per-dispatch dequantized view (``packing.decode_weight_view``), the
 op order that keeps it greedy-parity with the JAX engine.
@@ -25,11 +27,12 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.quant import PackedLinear
+from repro_torch.kernels import kv_quant as kvq
 from repro_torch.kernels import ops as kops
 from repro_torch.models import transformer as tf
-from repro_torch.serve import kv_cache, packing, sampling
+from repro_torch.serve import kv_cache, packing, paging, sampling
 from repro_torch.serve.config import EngineSpec
-from repro_torch.serve.kv_cache import ServeCache
+from repro_torch.serve.paging import PagedServeCache
 
 
 def _has_packed(node) -> bool:
@@ -57,7 +60,7 @@ class ServeEngine:
         if not isinstance(self.spec, EngineSpec):
             raise ValueError(f"spec must be an EngineSpec, got "
                              f"{type(self.spec).__name__}")
-        self.spec.validate()
+        self.spec.validate(cfg)
         if impl not in kops.IMPLS:
             raise ValueError(f"impl must be one of {kops.IMPLS}, got {impl!r}")
         self.device = resolve_device(device)
@@ -75,6 +78,10 @@ class ServeEngine:
         self.impl = impl
         self.cache = self.spec.cache
         self.cache_bits = self.spec.cache_bits
+        self.cache_layout = self.spec.cache_layout
+        self.page_size = self.spec.page_size
+        self.n_pages = self.spec.n_pages
+        self.max_pages = kvq.page_count(self.max_seq, self.page_size)
         self.decode_chunk = self.spec.decode_chunk
         self.sampler = self.spec.sampler
         self.cache_dtype = (self.spec.cache_dtype
@@ -100,11 +107,33 @@ class ServeEngine:
                                logits_at=lengths.long() - 1)
         return logits[:, 0], pre
 
-    def new_cache(self, batch: int) -> ServeCache:
-        """Preallocated (B, S_max) cache in this engine's layout."""
+    def new_cache(self, batch: int):
+        """Preallocated cache in this engine's layout: (B, S_max) buffers,
+        or page pools of ``n_pages`` (default B * max_pages, the contiguous
+        capacity) behind a block table."""
         bits = self.cache_bits if self.cache == "quantized" else None
+        if self.cache_layout == "paged":
+            n_pages = (self.n_pages if self.n_pages is not None
+                       else batch * self.max_pages)
+            if int(n_pages) < batch:
+                raise ValueError(
+                    f"n_pages={int(n_pages)} cannot back a {batch}-slot "
+                    f"batch: every slot needs >= 1 page (worst case "
+                    f"{self.max_pages}/slot at max_seq={self.max_seq}, "
+                    f"page_size={self.page_size})")
+            return paging.init_paged_cache(
+                self._cfg, batch, self.max_seq, int(n_pages), self.page_size,
+                self.cache_dtype, self.device, bits)
         return kv_cache.init_cache(self._cfg, batch, self.max_seq,
                                    self.cache_dtype, self.device, bits)
+
+    def splice_prefill(self, prefill_layers, lengths: torch.Tensor):
+        """A fresh batch cache holding the prefill K/V at position 0 (paged:
+        slot i on pages [i * max_pages, (i + 1) * max_pages))."""
+        cache = self.new_cache(lengths.shape[0])
+        if isinstance(cache, PagedServeCache):
+            return paging.splice_prefill(cache, prefill_layers, lengths)
+        return kv_cache.splice_prefill(cache, prefill_layers, lengths)
 
     # -------------------------------------------------------------- decode
     def decode_params(self) -> dict:
@@ -114,10 +143,10 @@ class ServeEngine:
             return packing.decode_weight_view(self.params)
         return self.params
 
-    def decode_step(self, cache: ServeCache, tok: torch.Tensor,
+    def decode_step(self, cache, tok: torch.Tensor,
                     active: Optional[torch.Tensor] = None,
                     params: Optional[dict] = None
-                    ) -> Tuple[ServeCache, torch.Tensor]:
+                    ) -> Tuple[Any, torch.Tensor]:
         """Feed ``tok`` (B, 1) at each slot's valid length; returns the
         advanced cache and the logits (B, V).  Inactive slots write nothing
         (their position is pinned at max_seq) and do not advance."""
@@ -127,16 +156,20 @@ class ServeEngine:
         if params is None:
             params = self.decode_params()
         pos = torch.where(active, cache.lengths, self.max_seq)[:, None]
+        paged = isinstance(cache, PagedServeCache)
+        layers = (paging.with_tables(cache.layers, cache.block_tbl) if paged
+                  else cache.layers)
         logits, _ = tf.apply(params, self.policy_arrays,
                              tok.to(self.device).long(), self._cfg,
-                             mode="decode", caches=cache.layers,
+                             mode="decode", caches=layers,
                              positions=pos, impl=self.impl)
-        return kv_cache.advance(cache, 1, active), logits[:, -1]
+        step = paging.advance if paged else kv_cache.advance
+        return step(cache, 1, active), logits[:, -1]
 
-    def decode_chunk_step(self, cache: ServeCache, tok: torch.Tensor, *,
+    def decode_chunk_step(self, cache, tok: torch.Tensor, *,
                           active: Optional[torch.Tensor] = None,
                           n_steps: Optional[int] = None
-                          ) -> Tuple[ServeCache, torch.Tensor, torch.Tensor]:
+                          ) -> Tuple[Any, torch.Tensor, torch.Tensor]:
         """Advance every slot by ``n_steps`` (default ``decode_chunk``)
         greedy steps.  Returns (cache, next feed token (B, 1), emitted
         tokens (B, n_steps))."""
@@ -168,7 +201,7 @@ class ServeEngine:
         lengths = torch.as_tensor(host_lengths, dtype=torch.int32,
                                   device=self.device)
         last, pre = self.prefill(tokens, lengths)
-        cache = kv_cache.splice_prefill(self.new_cache(b), pre, lengths)
+        cache = self.splice_prefill(pre, lengths)
         tok = sampling.sample(last, self.sampler)[:, None]
         out = [tok]
         remaining = n_new - 1

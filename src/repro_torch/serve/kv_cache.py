@@ -84,12 +84,15 @@ def advance(cache: ServeCache, steps: int = 1, active=None) -> ServeCache:
     return ServeCache(layers=cache.layers, lengths=cache.lengths + delta)
 
 
-def cache_bytes(cache: ServeCache) -> int:
-    """Resident bytes of the cache buffers (codes, scales and lengths)."""
+def cache_bytes(cache) -> int:
+    """Resident bytes of a contiguous or paged cache's buffers: codes or
+    pools, scales, lengths and the block table."""
     def walk(node):
         if isinstance(node, dict):
             return sum(walk(v) for v in node.values())
         if isinstance(node, list):
             return sum(walk(v) for v in node)
         return node.numel() * node.element_size()
-    return walk(cache.layers) + walk(cache.lengths)
+    tbl = getattr(cache, "block_tbl", None)
+    return (walk(cache.layers) + walk(cache.lengths)
+            + (0 if tbl is None else walk(tbl)))

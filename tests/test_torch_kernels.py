@@ -4,7 +4,9 @@ same numpy inputs; plus CUDA-only cases of each hand-written kernel against
 its plain version, which skip without a card.
 
 Tolerances: integer outputs and lsq exact; float outputs within
-1e-5 * max|ref| (float32, different summation orders)."""
+1e-5 * max|ref| (float32, different summation orders).  The histogram's
+and the paged decode's CPU parity with JAX is in test_torch_eagl.py and
+test_torch_paging.py."""
 import numpy as np
 import pytest
 
@@ -237,6 +239,49 @@ def test_cuda_lsq_exact(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,n_bins", [(2048 * 8192, 16), (2048 * 8192, 4),
+                                      (1_000_003, 16), (5, 4096)])
+def test_cuda_histogram_exact(card, n, n_bins):
+    """Exact against the plain version, with negatives and the sentinel
+    n_bins in the codes and a ragged length."""
+    from repro_torch.kernels import cuda
+    g = torch.Generator(card).manual_seed(3)
+    codes = torch.randint(-3, n_bins + 3, (n,), generator=g, device=card,
+                          dtype=torch.int32)
+    assert torch.equal(cuda.histogram(codes, n_bins),
+                       tref.histogram(codes, n_bins))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,h,hkv", [(8, 16, 16), (4, 16, 16), (4, 16, 4),
+                                        (8, 4, 2)])
+def test_cuda_paged_kv_decode(card, bits, h, hkv):
+    """Bit for bit the contiguous kernel on the gathered cache, within
+    1e-4 * max|ref| of the plain version, over a shuffled table with stale
+    and -1 entries and NaN-poisoned free pages (chip_smoke's case)."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.kernels import cuda, kv_quant
+    g = torch.Generator(card).manual_seed(4)
+    b, n, page = 8, 64, 16
+    pos = torch.tensor([0, 15, 16, 100, 511, 700, 1000, 1023],
+                       dtype=torch.int32, device=card)
+    q, qc, (kqp, vqp, vsp), tbl = chip_smoke.paged_case(
+        g, card, bits, b, h, hkv, 128, n, page, pos)
+    args = (q, kqp, qc["k_scale"], vqp, vsp, tbl, pos)
+    got = cuda.paged_kv_decode_attention(*args, bits)
+    gathered = (q, kv_quant.gather_pages(kqp, tbl), qc["k_scale"],
+                kv_quant.gather_pages(vqp, tbl),
+                kv_quant.gather_pages(vsp, tbl), pos)
+    assert torch.equal(got, cuda.kv_decode_attention(*gathered, bits))
+    want = tref.paged_kv_cache_attention(*args, bits)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
 def test_cuda_tensor_never_falls_back(card):
     """ops on a CUDA tensor launch the kernel (the counter moves)."""
     from repro_torch.kernels import cuda
@@ -252,6 +297,14 @@ def test_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         cuda.flash_attention(*(torch.ones(1, 1, 8, 64, dtype=torch.bfloat16)
                                for _ in range(3)))
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda.histogram(torch.zeros(8, dtype=torch.int32), 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda.paged_kv_decode_attention(
+            torch.ones(1, 2, 64), torch.zeros(3, 4, 2, 64, dtype=torch.int8),
+            torch.ones(1, 2, 64), torch.zeros(3, 4, 2, 64, dtype=torch.int8),
+            torch.ones(3, 4, 2), torch.zeros(1, 2, dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32), 8)
     with pytest.raises(ValueError, match="impl"):
         tops.use_kernel(torch.ones(1), "pallas")
 
