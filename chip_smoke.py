@@ -44,6 +44,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
+sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 BF16_OPS_PER_S = 989e12          # dense bf16 tensor cores
 F32_OPS_PER_S = 67e12            # float32 outside the tensor cores
@@ -131,44 +132,78 @@ def phase_build():
 
 
 # ------------------------------------------------------------ kernel phases
-def check_quant_matmul(timer, dev, gen):
+def qmm_case(timer, dev, gen, bits, m, k, n, wp=None, x=None):
+    """One quant_matmul shape against its plain version (1 bf16 ulp of
+    max|ref|), timed beside cuBLAS bf16 on the dequantized weight."""
     from repro_torch.kernels import cuda, ref
+    unpack = ref.unpack_w4 if bits == 4 else ref.unpack_w2
+    if wp is None:
+        lo, hi = -(1 << (bits - 1)), 1 << (bits - 1)
+        codes = torch.randint(lo, hi, (k, n), generator=gen, device=dev)
+        wp = (ref.pack_w4 if bits == 4 else ref.pack_w2)(codes)
+    if x is None:
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    scale = torch.rand((n,), generator=gen, device=dev) * 0.02 + 1e-3
+    got = cuda.quant_matmul(x, wp, scale, bits).float()
+    plain = ref.quant_matmul_w4 if bits == 4 else ref.quant_matmul_w2
+    want = plain(x, wp, scale)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    tol = bf16_ulp(float(want.abs().max()))
+    w_bf16 = (unpack(wp, torch.float32) * scale[None]).to(torch.bfloat16)
+    rec = {"bits": bits, "m": m, "k": k, "n": n, "max_abs_err": err,
+           "tol": tol, "ok": err <= tol,
+           "ms": timer(lambda: cuda.quant_matmul(x, wp, scale, bits)),
+           "plain_ms": timer(lambda: plain(x, wp, scale)),
+           "library_ms": timer(lambda: torch.matmul(x, w_bf16))}
+    nb = m * k * 2 + wp.numel() + n * 4 + m * n * 2
+    flop = 2.0 * m * n * k
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nb, flop, BF16_OPS_PER_S)
+    rate = ""
+    if m > cuda.GEMV_MAX_M:
+        rec["tflops"] = flop / rec["ms"] * 1e-9
+        rec["x_cublas"] = rec["ms"] / rec["library_ms"]
+        rate = (f", {rec['tflops']:.1f} TFLOP/s, {rec['x_cublas']:.2f}x "
+                f"cuBLAS")
+    log(f"  quant_matmul w{bits} M={m} K={k} N={n}: err {err:.3g} (tol "
+        f"{tol:.3g}, 1 bf16 ulp of max|ref|) {rec['ms']:.4f} ms, plain "
+        f"{rec['plain_ms']:.4f}, cuBLAS bf16 {rec['library_ms']:.4f}, bound "
+        f"{rec['bound_ms']:.4f} ({rec['bound_by']}){rate}")
+    return rec, got, want
+
+
+def identity_probe(timer, dev, gen, bits):
+    """x = the K x K identity (M = K = 256), the packed bytes cycling
+    through all 256 values in every row: each output is one code times its
+    scale, so the kernel must equal the plain version bit for bit.  It
+    pins every lane's byte and bit offset and every swizzled row."""
+    k = n = 256
+    r = torch.arange(k // (8 // bits), device=dev)[:, None]
+    wp = ((r + torch.arange(n, device=dev)[None, :]) % 256).to(torch.uint8)
+    x = torch.eye(k, device=dev, dtype=torch.bfloat16)
+    rec, got, want = qmm_case(timer, dev, gen, bits, k, k, n, wp=wp, x=x)
+    rec["identity_probe"] = True
+    rec["bit_equal"] = bool(torch.equal(got.bfloat16(), want.bfloat16()))
+    rec["ok"] = rec["ok"] and rec["bit_equal"]
+    log(f"    identity probe w{bits}: equal to codes x scale bit for bit: "
+        f"{rec['bit_equal']}")
+    return rec
+
+
+def check_quant_matmul(timer, dev, gen):
+    """The main path's twelve shapes (bits 4 and 2, the three projection
+    shapes of olmo-1b, decode M = 8 and prefill M = 4096), the identity
+    probe, and ragged tiled shapes: M = 4099 (ragged M), and M = 129 with
+    N = 200 and K = 520 (ragged M, N and a partial last K step)."""
     cases = []
     for bits in (4, 2):
         for (k, n) in ((2048, 2048), (2048, 8192), (8192, 2048)):
             for m in (8, 8 * 512):
-                lo, hi = -(1 << (bits - 1)), 1 << (bits - 1)
-                codes = torch.randint(lo, hi, (k, n), generator=gen,
-                                      device=dev)
-                wp = (ref.pack_w4 if bits == 4 else ref.pack_w2)(codes)
-                x = (torch.randn((m, k), generator=gen, device=dev)
-                     ).to(torch.bfloat16)
-                scale = torch.rand((n,), generator=gen, device=dev) * 0.02 \
-                    + 1e-3
-                got = cuda.quant_matmul(x, wp, scale, bits).float()
-                plain = ref.quant_matmul_w4 if bits == 4 else ref.quant_matmul_w2
-                want = plain(x, wp, scale)
-                torch.cuda.synchronize()
-                err = float((got - want).abs().max())
-                tol = bf16_ulp(float(want.abs().max()))
-                ok = err <= tol
-                w_bf16 = (codes.float() * scale[None]).to(torch.bfloat16)
-                rec = {"bits": bits, "m": m, "k": k, "n": n,
-                       "max_abs_err": err, "tol": tol, "ok": ok,
-                       "ms": timer(lambda: cuda.quant_matmul(x, wp, scale,
-                                                             bits)),
-                       "plain_ms": timer(lambda: plain(x, wp, scale)),
-                       "library_ms": timer(lambda: torch.matmul(x, w_bf16))}
-                nb = m * k * 2 + wp.numel() + n * 4 + m * n * 2
-                rec["bound_ms"], rec["bound_by"] = bound_ms(
-                    nb, 2.0 * m * n * k, BF16_OPS_PER_S)
-                log(f"  quant_matmul w{bits} M={m} K={k} N={n}: err {err:.3g}"
-                    f" (tol {tol:.3g}, 1 bf16 ulp of max|ref|) "
-                    f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}, "
-                    f"cuBLAS bf16 {rec['library_ms']:.4f}, bound "
-                    f"{rec['bound_ms']:.4f} ({rec['bound_by']})")
-                cases.append(rec)
-                del codes, wp, x, w_bf16, got, want
+                cases.append(qmm_case(timer, dev, gen, bits, m, k, n)[0])
+    for bits in (4, 2):
+        cases.append(identity_probe(timer, dev, gen, bits))
+        for (m, k, n) in ((4099, 2048, 2048), (129, 520, 200)):
+            cases.append(qmm_case(timer, dev, gen, bits, m, k, n)[0])
     # headline: the decode gate/up projection at int4
     head = next(c for c in cases if (c["bits"], c["m"], c["k"], c["n"])
                 == (4, 8, 2048, 8192))
@@ -852,7 +887,6 @@ def phase_check(cfg, packed, pa, dev, tokens, lengths, n_decode=16):
 
 def main():
     smi_line = phase_device()
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import olmo_1b
     from repro_torch.kernels import cuda
     from repro_torch.models import transformer as tf
@@ -913,9 +947,14 @@ def main():
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"]})
+    tiled_head = next(c for c in checks["quant_matmul"][1]
+                      if (c["bits"], c["m"], c["k"], c["n"])
+                      == (4, 4096, 2048, 8192))
     OUT.mkdir(exist_ok=True)
     with open(OUT / "chip_smoke.json", "w") as f:
         json.dump({"device": smi_line, "build_s": build_s,
+                   "quant_matmul": {"decode_head": checks["quant_matmul"][0],
+                                    "tiled_head": tiled_head},
                    "kernels": {k: cases for k, (_, cases) in checks.items()},
                    "select": select, "serve": runs, "check": check,
                    "launch_counts_after": dict(cuda.LAUNCHES)}, f, indent=1)

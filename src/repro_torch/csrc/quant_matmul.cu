@@ -20,18 +20,37 @@
 //    The 32 row groups of a block split K; x is staged in shared memory as
 //    bf16 (the values the Pallas kernel feeds its MXU), and the partial sums
 //    reduce through warp shuffles and shared memory in a fixed order.
-//  * Prefill (M = tokens, here 4096) is bound by operations:
-//    2 * 4096 * 2048 * 8192 = 137 GFLOP for the gate projection.
-//    qmm_tiled runs bf16 tensor cores (WMMA m16n16k16, fp32 accumulate)
-//    on 64 x 64 output tiles; each K step unpacks a 64 x 64 tile of codes
-//    to bf16 in shared memory.  No TMA, wgmma or pipelining yet.
-// Ragged M, N and K are masked in the kernels (zero-filled tiles), so the
-// wrapper pads K only to the pack multiple.
-#include <mma.h>
-
+//  * Prefill (M = tokens, here 4096) is bound by operations: the gate
+//    projection (K = 2048, N = 8192) is 2 * 4096 * 2048 * 8192 = 137 GFLOP,
+//    0.139 ms at 989 TFLOP/s, against 4.2 MB of x and codes.  qmm_tc runs
+//    bf16 tensor cores (mma.sync m16n8k16, fp32 accumulators in registers):
+//    - a block computes a 128 x 128 output tile with 8 warps of 64 (M) x 32
+//      (N), 64 accumulators a thread, in K steps of 64, so each x tile is
+//      read by N / 128 blocks instead of N / 64;
+//    - a ring of 4 stages in dynamic shared memory (x 128 x 64 bf16 = 16 KB
+//      plus the packed codes, 4 KB at int4, 2 KB at int2) is filled with
+//      16-byte cp.async.cg copies, 2 stages in flight while one computes;
+//      ragged M, N and K copy zero (src-size 0);
+//    - x is stored with a 16-byte-chunk XOR swizzle (chunk ^ row % 8) and
+//      read into A fragments with ldmatrix.x4, free of bank conflicts;
+//    - the codes stay packed in shared memory and go straight into B
+//      fragments: lane (g, t) of m16n8k16 holds the K pairs (2t, 2t+1) and
+//      (2t+8, 2t+9) of one column, which at int4 are exactly bytes t and
+//      t + 4 of a 16-deep K step, and at int2 the bit-pairs at offset
+//      4 (t & 1) of bytes t / 2 and t / 2 + 2.  The warp's fragment column
+//      g of N-fragment j is output column 4 g + j, so one 32-bit load gives
+//      a lane its bytes for all 4 N-fragments.  A code c becomes bf16
+//      exactly: 0x4300 | (c ^ 8) is 136 + sext(c) (int4; 0x4300 | (c ^ 2)
+//      is 130 + sext(c) at int2), minus 136 (130) in one bf16x2 FMA;
+//    - the epilogue multiplies by the scale in registers and stores 8
+//      neighbouring columns a lane (one 16-byte store of bf16) from the
+//      accumulators, masked at the ragged edge.
+//    x reaches the kernel as bf16; the wrapper rounds a float32 x to bf16
+//    once (round to nearest even, the rounding of the Pallas kernel's
+//    astype) and the kernel then writes float32.  Shapes whose rows are not
+//    16-byte aligned (K % 8, N % 16) take 4-byte copies, and N % 4 != 0
+//    plain byte loads, in the same kernel.
 #include "common.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
@@ -140,123 +159,351 @@ __global__ void __launch_bounds__(GV_THREADS)
   }
 }
 
-constexpr int TM = 64, TN = 64, TK = 64, T_THREADS = 128;
-constexpr int ALD = TK + 8;  // bf16 leading dims: multiples of 8 (WMMA rule)
-constexpr int BLD = TN + 8;
-constexpr int CLD = TN + 4;  // float leading dim: multiple of 4
+constexpr int TM = 128, TN = 128, TK = 64;   // block tile and K step
+constexpr int T_THREADS = 256, T_STAGES = 4;
+constexpr int XS_BYTES = TM * TK * 2;        // one stage of x: 16 KB
 
-template <int BITS, typename XT>
-__global__ void __launch_bounds__(T_THREADS)
-    qmm_tiled(const XT* __restrict__ x, const uint8_t* __restrict__ wp,
-              const float* __restrict__ scale, XT* __restrict__ out, int M,
-              int N, int K) {
-  constexpr int PACK = 8 / BITS;
-  __shared__ __align__(128) __nv_bfloat16 As[TM * ALD];
-  __shared__ __align__(128) __nv_bfloat16 Bs[TK * BLD];
-  __shared__ __align__(128) float Cs[TM * CLD];
+template <int BITS>
+struct Stage {  // one ring stage: the x tile, then the packed codes tile
+  static constexpr int BYTES = XS_BYTES + TK / (8 / BITS) * TN;
+};
 
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;  // 2 x 2 warps, 32 x 32 each
-  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
-  const int kp = K / PACK;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+// cp.async of `size` bytes (16 or 4); src-size 0 writes zeros and reads
+// nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  for (int k0 = 0; k0 < K; k0 += TK) {
-    for (int idx = tid; idx < TM * TK; idx += T_THREADS) {
-      const int r = idx / TK, c = idx % TK, m = m0 + r, k = k0 + c;
-      const float v = (m < M && k < K)
-                          ? repro::to_f32(x[static_cast<size_t>(m) * K + k])
-                          : 0.f;
-      As[r * ALD + c] = __float2bfloat16_rn(v);
-    }
-    for (int idx = tid; idx < (TK / PACK) * TN; idx += T_THREADS) {
-      const int pr = idx / TN, c = idx % TN;
-      const int r = k0 / PACK + pr, n = n0 + c;
-      const uint32_t byte = (r < kp && n < N) ? wp[static_cast<size_t>(r) * N + n] : 0u;
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t s) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(s));
+  return d;
+}
+
+// Four columns' codes, one byte each (w: byte j is column j), to one bf16x2
+// B register per column: lo holds the even K row's code and hi the odd one's,
+// each masked to BITS bits.  Byte j of lo goes to bits 0-7 and byte j of hi
+// to bits 16-23; selector nibble 8 copies the sign of lo's byte 0, which is
+// 0.  XOR with 0x4300 | bias sets the exponent of 128 and biases the code,
+// and one FMA subtracts 128 + bias: exact for every code.
+template <int BITS>
+__device__ __forceinline__ void codes_to_bf16x2(uint32_t lo, uint32_t hi,
+                                                uint32_t (&b)[4]) {
+  constexpr uint32_t BIAS = 1u << (BITS - 1);
+  constexpr uint32_t MAGIC = (0x4300u | BIAS) * 0x10001u;
+  constexpr uint32_t NEG = (0xC300u | BIAS) * 0x10001u;  // -(128 + BIAS)
+  constexpr uint32_t ONE = 0x3F803F80u;                   // 1.0, 1.0
 #pragma unroll
-      for (int j = 0; j < PACK; ++j)
-        Bs[(pr * PACK + j) * BLD + c] =
-            __float2bfloat16_rn(static_cast<float>(repro::sext<BITS>(byte >> (BITS * j))));
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * ALD + kk, ALD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + kk * BLD + wn * 32 + j * 16, BLD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * CLD + wn * 32 + j * 16,
-                              acc[i][j], CLD, wmma::mem_row_major);
-  __syncthreads();
-  for (int idx = tid; idx < TM * TN; idx += T_THREADS) {
-    const int r = idx / TN, c = idx % TN, m = m0 + r, n = n0 + c;
-    if (m < M && n < N)
-      out[static_cast<size_t>(m) * N + n] = repro::from_f32<XT>(Cs[r * CLD + c] * scale[n]);
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t v = prmt(lo, hi, 0x8080u | ((4u + j) << 8) | j) ^ MAGIC;
+    asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+        : "=r"(b[j])
+        : "r"(v), "r"(ONE), "r"(NEG));
   }
 }
 
+// Copy K step k0 of the x tile and the codes tile into one ring stage.
+// x: row r's 16-byte chunk c goes to chunk c ^ (r % 8) of its 128-byte row.
+// Codes: packed row r's chunk c goes to chunk c ^ 2 (r % 4).
+template <int BITS>
+__device__ __forceinline__ void load_stage(
+    uint8_t* stage, const __nv_bfloat16* __restrict__ x,
+    const uint8_t* __restrict__ wp, int M, int N, int K, int m0, int n0,
+    int k0, int tid, bool x16, int wvec) {
+  constexpr int PACK = 8 / BITS;
+  constexpr int WROWS = TK / PACK;
+  const uint32_t xs = smem_addr(stage), ws = xs + XS_BYTES;
+#pragma unroll
+  for (int i = 0; i < TM * 8 / T_THREADS; ++i) {
+    const int idx = tid + i * T_THREADS, r = idx >> 3, c = idx & 7;
+    const int m = m0 + r, k = k0 + c * 8;
+    const uint32_t dst = xs + r * 128 + ((c ^ (r & 7)) << 4);
+    const __nv_bfloat16* src = x + static_cast<size_t>(m) * K + k;
+    if (x16) {
+      const bool ok = m < M && k < K;
+      cp_async16(dst, ok ? src : x, ok);
+    } else {  // K % 8 != 0: bf16 pairs (K is even)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = m < M && k + 2 * e < K;
+        cp_async4(dst + 4 * e, ok ? src + 2 * e : x, ok);
+      }
+    }
+  }
+  const int kp = K / PACK;
+  for (int idx = tid; idx < WROWS * 8; idx += T_THREADS) {
+    const int r = idx >> 3, c = idx & 7;
+    const int row = k0 / PACK + r, n = n0 + c * 16;
+    const uint32_t dst = ws + r * 128 + ((c ^ ((r & 3) << 1)) << 4);
+    const uint8_t* src = wp + static_cast<size_t>(row) * N + n;
+    if (wvec == 16) {
+      const bool ok = row < kp && n < N;
+      cp_async16(dst, ok ? src : wp, ok);
+    } else if (wvec == 4) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = row < kp && n + 4 * e < N;
+        cp_async4(dst + 4 * e, ok ? src + 4 * e : wp, ok);
+      }
+    } else {  // N % 4 != 0: plain byte loads, stored before the next barrier
+      uint32_t v[4] = {0u, 0u, 0u, 0u};
+      if (row < kp)
+        for (int e = 0; e < 16; ++e)
+          if (n + e < N) v[e >> 2] |= static_cast<uint32_t>(src[e]) << (8 * (e & 3));
+      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
+                   "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+                   : "memory");
+    }
+  }
+}
+
+template <typename OT>
+__device__ __forceinline__ void store8(OT* p, const float (&v)[8], int left,
+                                       bool vec);
+template <>
+__device__ __forceinline__ void store8<__nv_bfloat16>(__nv_bfloat16* p,
+                                                      const float (&v)[8],
+                                                      int left, bool vec) {
+  if (vec && left >= 8) {
+    uint32_t u[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+      u[e] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (e < left) p[e] = __float2bfloat16_rn(v[e]);
+  }
+}
+template <>
+__device__ __forceinline__ void store8<float>(float* p, const float (&v)[8],
+                                              int left, bool vec) {
+  if (vec && left >= 8) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (e < left) p[e] = v[e];
+  }
+}
+
+template <int BITS, typename OT>
+__global__ void __launch_bounds__(T_THREADS, 2)
+    qmm_tc(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ wp,
+           const float* __restrict__ scale, OT* __restrict__ out, int M, int N,
+           int K, int x16, int wvec) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  constexpr int STAGE = Stage<BITS>::BYTES;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps of 64 x 32
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
+  const int kt_n = (K + TK - 1) / TK;
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < T_STAGES - 1; ++s) {
+    if (s < kt_n)
+      load_stage<BITS>(smem + s * STAGE, x, wp, M, N, K, m0, n0, s * TK, tid,
+                       x16, wvec);
+    cp_async_commit();
+  }
+
+  // ldmatrix: lane l addresses row l % 16 of the fragment, K chunk l / 16
+  const uint32_t a_row = (wm * 64 + (lane & 15)) * 128;
+  const int a_chunk = lane >> 4, a_swz = lane & 7;
+  // codes: the lane's 4 columns 4g..4g+3 of the warp's 32, one 32-bit word
+  const int b_chunk = wn * 2 + (g >> 2), b_off = (g & 3) * 4;
+
+  for (int kt = 0; kt < kt_n; ++kt) {
+    cp_async_wait<T_STAGES - 2>();
+    __syncthreads();  // stage kt has landed; stage kt - 1 is free
+    const int nk = kt + T_STAGES - 1;
+    if (nk < kt_n)
+      load_stage<BITS>(smem + (nk % T_STAGES) * STAGE, x, wp, M, N, K, m0, n0,
+                       nk * TK, tid, x16, wvec);
+    cp_async_commit();
+
+    const uint32_t xs = smem_addr(smem + (kt % T_STAGES) * STAGE);
+    const uint32_t ws = xs + XS_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk) {
+      uint32_t a[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        ldmatrix_x4(a[i], xs + a_row + i * 16 * 128 +
+                              (((kk * 2 + a_chunk) ^ a_swz) << 4));
+      // packed rows of the K pairs (2t, 2t+1) and (2t+8, 2t+9)
+      int r0, r1, shift;
+      if (BITS == 4) {
+        r0 = kk * 8 + t;
+        r1 = r0 + 4;
+        shift = 0;
+      } else {
+        r0 = kk * 4 + (t >> 1);
+        r1 = r0 + 2;
+        shift = 4 * (t & 1);
+      }
+      const uint32_t w0 =
+          lds32(ws + r0 * 128 + ((b_chunk ^ ((r0 & 3) << 1)) << 4) + b_off) >> shift;
+      const uint32_t w1 =
+          lds32(ws + r1 * 128 + ((b_chunk ^ ((r1 & 3) << 1)) << 4) + b_off) >> shift;
+      constexpr uint32_t MASK = BITS == 4 ? 0x0F0F0F0Fu : 0x03030303u;
+      uint32_t b0[4], b1[4];
+      codes_to_bf16x2<BITS>(w0 & MASK, (w0 >> BITS) & MASK, b0);
+      codes_to_bf16x2<BITS>(w1 & MASK, (w1 >> BITS) & MASK, b1);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a[i], b0[j], b1[j]);
+    }
+  }
+  cp_async_wait<0>();
+
+  // accumulator (i, j): rows g and g + 8 of M-fragment i, fragment columns
+  // 2t and 2t + 1 of N-fragment j = output columns 8t + j and 8t + 4 + j
+  const int col = n0 + wn * 32 + 8 * t;
+  const int left = N - col;
+  float sc[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) sc[e] = e < left ? scale[col + e] : 0.f;
+  const bool vec = (N % 8) == 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm * 64 + i * 16 + h * 8 + g;
+      if (m >= M || left <= 0) continue;
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[j] = acc[i][j][2 * h] * sc[j];
+        v[4 + j] = acc[i][j][2 * h + 1] * sc[4 + j];
+      }
+      store8<OT>(out + static_cast<size_t>(m) * N + col, v, left, vec);
+    }
+}
+
+template <int BITS, typename OT>
+int launch_tc(const void* x, const void* wp, const void* scale, void* out,
+              int M, int N, int K, cudaStream_t st) {
+  constexpr int SMEM = T_STAGES * Stage<BITS>::BYTES;  // 80 KB / 72 KB
+  const cudaError_t e = cudaFuncSetAttribute(
+      qmm_tc<BITS, OT>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  const uintptr_t wa = reinterpret_cast<uintptr_t>(wp);
+  const int x16 = (K % 8 == 0) && (xa % 16 == 0);
+  const int wvec = (N % 16 == 0 && wa % 16 == 0) ? 16 : (N % 4 == 0 ? 4 : 1);
+  const dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM);
+  qmm_tc<BITS, OT><<<grid, T_THREADS, SMEM, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(wp),
+      static_cast<const float*>(scale), static_cast<OT*>(out), M, N, K, x16,
+      wvec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int BITS, typename XT>
-void launch(const void* x, const void* wp, const void* scale, void* out, int M,
-            int N, int K, cudaStream_t st) {
+int launch_gemv(const void* x, const void* wp, const void* scale, void* out,
+                int M, int N, int K, cudaStream_t st) {
   const XT* xp = static_cast<const XT*>(x);
   const uint8_t* w = static_cast<const uint8_t*>(wp);
   const float* s = static_cast<const float*>(scale);
   XT* o = static_cast<XT*>(out);
-  if (M <= 16) {
-    const dim3 grid((N + GV_COLS - 1) / GV_COLS);
-    if (M <= 1)
-      qmm_gemv<BITS, 1, XT><<<grid, GV_THREADS, 0, st>>>(xp, w, s, o, M, N, K);
-    else if (M <= 2)
-      qmm_gemv<BITS, 2, XT><<<grid, GV_THREADS, 0, st>>>(xp, w, s, o, M, N, K);
-    else if (M <= 4)
-      qmm_gemv<BITS, 4, XT><<<grid, GV_THREADS, 0, st>>>(xp, w, s, o, M, N, K);
-    else if (M <= 8)
-      qmm_gemv<BITS, 8, XT><<<grid, GV_THREADS, 0, st>>>(xp, w, s, o, M, N, K);
-    else
-      qmm_gemv<BITS, 16, XT><<<grid, GV_THREADS, 0, st>>>(xp, w, s, o, M, N, K);
-  } else {
-    const dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM);
-    qmm_tiled<BITS, XT><<<grid, T_THREADS, 0, st>>>(xp, w, s, o, M, N, K);
-  }
+  const dim3 grid((N + GV_COLS - 1) / GV_COLS);
+  if (M <= 1)
+    qmm_gemv<BITS, 1, XT><<<grid, GV_THREADS, 0, st>>>(xp, w, s, o, M, N, K);
+  else if (M <= 2)
+    qmm_gemv<BITS, 2, XT><<<grid, GV_THREADS, 0, st>>>(xp, w, s, o, M, N, K);
+  else if (M <= 4)
+    qmm_gemv<BITS, 4, XT><<<grid, GV_THREADS, 0, st>>>(xp, w, s, o, M, N, K);
+  else if (M <= 8)
+    qmm_gemv<BITS, 8, XT><<<grid, GV_THREADS, 0, st>>>(xp, w, s, o, M, N, K);
+  else
+    qmm_gemv<BITS, 16, XT><<<grid, GV_THREADS, 0, st>>>(xp, w, s, o, M, N, K);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x: (M, K) row-major in `dtype`; wp: (K / (8 / bits), N) uint8; scale: (N,)
-// float32; out: (M, N) in `dtype`.  K must be a multiple of the pack factor.
+// wp: (K / (8 / bits), N) uint8; scale: (N,) float32; out: (M, N) in
+// out_dtype.  K must be a multiple of the pack factor.  x: (M, K) row-major
+// in x_dtype, 4-byte aligned.  M <= 16 (the GEMV) takes x in the output's
+// dtype; M > 16 (the tensor-core kernel) takes bf16 x and writes bf16 or
+// float32.
 extern "C" int quant_matmul_launch(const void* x, const void* wp,
                                    const void* scale, void* out, int M, int N,
-                                   int K, int bits, int dtype, void* stream) {
+                                   int K, int bits, int x_dtype, int out_dtype,
+                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bits == 4 && dtype == repro::kBFloat16)
-    launch<4, __nv_bfloat16>(x, wp, scale, out, M, N, K, st);
-  else if (bits == 2 && dtype == repro::kBFloat16)
-    launch<2, __nv_bfloat16>(x, wp, scale, out, M, N, K, st);
-  else if (bits == 4 && dtype == repro::kFloat32)
-    launch<4, float>(x, wp, scale, out, M, N, K, st);
-  else if (bits == 2 && dtype == repro::kFloat32)
-    launch<2, float>(x, wp, scale, out, M, N, K, st);
-  else
+  const bool bf = out_dtype == repro::kBFloat16;
+  if ((bits != 4 && bits != 2) || (!bf && out_dtype != repro::kFloat32))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  if (M <= 16) {
+    if (x_dtype != out_dtype) return static_cast<int>(cudaErrorInvalidValue);
+    if (bits == 4)
+      return bf ? launch_gemv<4, __nv_bfloat16>(x, wp, scale, out, M, N, K, st)
+                : launch_gemv<4, float>(x, wp, scale, out, M, N, K, st);
+    return bf ? launch_gemv<2, __nv_bfloat16>(x, wp, scale, out, M, N, K, st)
+              : launch_gemv<2, float>(x, wp, scale, out, M, N, K, st);
+  }
+  if (x_dtype != repro::kBFloat16) return static_cast<int>(cudaErrorInvalidValue);
+  if (bits == 4)
+    return bf ? launch_tc<4, __nv_bfloat16>(x, wp, scale, out, M, N, K, st)
+              : launch_tc<4, float>(x, wp, scale, out, M, N, K, st);
+  return bf ? launch_tc<2, __nv_bfloat16>(x, wp, scale, out, M, N, K, st)
+            : launch_tc<2, float>(x, wp, scale, out, M, N, K, st);
 }

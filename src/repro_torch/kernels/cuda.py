@@ -23,6 +23,7 @@ LAUNCHES: Dict[str, int] = {"quant_matmul": 0, "kv_decode_attention": 0,
                             "histogram": 0, "paged_kv_decode_attention": 0}
 HIST_MAX_BINS = 4096            # the kernel's shared-memory counters
 PAGED_MAX_PAGES = 8192          # table entries a slot stages in shared memory
+GEMV_MAX_M = 16                 # quant_matmul rows of the GEMV; above, tiles
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
@@ -31,7 +32,7 @@ _F = ctypes.c_float
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "quant_matmul": ("quant_matmul_launch",
-                     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+                     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "kv_decode_attention": ("kv_decode_attention_launch",
                             [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _F, _P]),
@@ -126,7 +127,9 @@ def lsq_fakequant(x: torch.Tensor, step, bits) -> torch.Tensor:
 def quant_matmul(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
                  bits: int) -> torch.Tensor:
     """x (M, K) @ K-major packed codes (K/pack, N) * scale (N,) -> (M, N)
-    in x's dtype.  K must be the packed K (a multiple of 8 // bits)."""
+    in x's dtype.  K must be the packed K (a multiple of 8 // bits).
+    M <= GEMV_MAX_M runs the GEMV on x as it is; larger M the tensor-core
+    kernel on bf16(x)."""
     _on_card("quant_matmul", x, wp, scale)
     _require(bits in (2, 4), f"quant_matmul: bits must be 2 or 4, got {bits}")
     _require(x.dtype in _DTYPE_CODE, f"quant_matmul: x must be float32 or "
@@ -149,8 +152,17 @@ def quant_matmul(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
         return out
-    _launch("quant_matmul", x.data_ptr(), wp.data_ptr(), scale.data_ptr(),
-            out.data_ptr(), m, n, k, bits, _DTYPE_CODE[x.dtype], _stream())
+    xk = x
+    if m > GEMV_MAX_M:
+        # the tensor-core kernel reads bf16 x (a float32 x rounds to
+        # nearest even here, once) in 4-byte copies; it writes x's dtype
+        if xk.dtype != torch.bfloat16:
+            xk = xk.to(torch.bfloat16)
+        if xk.data_ptr() % 4:
+            xk = xk.clone()
+    _launch("quant_matmul", xk.data_ptr(), wp.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), m, n, k, bits, _DTYPE_CODE[xk.dtype],
+            _DTYPE_CODE[x.dtype], _stream())
     return out
 
 

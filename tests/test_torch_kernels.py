@@ -60,7 +60,10 @@ def test_lsq_fakequant_exact(jax_side, shape, bits):
 
 # ------------------------------------------------------------- quant_matmul
 @pytest.mark.parametrize("bits", [4, 2])
-@pytest.mark.parametrize("m,k,n", [(3, 64, 40), (8, 256, 128)])
+@pytest.mark.parametrize("m,k,n", [(3, 64, 40), (8, 256, 128),
+                                   # the card tests' ragged tiled shapes: a
+                                   # partial last 64-deep K step
+                                   (129, 520, 200), (129, 72, 200)])
 def test_quant_matmul_ref_matches_pallas(jax_side, bits, m, k, n):
     jops, jref = jax_side
     import jax.numpy as jnp
@@ -176,23 +179,79 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("bits", [4, 2])
-@pytest.mark.parametrize("m", [1, 5, 16, 17, 100])
-def test_cuda_quant_matmul(card, bits, m):
+def _cuda_qmm_case(card, bits, m, k, n, dtype=torch.bfloat16, seed=0):
+    """The kernel and its plain version on one random shape; the plain
+    version rounds x to bf16 as the kernel does."""
     from repro_torch.kernels import cuda
-    g = torch.Generator(card).manual_seed(0)
-    k, n = 512, 200
+    g = torch.Generator(card).manual_seed(seed)
     lo, hi = -(1 << (bits - 1)), (1 << (bits - 1))
     codes = torch.randint(lo, hi, (k, n), generator=g, device=card)
     wp = (tref.pack_w4 if bits == 4 else tref.pack_w2)(codes)
-    x = torch.randn((m, k), generator=g, device=card).to(torch.bfloat16)
+    x = torch.randn((m, k), generator=g, device=card).to(dtype)
     scale = torch.rand((n,), generator=g, device=card) * 0.1 + 0.01
-    got = cuda.quant_matmul(x, wp, scale, bits).float()
+    got = cuda.quant_matmul(x, wp, scale, bits)
     f = tref.quant_matmul_w4 if bits == 4 else tref.quant_matmul_w2
-    want = f(x, wp, scale)
+    return got, f(x, wp, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 2])
+@pytest.mark.parametrize("m", [1, 5, 16, 17, 100, 128, 129, 300])
+def test_cuda_quant_matmul(card, bits, m):
+    """The GEMV (M <= 16) and the tensor-core kernel (M > 16) at a ragged
+    N = 200."""
+    got, want = _cuda_qmm_case(card, bits, m, 512, 200)
+    assert got.dtype == torch.bfloat16
     ulp = 2.0 ** -7 * want.abs().max()          # 1 bf16 ulp of max|ref|
+    assert (got.float() - want).abs().max() <= ulp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,m,k,n", [
+    (4, 129, 520, 200),     # partial last K step, 4-byte code copies
+    (2, 129, 72, 200),
+    (2, 300, 520, 256),     # 16-byte copies throughout
+    (4, 129, 66, 37),       # K % 8 != 0 (4-byte x copies), odd N (bytes)
+    (2, 17, 68, 37),
+    (4, 4099, 2048, 2048),  # ragged M at a projection's width
+])
+def test_cuda_quant_matmul_tiled_ragged(card, bits, m, k, n):
+    got, want = _cuda_qmm_case(card, bits, m, k, n, seed=1)
+    ulp = 2.0 ** -7 * want.abs().max()
+    assert (got.float() - want).abs().max() <= ulp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 2])
+@pytest.mark.parametrize("m", [8, 129])
+def test_cuda_quant_matmul_float32(card, bits, m):
+    """float32 x: the kernel multiplies bf16(x) and writes float32."""
+    got, want = _cuda_qmm_case(card, bits, m, 520, 200, torch.float32, 2)
+    assert got.dtype == torch.float32
+    ulp = 2.0 ** -7 * want.abs().max()
     assert (got - want).abs().max() <= ulp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 2])
+def test_cuda_quant_matmul_identity_probe(card, bits):
+    """x = the K x K identity, packed bytes cycling through all 256 values
+    in every row: each output is code * scale rounded once to bf16, so the
+    kernel equals codes * scale bit for bit.  A wrong lane byte or bit
+    offset, or a wrong swizzled row, moves a code to another output."""
+    from repro_torch.kernels import cuda
+    k = n = 256
+    r = torch.arange(k // (8 // bits), device=card)[:, None]
+    wp = ((r + torch.arange(n, device=card)[None, :]) % 256).to(torch.uint8)
+    scale = torch.rand((n,), generator=torch.Generator(card).manual_seed(3),
+                       device=card) + 0.5
+    x = torch.eye(k, device=card, dtype=torch.bfloat16)
+    got = cuda.quant_matmul(x, wp, scale, bits)
+    unpack = tref.unpack_w4 if bits == 4 else tref.unpack_w2
+    want = (unpack(wp, torch.float32) * scale[None]).to(torch.bfloat16)
+    assert torch.equal(got, want)
+    f = tref.quant_matmul_w4 if bits == 4 else tref.quant_matmul_w2
+    assert torch.equal(got, f(x, wp, scale).to(torch.bfloat16))
 
 
 @pytest.mark.cuda
