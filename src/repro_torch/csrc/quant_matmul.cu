@@ -50,6 +50,11 @@
 //    astype) and the kernel then writes float32.  Shapes whose rows are not
 //    16-byte aligned (K % 8, N % 16) take 4-byte copies, and N % 4 != 0
 //    plain byte loads, in the same kernel.
+#include <cuda.h>  // CUtensorMap; the encoder comes through the runtime
+
+#include <map>
+#include <tuple>
+
 #include "common.cuh"
 
 namespace {
@@ -222,21 +227,21 @@ __device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t s) {
   return d;
 }
 
-// Four columns' codes, one byte each (w: byte j is column j), to one bf16x2
-// B register per column: lo holds the even K row's code and hi the odd one's,
+// COLS columns' codes, one byte each (byte j is column j), to one bf16x2
+// register per column: lo holds the even K row's code and hi the odd one's,
 // each masked to BITS bits.  Byte j of lo goes to bits 0-7 and byte j of hi
 // to bits 16-23; selector nibble 8 copies the sign of lo's byte 0, which is
 // 0.  XOR with 0x4300 | bias sets the exponent of 128 and biases the code,
 // and one FMA subtracts 128 + bias: exact for every code.
-template <int BITS>
+template <int BITS, int COLS>
 __device__ __forceinline__ void codes_to_bf16x2(uint32_t lo, uint32_t hi,
-                                                uint32_t (&b)[4]) {
+                                                uint32_t (&b)[COLS]) {
   constexpr uint32_t BIAS = 1u << (BITS - 1);
   constexpr uint32_t MAGIC = (0x4300u | BIAS) * 0x10001u;
   constexpr uint32_t NEG = (0xC300u | BIAS) * 0x10001u;  // -(128 + BIAS)
   constexpr uint32_t ONE = 0x3F803F80u;                   // 1.0, 1.0
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < COLS; ++j) {
     const uint32_t v = prmt(lo, hi, 0x8080u | ((4u + j) << 8) | j) ^ MAGIC;
     asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
         : "=r"(b[j])
@@ -333,6 +338,18 @@ __device__ __forceinline__ void store8<float>(float* p, const float (&v)[8],
   }
 }
 
+template <typename OT>
+__device__ __forceinline__ void store2(OT* p, float a, float b);
+template <>
+__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p,
+                                                      float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+template <>
+__device__ __forceinline__ void store2<float>(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
 template <int BITS, typename OT>
 __global__ void __launch_bounds__(T_THREADS, 2)
     qmm_tc(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ wp,
@@ -403,8 +420,8 @@ __global__ void __launch_bounds__(T_THREADS, 2)
           lds32(ws + r1 * 128 + ((b_chunk ^ ((r1 & 3) << 1)) << 4) + b_off) >> shift;
       constexpr uint32_t MASK = BITS == 4 ? 0x0F0F0F0Fu : 0x03030303u;
       uint32_t b0[4], b1[4];
-      codes_to_bf16x2<BITS>(w0 & MASK, (w0 >> BITS) & MASK, b0);
-      codes_to_bf16x2<BITS>(w1 & MASK, (w1 >> BITS) & MASK, b1);
+      codes_to_bf16x2<BITS, 4>(w0 & MASK, (w0 >> BITS) & MASK, b0);
+      codes_to_bf16x2<BITS, 4>(w1 & MASK, (w1 >> BITS) & MASK, b1);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -456,6 +473,293 @@ int launch_tc(const void* x, const void* wp, const void* scale, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// qmm_wg: the Hopper route, out^T = W^T x^T.  The codes are wgmma's A operand
+// from registers (rows = output channels), x is its B operand from shared
+// memory (x's rows are tokens with K contiguous: B's K-major layout).
+// One producer warpgroup issues TMA loads of x (256 tokens x 64 K, 128-byte
+// swizzle) and of the codes (64 K x 128 channels, 128-byte swizzle) into a
+// ring of stages guarded by mbarriers; two consumer warpgroups of 64
+// channels each run wgmma.m64n256k16 with fp32 accumulators in registers.
+// TMA zero-fills the ragged edge.  It needs K % 8 == 0 and N % 16 == 0
+// (TMA's 16-byte row strides); other shapes run qmm_tc.
+constexpr int WG_CH = 128;       // output channels a block: 2 x 64
+constexpr int WG_TOK = 256;      // tokens a block: wgmma's N
+constexpr int WG_K = 64;         // K step: one 128-byte row of bf16 x
+constexpr int WG_STAGES = 4;
+constexpr int WG_THREADS = 384;  // 2 consumer warpgroups, then the producer
+constexpr int WG_XBYTES = WG_TOK * WG_K * 2;  // 32 KB
+
+template <int BITS>
+struct WgShape {
+  static constexpr int WROWS = WG_K / (8 / BITS);     // packed rows a stage
+  static constexpr int WBYTES = WROWS * WG_CH;         // 4 KB / 2 KB
+  static constexpr int SMEM =
+      WG_STAGES * (WG_XBYTES + WBYTES) + 2 * WG_STAGES * 8 + 1024;
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t lds16(uint32_t addr) {
+  unsigned short v;
+  asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(addr));
+  return v;
+}
+
+// Shared-memory descriptor of a K-major bf16 tile with 128-byte rows and the
+// 128-byte swizzle: 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |            // LBO (unused here)
+         (static_cast<uint64_t>(1024 >> 4) << 32) |    // SBO
+         (static_cast<uint64_t>(1) << 62);             // 128-byte swizzle
+}
+
+#define WG_D8(i)                                                    \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),       \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 256, fp32) += a (64 x 16 bf16, registers) * B (16 x 256, smem)
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "
+      "%122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
+      "}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40),
+        WG_D8(48), WG_D8(56), WG_D8(64), WG_D8(72), WG_D8(80), WG_D8(88),
+        WG_D8(96), WG_D8(104), WG_D8(112), WG_D8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+#undef WG_D8
+
+template <int BITS, typename OT>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    qmm_wg(const __grid_constant__ CUtensorMap xmap,
+           const __grid_constant__ CUtensorMap wmap,
+           const float* __restrict__ scale, OT* __restrict__ out, int M, int N,
+           int K) {
+  using S = WgShape<BITS>;
+  extern __shared__ uint8_t wg_smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the ring to it
+  const uint32_t base = (smem_addr(wg_smem_raw) + 1023u) & ~1023u;
+  const uint32_t xs = base;                             // WG_STAGES x 32 KB
+  const uint32_t ws = xs + WG_STAGES * WG_XBYTES;       // WG_STAGES x WBYTES
+  const uint32_t full = ws + WG_STAGES * S::WBYTES;     // mbarriers, 8 B each
+  const uint32_t empty = full + 8 * WG_STAGES;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int n0 = blockIdx.x * WG_CH, m0 = blockIdx.y * WG_TOK;
+  const int kt_n = (K + WG_K - 1) / WG_K;
+
+  if (tid == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 256);  // every consumer thread releases
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 256) {
+      for (int kt = 0; kt < kt_n; ++kt) {
+        const int s = kt % WG_STAGES;
+        if (kt >= WG_STAGES) mbar_wait(empty + 8 * s, (kt / WG_STAGES - 1) & 1);
+        mbar_expect_tx(full + 8 * s, WG_XBYTES + S::WBYTES);
+        tma_load_2d(xs + s * WG_XBYTES, &xmap, full + 8 * s, kt * WG_K, m0);
+        tma_load_2d(ws + s * S::WBYTES, &wmap, full + 8 * s, n0,
+                    kt * S::WROWS);
+      }
+    }
+  } else {  // consumer warpgroup wg: channels n0 + 64 wg .. + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    // A row 16 warp + g + 8 h is channel 64 wg + 16 warp + 2 g + h: the two
+    // channels of a lane are neighbouring bytes of a packed row, in the
+    // 16-byte chunk 4 wg + warp of the 128-byte row (swizzled by row % 8)
+    const int chunk = 4 * wg + warp, boff = 2 * g;
+    float d[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) d[i] = 0.f;
+    for (int kt = 0; kt < kt_n; ++kt) {
+      const int s = kt % WG_STAGES;
+      mbar_wait(full + 8 * s, (kt / WG_STAGES) & 1);
+      const uint32_t wsa = ws + s * S::WBYTES;
+      uint32_t a[4][4];
+#pragma unroll
+      for (int kk = 0; kk < WG_K / 16; ++kk) {
+        int r0, r1, shift;
+        if (BITS == 4) {
+          r0 = kk * 8 + t;
+          r1 = r0 + 4;
+          shift = 0;
+        } else {
+          r0 = kk * 4 + (t >> 1);
+          r1 = r0 + 2;
+          shift = 4 * (t & 1);
+        }
+        const uint32_t u0 =
+            lds16(wsa + r0 * 128 + ((chunk ^ (r0 & 7)) << 4) + boff) >> shift;
+        const uint32_t u1 =
+            lds16(wsa + r1 * 128 + ((chunk ^ (r1 & 7)) << 4) + boff) >> shift;
+        constexpr uint32_t MASK = BITS == 4 ? 0x0F0Fu : 0x0303u;
+        uint32_t b0[2], b1[2];
+        codes_to_bf16x2<BITS, 2>(u0 & MASK, (u0 >> BITS) & MASK, b0);
+        codes_to_bf16x2<BITS, 2>(u1 & MASK, (u1 >> BITS) & MASK, b1);
+        a[kk][0] = b0[0];  // row g, K pair (2t, 2t+1)
+        a[kk][1] = b0[1];  // row g + 8
+        a[kk][2] = b1[0];  // row g, K pair (2t+8, 2t+9)
+        a[kk][3] = b1[1];
+      }
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      const uint64_t desc = wg_desc(xs + s * WG_XBYTES);
+#pragma unroll
+      for (int kk = 0; kk < WG_K / 16; ++kk)
+        wgmma_m64n256k16(d, a[kk], desc + 2 * kk);  // + 32 bytes of K
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      mbar_arrive(empty + 8 * s);
+    }
+#pragma unroll
+    for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+
+    // d[4 i + 2 h + v]: channel 64 wg + 16 warp + 2 g + h, token 8 i + 2 t + v
+    const int ch = n0 + 64 * wg + 16 * warp + 2 * g;
+    if (ch < N) {  // N % 16 == 0: ch + 1 < N too
+      const float s0 = scale[ch], s1 = scale[ch + 1];
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const int m = m0 + 8 * i + 2 * t + v;
+          if (m < M) store2<OT>(out + static_cast<size_t>(m) * N + ch,
+                                d[4 * i + v] * s0, d[4 * i + 2 + v] * s1);
+        }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled through the runtime, so the library
+// needs no -lcuda.  Descriptors are cached by pointer, shape and box.
+int tensor_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
+               int elem_bytes, int rows, int cols, int box_rows,
+               int box_cols) {
+  static EncodeTiled encode = nullptr;
+  static std::map<std::tuple<const void*, int, int, int, int, int>,
+                  CUtensorMap>
+      cache;
+  const auto key =
+      std::make_tuple(ptr, elem_bytes, rows, cols, box_rows, box_cols);
+  const auto hit = cache.find(key);
+  if (hit != cache.end()) {
+    *map = hit->second;
+    return 0;
+  }
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (q != cudaDriverEntryPointSuccess || fn == nullptr)
+      return static_cast<int>(cudaErrorNotSupported);
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult r = encode(map, type, 2, const_cast<void*>(ptr), dims,
+                            strides, box, elem_strides,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
+  if (cache.size() >= 4096) cache.clear();
+  cache.emplace(key, *map);
+  return 0;
+}
+
+template <int BITS, typename OT>
+int launch_wg(const void* x, const void* wp, const void* scale, void* out,
+              int M, int N, int K, cudaStream_t st) {
+  using S = WgShape<BITS>;
+  CUtensorMap xmap, wmap;
+  int e = tensor_map(&xmap, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K,
+                     WG_TOK, WG_K);
+  if (e == 0)
+    e = tensor_map(&wmap, wp, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K / (8 / BITS),
+                   N, S::WROWS, WG_CH);
+  if (e != 0) return e;
+  const cudaError_t a = cudaFuncSetAttribute(
+      qmm_wg<BITS, OT>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+  if (a != cudaSuccess) return static_cast<int>(a);
+  const dim3 grid((N + WG_CH - 1) / WG_CH, (M + WG_TOK - 1) / WG_TOK);
+  qmm_wg<BITS, OT><<<grid, WG_THREADS, S::SMEM, st>>>(
+      xmap, wmap, static_cast<const float*>(scale), static_cast<OT*>(out), M,
+      N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int BITS, typename XT>
 int launch_gemv(const void* x, const void* wp, const void* scale, void* out,
                 int M, int N, int K, cudaStream_t st) {
@@ -501,6 +805,17 @@ extern "C" int quant_matmul_launch(const void* x, const void* wp,
               : launch_gemv<2, float>(x, wp, scale, out, M, N, K, st);
   }
   if (x_dtype != repro::kBFloat16) return static_cast<int>(cudaErrorInvalidValue);
+  // TMA's row strides and bases must be multiples of 16 bytes
+  const bool tma = K % 8 == 0 && N % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(wp) % 16 == 0;
+  if (tma) {
+    if (bits == 4)
+      return bf ? launch_wg<4, __nv_bfloat16>(x, wp, scale, out, M, N, K, st)
+                : launch_wg<4, float>(x, wp, scale, out, M, N, K, st);
+    return bf ? launch_wg<2, __nv_bfloat16>(x, wp, scale, out, M, N, K, st)
+              : launch_wg<2, float>(x, wp, scale, out, M, N, K, st);
+  }
   if (bits == 4)
     return bf ? launch_tc<4, __nv_bfloat16>(x, wp, scale, out, M, N, K, st)
               : launch_tc<4, float>(x, wp, scale, out, M, N, K, st);
