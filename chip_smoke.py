@@ -160,15 +160,17 @@ def qmm_case(timer, dev, gen, bits, m, k, n, wp=None, x=None):
     flop = 2.0 * m * n * k
     rec["bound_ms"], rec["bound_by"] = bound_ms(nb, flop, BF16_OPS_PER_S)
     rate = ""
-    if m > cuda.GEMV_MAX_M:
+    rec["route"] = cuda.quant_matmul_route(m, n, k)
+    if rec["route"] != "gemv":
         rec["tflops"] = flop / rec["ms"] * 1e-9
         rec["x_cublas"] = rec["ms"] / rec["library_ms"]
         rate = (f", {rec['tflops']:.1f} TFLOP/s, {rec['x_cublas']:.2f}x "
                 f"cuBLAS")
-    log(f"  quant_matmul w{bits} M={m} K={k} N={n}: err {err:.3g} (tol "
-        f"{tol:.3g}, 1 bf16 ulp of max|ref|) {rec['ms']:.4f} ms, plain "
-        f"{rec['plain_ms']:.4f}, cuBLAS bf16 {rec['library_ms']:.4f}, bound "
-        f"{rec['bound_ms']:.4f} ({rec['bound_by']}){rate}")
+    log(f"  quant_matmul {rec['route']} w{bits} M={m} K={k} N={n}: err "
+        f"{err:.3g} (tol {tol:.3g}, 1 bf16 ulp of max|ref|) "
+        f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}, cuBLAS bf16 "
+        f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} "
+        f"({rec['bound_by']}){rate}")
     return rec, got, want
 
 
@@ -193,8 +195,9 @@ def identity_probe(timer, dev, gen, bits):
 def check_quant_matmul(timer, dev, gen):
     """The main path's twelve shapes (bits 4 and 2, the three projection
     shapes of olmo-1b, decode M = 8 and prefill M = 4096), the identity
-    probe, and ragged tiled shapes: M = 4099 (ragged M), and M = 129 with
-    N = 200 and K = 520 (ragged M, N and a partial last K step)."""
+    probe, and ragged tiled shapes: M = 4099 (a ragged M through the wgmma
+    route), and M = 129 with N = 200 and K = 520 (ragged M, N and a partial
+    last K step; N % 16 != 0 takes the mma.sync route)."""
     cases = []
     for bits in (4, 2):
         for (k, n) in ((2048, 2048), (2048, 8192), (8192, 2048)):

@@ -22,34 +22,46 @@
 //    reduce through warp shuffles and shared memory in a fixed order.
 //  * Prefill (M = tokens, here 4096) is bound by operations: the gate
 //    projection (K = 2048, N = 8192) is 2 * 4096 * 2048 * 8192 = 137 GFLOP,
-//    0.139 ms at 989 TFLOP/s, against 4.2 MB of x and codes.  qmm_tc runs
-//    bf16 tensor cores (mma.sync m16n8k16, fp32 accumulators in registers):
-//    - a block computes a 128 x 128 output tile with 8 warps of 64 (M) x 32
-//      (N), 64 accumulators a thread, in K steps of 64, so each x tile is
-//      read by N / 128 blocks instead of N / 64;
-//    - a ring of 4 stages in dynamic shared memory (x 128 x 64 bf16 = 16 KB
-//      plus the packed codes, 4 KB at int4, 2 KB at int2) is filled with
-//      16-byte cp.async.cg copies, 2 stages in flight while one computes;
-//      ragged M, N and K copy zero (src-size 0);
-//    - x is stored with a 16-byte-chunk XOR swizzle (chunk ^ row % 8) and
-//      read into A fragments with ldmatrix.x4, free of bank conflicts;
-//    - the codes stay packed in shared memory and go straight into B
-//      fragments: lane (g, t) of m16n8k16 holds the K pairs (2t, 2t+1) and
-//      (2t+8, 2t+9) of one column, which at int4 are exactly bytes t and
-//      t + 4 of a 16-deep K step, and at int2 the bit-pairs at offset
-//      4 (t & 1) of bytes t / 2 and t / 2 + 2.  The warp's fragment column
-//      g of N-fragment j is output column 4 g + j, so one 32-bit load gives
-//      a lane its bytes for all 4 N-fragments.  A code c becomes bf16
-//      exactly: 0x4300 | (c ^ 8) is 136 + sext(c) (int4; 0x4300 | (c ^ 2)
-//      is 130 + sext(c) at int2), minus 136 (130) in one bf16x2 FMA;
-//    - the epilogue multiplies by the scale in registers and stores 8
-//      neighbouring columns a lane (one 16-byte store of bf16) from the
-//      accumulators, masked at the ragged edge.
-//    x reaches the kernel as bf16; the wrapper rounds a float32 x to bf16
-//    once (round to nearest even, the rounding of the Pallas kernel's
-//    astype) and the kernel then writes float32.  Shapes whose rows are not
-//    16-byte aligned (K % 8, N % 16) take 4-byte copies, and N % 4 != 0
-//    plain byte loads, in the same kernel.
+//    0.139 ms at 989 TFLOP/s, against 4.2 MB of x and codes.  Two routes,
+//    chosen by shape in the wrapper (never one after the other fails):
+//    - qmm_wg, where K % 8 == 0 and N % 16 == 0 (TMA's 16-byte row
+//      strides; every olmo-1b projection): the product runs transposed,
+//      out^T = W^T x^T, on wgmma.m64n256k16 with the codes as the A operand
+//      in registers and x as the K-major B operand in shared memory.  A
+//      block computes 128 channels x 256 tokens: a producer warpgroup
+//      keeps TMA loads of x (256 x 64 bf16) and of the packed codes (64 K x
+//      128 channels), both 128-byte swizzled, in flight in a 4-stage ring
+//      of mbarriers; two consumer warpgroups of 64 channels each convert
+//      their codes to A fragments and run 4 wgmmas a stage, fp32
+//      accumulators in registers (128 a thread).
+//    - qmm_tc, for the other shapes: mma.sync m16n8k16 on 128 x 128 tiles,
+//      8 warps of 64 (M) x 32 (N) with 64 fp32 accumulators a thread, fed
+//      by a 4-stage cp.async ring (16-byte copies; 4-byte copies where K % 8
+//      or N % 16 breaks alignment, plain byte loads where N % 4 does), x
+//      stored with an XOR swizzle (chunk ^ row % 8) and read by ldmatrix.x4.
+//    Against the four limits of the earlier 64 x 64 WMMA kernel:
+//    1. loads overlap the math: TMA (qmm_wg) or cp.async (qmm_tc) fills
+//       stages ahead of the one the tensor cores read; ragged M, N and K
+//       are zero-filled by the copy (TMA's out-of-bounds fill, cp.async's
+//       src-size 0);
+//    2. the codes stay packed in shared memory (4 KB a stage at int4, 2 KB
+//       at int2) and go straight into fragments in registers.  In the
+//       m16n8k16 layout (and wgmma's A, which has it) a lane holds the K
+//       pairs (2t, 2t+1) and (2t+8, 2t+9) of a row: at int4 exactly bytes t
+//       and t + 4 of a 16-deep K step, at int2 the bit-pairs at offset
+//       4 (t & 1) of bytes t / 2 and t / 2 + 2, so x needs no K
+//       permutation.  A code c becomes bf16 exactly: 0x4300 | (c ^ 8) is
+//       136 + sext(c) (int4; 0x4300 | (c ^ 2) is 130 + sext(c) at int2),
+//       minus 136 (130) in one bf16x2 FMA.  The fragment rows (columns)
+//       are permuted over the output channels so that one 16-bit (32-bit)
+//       load gives a lane its bytes;
+//    3. the tiles are 128 x 256 (wgmma) or 128 x 128 (mma.sync) instead of
+//       64 x 64, so x is re-read by N / 128 blocks instead of N / 64;
+//    4. the epilogue scales and stores straight from the accumulators,
+//       masked at the ragged edge; nothing passes through shared memory.
+//    x reaches the tensor cores as bf16; the wrapper rounds a float32 x to
+//    bf16 once (round to nearest even, the rounding of the Pallas kernel's
+//    astype) and the kernels then write float32.
 #include <cuda.h>  // CUtensorMap; the encoder comes through the runtime
 
 #include <map>
@@ -177,8 +189,8 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// cp.async of `size` bytes (16 or 4); src-size 0 writes zeros and reads
-// nothing.
+// cp.async of 16 (or 4) bytes; with valid == false the src-size is 0: the
+// destination is zero-filled and nothing is read.
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
@@ -474,15 +486,7 @@ int launch_tc(const void* x, const void* wp, const void* scale, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// qmm_wg: the Hopper route, out^T = W^T x^T.  The codes are wgmma's A operand
-// from registers (rows = output channels), x is its B operand from shared
-// memory (x's rows are tokens with K contiguous: B's K-major layout).
-// One producer warpgroup issues TMA loads of x (256 tokens x 64 K, 128-byte
-// swizzle) and of the codes (64 K x 128 channels, 128-byte swizzle) into a
-// ring of stages guarded by mbarriers; two consumer warpgroups of 64
-// channels each run wgmma.m64n256k16 with fp32 accumulators in registers.
-// TMA zero-fills the ragged edge.  It needs K % 8 == 0 and N % 16 == 0
-// (TMA's 16-byte row strides); other shapes run qmm_tc.
+// qmm_wg: the Hopper route (see the top of the file).
 constexpr int WG_CH = 128;       // output channels a block: 2 x 64
 constexpr int WG_TOK = 256;      // tokens a block: wgmma's N
 constexpr int WG_K = 64;         // K step: one 128-byte row of bf16 x
@@ -785,37 +789,44 @@ int launch_gemv(const void* x, const void* wp, const void* scale, void* out,
 
 // wp: (K / (8 / bits), N) uint8; scale: (N,) float32; out: (M, N) in
 // out_dtype.  K must be a multiple of the pack factor.  x: (M, K) row-major
-// in x_dtype, 4-byte aligned.  M <= 16 (the GEMV) takes x in the output's
-// dtype; M > 16 (the tensor-core kernel) takes bf16 x and writes bf16 or
-// float32.
+// in x_dtype.  The caller picks the kernel by shape (cuda.py's
+// quant_matmul_route); each launch checks what its kernel needs:
+//   kGemv    M <= 16, x in the output's dtype;
+//   kMmaSync bf16 x, 4-byte aligned;
+//   kWgmma   bf16 x, K % 8 == 0 and N % 16 == 0 (TMA's 16-byte row
+//            strides), 16-byte aligned x and wp.
+enum Route { kGemv = 0, kMmaSync = 1, kWgmma = 2 };
+
 extern "C" int quant_matmul_launch(const void* x, const void* wp,
                                    const void* scale, void* out, int M, int N,
                                    int K, int bits, int x_dtype, int out_dtype,
-                                   void* stream) {
+                                   int route, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool bf = out_dtype == repro::kBFloat16;
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  const uintptr_t wa = reinterpret_cast<uintptr_t>(wp);
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
   if ((bits != 4 && bits != 2) || (!bf && out_dtype != repro::kFloat32))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (M <= 16) {
-    if (x_dtype != out_dtype) return static_cast<int>(cudaErrorInvalidValue);
+    return bad;
+  if (route == kGemv) {
+    if (M > 16 || x_dtype != out_dtype) return bad;
     if (bits == 4)
       return bf ? launch_gemv<4, __nv_bfloat16>(x, wp, scale, out, M, N, K, st)
                 : launch_gemv<4, float>(x, wp, scale, out, M, N, K, st);
     return bf ? launch_gemv<2, __nv_bfloat16>(x, wp, scale, out, M, N, K, st)
               : launch_gemv<2, float>(x, wp, scale, out, M, N, K, st);
   }
-  if (x_dtype != repro::kBFloat16) return static_cast<int>(cudaErrorInvalidValue);
-  // TMA's row strides and bases must be multiples of 16 bytes
-  const bool tma = K % 8 == 0 && N % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(wp) % 16 == 0;
-  if (tma) {
+  if (x_dtype != repro::kBFloat16 || xa % 4 != 0) return bad;
+  if (route == kWgmma) {
+    if (K <= 0 || K % 8 != 0 || N % 16 != 0 || xa % 16 != 0 || wa % 16 != 0)
+      return bad;
     if (bits == 4)
       return bf ? launch_wg<4, __nv_bfloat16>(x, wp, scale, out, M, N, K, st)
                 : launch_wg<4, float>(x, wp, scale, out, M, N, K, st);
     return bf ? launch_wg<2, __nv_bfloat16>(x, wp, scale, out, M, N, K, st)
               : launch_wg<2, float>(x, wp, scale, out, M, N, K, st);
   }
+  if (route != kMmaSync) return bad;
   if (bits == 4)
     return bf ? launch_tc<4, __nv_bfloat16>(x, wp, scale, out, M, N, K, st)
               : launch_tc<4, float>(x, wp, scale, out, M, N, K, st);

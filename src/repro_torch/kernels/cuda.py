@@ -24,6 +24,7 @@ LAUNCHES: Dict[str, int] = {"quant_matmul": 0, "kv_decode_attention": 0,
 HIST_MAX_BINS = 4096            # the kernel's shared-memory counters
 PAGED_MAX_PAGES = 8192          # table entries a slot stages in shared memory
 GEMV_MAX_M = 16                 # quant_matmul rows of the GEMV; above, tiles
+QMM_ROUTES = ("gemv", "mma.sync", "wgmma")   # the C launcher's route codes
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
@@ -32,7 +33,7 @@ _F = ctypes.c_float
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "quant_matmul": ("quant_matmul_launch",
-                     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+                     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "kv_decode_attention": ("kv_decode_attention_launch",
                             [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _F, _P]),
@@ -128,8 +129,8 @@ def quant_matmul(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
                  bits: int) -> torch.Tensor:
     """x (M, K) @ K-major packed codes (K/pack, N) * scale (N,) -> (M, N)
     in x's dtype.  K must be the packed K (a multiple of 8 // bits).
-    M <= GEMV_MAX_M runs the GEMV on x as it is; larger M the tensor-core
-    kernel on bf16(x)."""
+    ``quant_matmul_route`` picks the kernel: the GEMV on x as it is, or a
+    tensor-core kernel on bf16(x)."""
     _on_card("quant_matmul", x, wp, scale)
     _require(bits in (2, 4), f"quant_matmul: bits must be 2 or 4, got {bits}")
     _require(x.dtype in _DTYPE_CODE, f"quant_matmul: x must be float32 or "
@@ -152,18 +153,29 @@ def quant_matmul(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
         return out
-    xk = x
-    if m > GEMV_MAX_M:
-        # the tensor-core kernel reads bf16 x (a float32 x rounds to
-        # nearest even here, once) in 4-byte copies; it writes x's dtype
-        if xk.dtype != torch.bfloat16:
-            xk = xk.to(torch.bfloat16)
-        if xk.data_ptr() % 4:
-            xk = xk.clone()
-    _launch("quant_matmul", xk.data_ptr(), wp.data_ptr(), scale.data_ptr(),
-            out.data_ptr(), m, n, k, bits, _DTYPE_CODE[xk.dtype],
-            _DTYPE_CODE[x.dtype], _stream())
+    route = quant_matmul_route(m, n, k)
+    if route != "gemv":
+        # the tensor-core kernels read bf16 x (a float32 x rounds to
+        # nearest even here, once) and write x's dtype; their copies need
+        # 16-byte aligned bases, which a fresh copy has
+        x = x.to(torch.bfloat16)
+        if x.data_ptr() % 16:
+            x = x.clone()
+        if route == "wgmma" and wp.data_ptr() % 16:
+            wp = wp.clone()
+    _launch("quant_matmul", x.data_ptr(), wp.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), m, n, k, bits, _DTYPE_CODE[x.dtype],
+            _DTYPE_CODE[out.dtype], QMM_ROUTES.index(route), _stream())
     return out
+
+
+def quant_matmul_route(m: int, n: int, k: int) -> str:
+    """The kernel of a quant_matmul launch, by shape alone: "gemv" for
+    M <= GEMV_MAX_M; above it "wgmma" where TMA's 16-byte row strides hold
+    (K % 8 == 0 for bf16 x, N % 16 == 0 for the codes), else "mma.sync"."""
+    if m <= GEMV_MAX_M:
+        return "gemv"
+    return "wgmma" if k > 0 and k % 8 == 0 and n % 16 == 0 else "mma.sync"
 
 
 def histogram(codes: torch.Tensor, n_bins: int) -> torch.Tensor:

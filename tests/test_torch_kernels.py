@@ -208,17 +208,44 @@ def test_cuda_quant_matmul(card, bits, m):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits,m,k,n", [
-    (4, 129, 520, 200),     # partial last K step, 4-byte code copies
+    # mma.sync: partial last K step, 4-byte code copies
+    (4, 129, 520, 200),
     (2, 129, 72, 200),
-    (2, 300, 520, 256),     # 16-byte copies throughout
-    (4, 129, 66, 37),       # K % 8 != 0 (4-byte x copies), odd N (bytes)
+    # mma.sync: K % 8 != 0 (4-byte x copies), odd N (byte loads)
+    (4, 129, 66, 37),
     (2, 17, 68, 37),
+    # wgmma: partial last K step and ragged M zero-filled by TMA
+    (2, 300, 520, 256),
+    (4, 17, 72, 256),
     (4, 4099, 2048, 2048),  # ragged M at a projection's width
 ])
 def test_cuda_quant_matmul_tiled_ragged(card, bits, m, k, n):
     got, want = _cuda_qmm_case(card, bits, m, k, n, seed=1)
     ulp = 2.0 ** -7 * want.abs().max()
     assert (got.float() - want).abs().max() <= ulp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [256, 200])
+def test_cuda_quant_matmul_misaligned_views(card, n):
+    """x 2 bytes and wp 4 bytes past a 16-byte boundary: the wrapper copies
+    what a route's 16-byte copies cannot read, so the shape alone picks the
+    route (wgmma at N = 256, mma.sync at N = 200)."""
+    from repro_torch.kernels import cuda
+    g = torch.Generator(card).manual_seed(4)
+    m, k, bits = 129, 520, 4
+    codes = torch.randint(-8, 8, (k, n), generator=g, device=card)
+    packed = tref.pack_w4(codes)
+    wbuf = torch.empty(packed.numel() + 16, dtype=torch.uint8, device=card)
+    wp = wbuf[4:4 + packed.numel()].view(packed.shape)
+    wp.copy_(packed)
+    xbuf = torch.randn((m * k + 8,), generator=g, device=card).bfloat16()
+    x = xbuf[1:1 + m * k].view(m, k)
+    assert x.data_ptr() % 16 and wp.data_ptr() % 16
+    scale = torch.rand((n,), generator=g, device=card) * 0.1 + 0.01
+    got = cuda.quant_matmul(x, wp, scale, bits).float()
+    want = tref.quant_matmul_w4(x, wp, scale)
+    assert (got - want).abs().max() <= 2.0 ** -7 * want.abs().max()
 
 
 @pytest.mark.cuda
@@ -383,6 +410,19 @@ def test_packed_matmul_pads_ragged_k(bits):
     _close(got, want)
     with pytest.raises(ValueError, match="K=66"):
         tops.packed_matmul(x[:, :66], p)
+
+
+def test_quant_matmul_route():
+    """The GEMV for M <= 16; above it wgmma where TMA's 16-byte row strides
+    hold (K % 8 == 0 for bf16 x, N % 16 == 0 for the codes), mma.sync
+    elsewhere: every olmo-1b projection takes wgmma in prefill, and the
+    card tests' N = 200 and 37 and K = 66 take mma.sync."""
+    from repro_torch.kernels import cuda
+    assert cuda.quant_matmul_route(16, 2048, 2048) == "gemv"
+    for n, k in ((2048, 2048), (8192, 2048), (2048, 8192), (256, 520)):
+        assert cuda.quant_matmul_route(4096, n, k) == "wgmma"
+    for n, k in ((200, 520), (37, 64), (256, 66), (2048, 0)):
+        assert cuda.quant_matmul_route(17, n, k) == "mma.sync"
 
 
 def test_nvcc_missing_raises(monkeypatch, tmp_path):
