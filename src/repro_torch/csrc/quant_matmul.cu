@@ -699,8 +699,8 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
 
-// The driver's cuTensorMapEncodeTiled through the runtime, so the library
-// needs no -lcuda.  Descriptors are cached by pointer, shape and box.
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime so the
+// library needs no -lcuda.  Descriptors are cached by pointer, shape and box.
 int tensor_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
                int elem_bytes, int rows, int cols, int box_rows,
                int box_cols) {
