@@ -11,7 +11,9 @@ Phases, in order; any failure exits non-zero:
                the main path's shapes, with its tolerance, kernel / plain /
                library times (CUDA events, warm-up excluded, L2 flushed) and
                bound; the paged decode also bit for bit against the
-               contiguous kernel on the gathered cache.
+               contiguous kernel on the gathered cache, and the probes of
+               quant_matmul (identity) and flash_attention (selector) bit
+               for bit.
   select     - EAGL gains of olmo-1b at full width, weights drawn on the
                card from seed 0, through the histogram kernel and through
                impl="ref" (the same knapsack take), and the 4/2 mix the
@@ -262,7 +264,38 @@ def check_kv_decode(timer, dev, gen):
     return cases[0], cases
 
 
+FLASH_DESIGN = "A: mma.sync m16n8k16, registers, 3-stage cp.async ring"
+PROBE_SCORE = 200.0              # the selected score of the flash probe
+
+
+def flash_selector_probe(dev, b, h, hkv, s, d=128, seed=0):
+    """Inputs of the flash selector probe: k_j = c e_j for j < d and 0
+    beyond; q_i = c e_pi(i) with pi(i) <= i and pi(i) < d, drawn anew for
+    every (batch, head); c * c * d**-0.5 is about PROBE_SCORE.  Every other
+    score of row i is 0, 200 below the selected one, so its exponential
+    underflows to exactly 0 in float32 and the causal output row i is
+    V[pi(i)] bit for bit.  Returns q, k, v ((B, H|Hkv, S, D) bf16) and that
+    expected output."""
+    c = math.sqrt(PROBE_SCORE * math.sqrt(d))
+    g = torch.Generator(dev).manual_seed(seed)
+    rows = torch.arange(s, device=dev)
+    pi = torch.randint(0, 1 << 30, (b, h, s), generator=g, device=dev) % (
+        torch.clamp(rows, max=d - 1) + 1)
+    q = torch.zeros((b, h, s, d), device=dev).scatter_(-1, pi[..., None], c)
+    k = torch.zeros((b, hkv, s, d), device=dev)
+    n = torch.arange(min(s, d), device=dev)
+    k[:, :, n, n] = c
+    v = torch.randn((b, hkv, s, d), generator=g, device=dev).bfloat16()
+    want = torch.gather(v.repeat_interleave(h // hkv, dim=1), 2,
+                        pi[..., None].expand(b, h, s, d))
+    return q.bfloat16(), k.bfloat16(), v, want
+
+
 def check_flash(timer, dev, gen):
+    """The prefill shape and a ragged GQA shape, causal, against the plain
+    version in float32 (max-abs and per-row tolerances), timed beside SDPA;
+    then the selector probe, bit for bit, at S = 128, 129, 300 and 513 with
+    MHA and GQA 16/4."""
     from repro_torch.kernels import cuda, ops
     sdpa = torch.nn.functional.scaled_dot_product_attention
     cases = []
@@ -287,6 +320,7 @@ def check_flash(timer, dev, gen):
         # version's: what the next activation fake-quant can see
         off = float((out != want.bfloat16()).float().mean())
         rec = {"b": b, "h": h, "hkv": hkv, "s": s, "d": d,
+               "design": FLASH_DESIGN,
                "max_abs_err": err, "tol": tol, "max_row_rel_err": row_err,
                "row_tol": 1e-2, "off_bf16_share": off,
                "ok": err <= tol and row_err <= 1e-2,
@@ -296,15 +330,31 @@ def check_flash(timer, dev, gen):
                "library_ms": timer(lambda: sdpa(q, k, v, is_causal=True,
                                                  enable_gqa=hkv != h))}
         nb = 2 * (2 * b * h * s * d) + 2 * (2 * b * hkv * s * d)
-        rec["bound_ms"], rec["bound_by"] = bound_ms(
-            nb, 4.0 * b * h * d * s * (s + 1) / 2, BF16_OPS_PER_S)
+        flop = 4.0 * b * h * d * s * (s + 1) / 2
+        rec["bound_ms"], rec["bound_by"] = bound_ms(nb, flop, BF16_OPS_PER_S)
+        rec["tflops"] = flop / rec["ms"] * 1e-9
+        rec["x_sdpa"] = rec["ms"] / rec["library_ms"]
+        rec["x_bound"] = rec["ms"] / rec["bound_ms"]
         log(f"  flash_attention B={b} H={h} Hkv={hkv} S={s} D={d} causal: "
             f"err {err:.3g} (tol {tol:.3g}), worst row |d|/|ref| "
             f"{row_err:.3g} (tol 0.01), {off:.3g} of outputs off the plain "
             f"bf16 rounding; {rec['ms']:.4f} ms, plain "
             f"{rec['plain_ms']:.4f}, SDPA {rec['library_ms']:.4f}, bound "
             f"{rec['bound_ms']:.4f} ({rec['bound_by']})")
+        log(f"    design {FLASH_DESIGN}: {rec['tflops']:.1f} TFLOP/s (causal "
+            f"4BHDS(S+1)/2), {rec['x_sdpa']:.2f}x SDPA, {rec['x_bound']:.2f}x "
+            f"the bound")
         cases.append(rec)
+    for s in (128, 129, 300, 513):
+        for hkv in (16, 4):
+            q, k, v, want = flash_selector_probe(dev, 2, 16, hkv, s)
+            got = cuda.flash_attention(q, k, v, causal=True)
+            same = bool(torch.equal(got, want))
+            cases.append({"selector_probe": True, "b": 2, "h": 16,
+                          "hkv": hkv, "s": s, "d": 128, "bit_equal": same,
+                          "ok": same})
+            log(f"    selector probe S={s} Hkv={hkv}: output row i equals "
+                f"V[pi(i)] bit for bit: {same}")
     return cases[0], cases
 
 
@@ -486,7 +536,7 @@ def make_prompts(cfg, rng):
     return tokens, lengths
 
 
-def device_breakdown(fn, top: int = 10) -> dict:
+def device_breakdown(fn, top: int = 20) -> dict:
     """Run ``fn`` once under torch.profiler: host wall ms, the summed device
     time of its kernels (one stream, so they do not overlap), the device's
     idle share of the wall time, and the kernels that took the most."""
@@ -958,6 +1008,8 @@ def main():
         json.dump({"device": smi_line, "build_s": build_s,
                    "quant_matmul": {"decode_head": checks["quant_matmul"][0],
                                     "tiled_head": tiled_head},
+                   "flash_attention": {
+                       "prefill_head": checks["flash_attention"][0]},
                    "kernels": {k: cases for k, (_, cases) in checks.items()},
                    "select": select, "serve": runs, "check": check,
                    "launch_counts_after": dict(cuda.LAUNCHES)}, f, indent=1)

@@ -10,205 +10,305 @@
 //
 // Bound on the H100: at B = 8, H = 16, S = 512, D = 128 the causal work is
 // 8.6 GFLOP (8.7 us at 989 TFLOP/s) against 67 MB of q, k, v and out
-// (20 us at 3.35 TB/s): bytes, narrowly.  Design: one block per
-// (64-query tile, h, b), four warps of 16 query rows each.  K/V tiles of 64
-// rows stream through shared memory, only up to the causal diagonal; the
-// score and P.V products run on bf16 tensor cores (WMMA m16n16k16, fp32
-// accumulate).  P enters the second product as three bf16 terms, p_hi =
-// bf16(p), p_mid = bf16(p - p_hi) and p_lo = bf16(p - p_hi - p_mid), so
-// P.V keeps all 24 bits of the fp32 P rather than bf16's 8: the serving
+// (20 us at 3.35 TB/s): bytes, narrowly.  P enters P.V as three bf16 terms,
+// p_hi = bf16(p), p_mid = bf16(p - p_hi) and p_lo = bf16(p - p_hi - p_mid),
+// so P.V keeps all 24 bits of the fp32 P rather than bf16's 8: the serving
 // path's plain version (chunked_attention) keeps P in fp32, and every bit
 // dropped here moves more bf16 outputs off the plain version's rounding,
 // which the next projection's activation fake-quant turns into whole code
-// steps.  p_mid and p_lo of a warp's 16 rows live in that warp's own
-// (already consumed) score rows.
-// The fp32 output accumulator lives in shared memory so that it can be
-// rescaled row by row.  Ragged S is masked in the
-// kernel (zero-filled tiles, -1e30 scores), so no divisibility is needed.
+// steps.  That doubles the tensor work to about 17 GFLOP (17 us at the bf16
+// peak), still under the byte bound.
+//
+// Design: one block of 4 warps per (64-query tile, h, b); each warp owns
+// 16 query rows and keeps everything of them in registers.
+//  * Q fragments are loaded once with ldmatrix and held for the whole K
+//    loop; S = Q.K^T runs on mma.sync m16n8k16 (bf16, fp32 accumulate).
+//  * The softmax works on the accumulator layout: a lane holds two rows
+//    (g and g + 8 of the warp's 16) at 2 columns of each 8-column tile, so
+//    a row's max needs two __shfl_xor_sync over the lane quad, and its sum
+//    stays per lane until the end.  log2(e) is folded into the scale and
+//    the exponentials are exp2f.
+//  * The m16n8 accumulators of two neighbouring key tiles are exactly the
+//    m16n8k16 A fragment of P.V, lane for lane, so P splits into its three
+//    bf16 terms in registers and never touches shared memory.  O (16 x D
+//    fp32 a warp) stays in registers and is rescaled in place by alpha.
+//  * K and V tiles (64 rows) stream through a 3-stage cp.async ring (rows
+//    past S zero-filled), so tiles j + 1 and j + 2 load while tile j
+//    computes.  Rows are stored with an XOR swizzle (16-byte chunk c of row
+//    r at c ^ (r % 8)), so the ldmatrix reads of Q and K, and the
+//    ldmatrix.trans reads of V, hit 8 distinct bank groups.
+//  * The output passes through the (by then free) Q tile, so it leaves in
+//    16-byte coalesced stores, and rows past S are clipped there.
+//  * The launch order runs the q-tile index slowest and backwards: causal
+//    tiles near the diagonal's far end, which do the most work, start
+//    first, and the last wave holds the lightest.
+// Ragged S is masked in the kernel (zero-filled tiles, -inf scores on the
+// last key tile and on the causal diagonal), so no divisibility is needed.
 // Inputs take arbitrary batch/head/sequence strides (D contiguous), so the
 // model passes (B, S, H, D) activations as (B, H, S, D) views without a copy.
-#include <mma.h>
+#include <math.h>
 
 #include "common.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int FQ = 64, FK = 64, F_THREADS = 128;
-constexpr float NEG_INF = -1e30f;
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
+using repro::ldmatrix_x4;
+using repro::ldmatrix_x4_trans;
+using repro::mma_bf16;
+using repro::smem_addr;
+
+constexpr int FQ = 64, FK = 64, F_THREADS = 128, F_STAGES = 3;
 typedef __nv_bfloat16 bf16;
 
 template <int D>
 struct Layout {
-  static constexpr int QLD = D + 8;   // bf16 rows of Q, K, V tiles
-  static constexpr int SLD = FK + 4;  // f32 scores
-  static constexpr int PLD = FK + 8;  // bf16 probabilities
-  static constexpr int OLD = D + 4;   // f32 output accumulator
-  static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = q_off + FQ * QLD * sizeof(bf16);
-  static constexpr size_t v_off = k_off + FK * QLD * sizeof(bf16);
-  static constexpr size_t s_off = v_off + FK * QLD * sizeof(bf16);
-  static constexpr size_t p_off = s_off + FQ * SLD * sizeof(float);
-  static constexpr size_t o_off = p_off + FQ * PLD * sizeof(bf16);
-  static constexpr size_t bytes = o_off + FQ * OLD * sizeof(float);
+  static constexpr int ROW = D * 2;           // bytes of a row
+  static constexpr int TILE = 64 * ROW;       // a 64-row tile of Q, K or V
+  static constexpr int STAGE = 2 * TILE;      // K, then V
+  static constexpr int BYTES = TILE + F_STAGES * STAGE;  // 112 KB at D = 128
 };
 
-// rows [r0, r0 + 64) of a (S, D) slab with row stride `ss`; zero past S
+// byte offset of 16-byte chunk c of row r in a swizzled tile
 template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long ss, int r0, int S) {
-  constexpr int VPR = D / 8;  // 16-byte vectors per row
-  for (int idx = threadIdx.x; idx < 64 * VPR; idx += F_THREADS) {
-    const int r = idx / VPR, c = (idx % VPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S) val = *reinterpret_cast<const uint4*>(src + (r0 + r) * ss + c);
-    *reinterpret_cast<uint4*>(dst + r * Layout<D>::QLD + c) = val;
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return r * (D * 2) + ((c ^ (r & 7)) << 4);
+}
+
+// rows [r0, r0 + 64) of a (S, D) slab with row stride `ss` into a swizzled
+// tile; rows past S are zero-filled
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
+                                          long long ss, int r0, int S,
+                                          int tid) {
+  constexpr int CPR = D / 8;  // 16-byte chunks a row
+#pragma unroll
+  for (int i = 0; i < 64 * CPR / F_THREADS; ++i) {
+    const int idx = tid + i * F_THREADS, r = idx / CPR, c = idx % CPR;
+    const bool ok = r0 + r < S;
+    cp_async16(dst + swz<D>(r, c), ok ? src + (r0 + r) * ss + c * 8 : src, ok);
   }
 }
 
+__device__ __forceinline__ uint32_t bits_of(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// (a, b) -> three bf16x2 terms whose sum is (a, b) to fp32's 24 bits; both
+// differences are exact in fp32
+__device__ __forceinline__ void split3(float a, float b, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const float ra = a - hf.x, rb = b - hf.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(ra, rb);
+  const float2 mf = __bfloat1622float2(m);
+  hi = bits_of(h);
+  mid = bits_of(m);
+  lo = bits_of(__floats2bfloat162_rn(ra - mf.x, rb - mf.y));
+}
+
 template <int D>
-__global__ void __launch_bounds__(F_THREADS)
+__global__ void __launch_bounds__(F_THREADS, 2)
     flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, bf16* __restrict__ o, int H, int Hkv,
-              int S, long long qsb, long long qsh, long long qss, long long ksb,
+              const bf16* __restrict__ v, bf16* __restrict__ o, int B, int H,
+              int Hkv, int S, long long qsb, long long qsh, long long qss, long long ksb,
               long long ksh, long long kss, long long vsb, long long vsh,
               long long vss, long long osb, long long osh, long long oss,
-              int causal, float scale) {
+              int causal, float scale_log2) {
   using L = Layout<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q_off);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::k_off);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::v_off);
-  float* Ss = reinterpret_cast<float*>(smem + L::s_off);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L::p_off);
-  float* Os = reinterpret_cast<float*>(smem + L::o_off);
+  constexpr int NT = D / 8;    // 8-column tiles of O
+  constexpr int KD = D / 16;   // 16-deep steps over D
+  constexpr int SN = FK / 8;   // 8-key tiles of S
+  extern __shared__ __align__(128) uint8_t smem[];
+  const uint32_t qs = smem_addr(smem);  // the Q tile, at the end the output
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  // q-tile index slowest and backwards: the heaviest causal tiles first
+  const int n_q = (S + FQ - 1) / FQ;
+  const int hb = blockIdx.x % (H * B);
+  const int qt = n_q - 1 - static_cast<int>(blockIdx.x / (H * B));
+  const int h = hb % H, b = hb / H;
   const int hk = h / (H / Hkv);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const int q0 = qt * FQ;
-  // p_mid and p_lo of this warp's rows (16 x FK each, 32-byte aligned),
-  // over its own 16 score rows
-  bf16* Pm = reinterpret_cast<bf16*>(smem + L::s_off + (warp * 16) * L::SLD * sizeof(float));
-  bf16* Pl = Pm + 16 * FK;
-  static_assert(2 * 16 * FK * sizeof(bf16) <= 16 * L::SLD * sizeof(float),
-                "p_mid and p_lo must fit in a warp's score rows");
   const bf16* kp = k + b * ksb + hk * ksh;
   const bf16* vp = v + b * vsb + hk * vsh;
+  const int n_kv_all = (S + FK - 1) / FK;
+  // causal: key tiles up to the one that holds the tile's last row
+  const int n_kv = causal ? min(n_kv_all, (q0 + FQ - 1) / FK + 1) : n_kv_all;
 
-  load_tile<D>(Qs, q + b * qsb + h * qsh, qss, q0, S);
-  for (int idx = threadIdx.x; idx < FQ * L::OLD; idx += F_THREADS) Os[idx] = 0.f;
-
-  // each lane pair owns one query row; each lane half of its columns
-  const int row = warp * 16 + (lane >> 1), half = lane & 1;
-  const int qi = q0 + row;
-  float m_run = NEG_INF, l_run = 0.f;
-  const int n_kv = (S + FK - 1) / FK;
-  const int kv_end = causal ? min(n_kv, qt + 1) : n_kv;  // FQ == FK
-
-  for (int j = 0; j < kv_end; ++j) {
-    const int k0 = j * FK;
-    __syncthreads();  // all warps are done reading the previous K/V tile
-    load_tile<D>(Ks, kp, kss, k0, S);
-    load_tile<D>(Vs, vp, vss, k0, S);
-    __syncthreads();
-
-    {  // scores of this warp's 16 rows: Q (16 x D) . K^T (D x 64)
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf[FK / 16];
+  // prologue: Q and key tiles 0 .. F_STAGES - 2, one commit group each
+  load_tile<D>(qs, q + b * qsb + h * qsh, qss, q0, S, tid);
 #pragma unroll
-      for (int n = 0; n < FK / 16; ++n) wmma::fill_fragment(sf[n], 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, Qs + (warp * 16) * L::QLD + kk, L::QLD);
-#pragma unroll
-        for (int n = 0; n < FK / 16; ++n) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
-          wmma::load_matrix_sync(kb, Ks + (n * 16) * L::QLD + kk, L::QLD);
-          wmma::mma_sync(sf[n], a, kb, sf[n]);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < FK / 16; ++n)
-        wmma::store_matrix_sync(Ss + (warp * 16) * L::SLD + n * 16, sf[n], L::SLD,
-                                wmma::mem_row_major);
+  for (int s = 0; s < F_STAGES - 1; ++s) {
+    if (s < n_kv) {
+      const uint32_t st = qs + L::TILE + s * L::STAGE;
+      load_tile<D>(st, kp, kss, s * FK, S, tid);
+      load_tile<D>(st + L::TILE, vp, vss, s * FK, S, tid);
     }
-    __syncwarp();
-
-    // online softmax on this lane's 32 columns of its row
-    const float* srow = Ss + row * L::SLD + half * 32;
-    float sv[32];
-    float mx = NEG_INF;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int kj = k0 + half * 32 + c;
-      const bool live = kj < S && (!causal || kj <= qi);
-      sv[c] = live ? srow[c] * scale : NEG_INF;
-      mx = fmaxf(mx, sv[c]);
-    }
-    __syncwarp();  // the warp's score rows are in registers: reuse them
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_run, mx);
-    const float alpha = expf(m_run - m_new);
-    float psum = 0.f;
-    bf16* prow = Ps + row * L::PLD + half * 32;
-    bf16* pmrow = Pm + (lane >> 1) * FK + half * 32;
-    bf16* plrow = Pl + (lane >> 1) * FK + half * 32;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const float p = expf(sv[c] - m_new);
-      psum += p;
-      // both differences are exact in fp32
-      const bf16 hi = __float2bfloat16_rn(p);
-      const float rest = p - __bfloat162float(hi);
-      const bf16 mid = __float2bfloat16_rn(rest);
-      prow[c] = hi;
-      pmrow[c] = mid;
-      plrow[c] = __float2bfloat16_rn(rest - __bfloat162float(mid));
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l_run = l_run * alpha + psum;
-    m_run = m_new;
-    float* orow = Os + row * L::OLD + half * (D / 2);
-#pragma unroll 8
-    for (int c = 0; c < D / 2; ++c) orow[c] *= alpha;
-    __syncwarp();
-
-    // O (16 x D) += (P_hi + P_mid + P_lo) (16 x 64) . V (64 x D), the
-    // smallest term first
-#pragma unroll
-    for (int dn = 0; dn < D; dn += 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> of;
-      wmma::load_matrix_sync(of, Os + (warp * 16) * L::OLD + dn, L::OLD, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < FK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa, pm, pl;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
-        wmma::load_matrix_sync(pa, Ps + (warp * 16) * L::PLD + kk, L::PLD);
-        wmma::load_matrix_sync(pm, Pm + kk, FK);
-        wmma::load_matrix_sync(pl, Pl + kk, FK);
-        wmma::load_matrix_sync(vb, Vs + kk * L::QLD + dn, L::QLD);
-        wmma::mma_sync(of, pl, vb, of);
-        wmma::mma_sync(of, pm, vb, of);
-        wmma::mma_sync(of, pa, vb, of);
-      }
-      wmma::store_matrix_sync(Os + (warp * 16) * L::OLD + dn, of, L::OLD, wmma::mem_row_major);
-    }
-    __syncwarp();
+    cp_async_commit();
   }
 
-  if (qi < S) {
-    const float den = fmaxf(l_run, 1e-30f);
-    const float* orow = Os + row * L::OLD + half * (D / 2);
-    bf16* op = o + b * osb + h * osh + qi * oss + half * (D / 2);
+  uint32_t qf[KD][4];
+  float acc[NT][4];
 #pragma unroll
-    for (int c = 0; c < D / 2; c += 8) {
-      __align__(16) bf16 vals[8];
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int e = 0; e < 8; ++e) vals[e] = __float2bfloat16_rn(orow[c + e] / den);
-      *reinterpret_cast<uint4*>(op + c) = *reinterpret_cast<const uint4*>(vals);
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  // rows g and g + 8 of the warp: running max (log2 domain) and this lane's
+  // share of the running sum
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  const int row0 = q0 + warp * 16 + g;
+
+  for (int j = 0; j < n_kv; ++j) {
+    cp_async_wait<F_STAGES - 2>();
+    __syncthreads();  // tile j has landed; tile j - 1's stage is free
+    {
+      const int nj = j + F_STAGES - 1;
+      if (nj < n_kv) {
+        const uint32_t st = qs + L::TILE + (nj % F_STAGES) * L::STAGE;
+        load_tile<D>(st, kp, kss, nj * FK, S, tid);
+        load_tile<D>(st + L::TILE, vp, vss, nj * FK, S, tid);
+      }
+      cp_async_commit();
     }
+    if (j == 0) {
+      // lane l addresses row l % 16 of the warp's rows, D chunk l / 16
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+        ldmatrix_x4(qf[kk], qs + swz<D>(warp * 16 + (lane & 15),
+                                        2 * kk + (lane >> 4)));
+    }
+    const uint32_t ks = qs + L::TILE + (j % F_STAGES) * L::STAGE;
+    const uint32_t vs = ks + L::TILE;
+
+    // S (16 x 64) = Q (16 x D) . K^T; ldmatrix.x4 gives the B fragments of
+    // two key tiles: keys 16p + (l % 8) + 8 (l / 16), D chunk (l / 8) % 2
+    float sc[SN][4];
+#pragma unroll
+    for (int n = 0; n < SN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+      for (int p = 0; p < SN / 2; ++p) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, ks + swz<D>(16 * p + (lane & 7) + ((lane >> 4) << 3),
+                                    2 * kk + ((lane >> 3) & 1)));
+        mma_bf16(sc[2 * p], qf[kk], kb[0], kb[1]);
+        mma_bf16(sc[2 * p + 1], qf[kk], kb[2], kb[3]);
+      }
+
+    // sc[n][e]: row g + 8 (e / 2), key k0 + 8 n + 2 t + e % 2
+    const int k0 = j * FK;
+    // masks: the ragged last key tile, and tiles that cross the diagonal
+    const bool edge = k0 + FK > S || (causal && k0 + FK - 1 > q0);
+#pragma unroll
+    for (int n = 0; n < SN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float s = sc[n][e] * scale_log2;
+        if (edge) {
+          const int key = k0 + 8 * n + 2 * t + (e & 1);
+          if (key >= S || (causal && key > row0 + 8 * (e >> 1))) s = -INFINITY;
+        }
+        sc[n][e] = s;
+      }
+    float m_use[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < SN; ++n)
+        mx = fmaxf(mx, fmaxf(sc[n][2 * r], sc[n][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[r], mx);
+      m_use[r] = m_new == -INFINITY ? 0.f : m_new;  // a row with no key yet
+      const float alpha = exp2f(m_run[r] - m_use[r]);
+      m_run[r] = m_new;
+      l_run[r] *= alpha;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        acc[n][2 * r] *= alpha;
+        acc[n][2 * r + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < SN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(sc[n][e] - m_use[e >> 1]);
+        l_run[e >> 1] += p;
+        sc[n][e] = p;
+      }
+
+    // O (16 x D) += P (16 x FK) . V (FK x D), three bf16 terms of P, the
+    // smallest first.  Key tiles 2kk and 2kk + 1 are the A fragment of key
+    // step kk; ldmatrix.trans gives the B fragments of two D tiles: keys
+    // 16 kk + l % 16, D chunk 2p + l / 16.  Four D tiles at a time, each
+    // term over all four before the next, so no mma waits on the one
+    // before it.
+#pragma unroll
+    for (int kk = 0; kk < FK / 16; ++kk) {
+      uint32_t pa[3][4];  // p_lo, p_mid, p_hi
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        split3(sc[2 * kk + (e >> 1)][2 * (e & 1)],
+               sc[2 * kk + (e >> 1)][2 * (e & 1) + 1], pa[2][e], pa[1][e],
+               pa[0][e]);
+#pragma unroll
+      for (int p = 0; p < NT / 2; p += 2) {
+        uint32_t vb[2][4];
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          ldmatrix_x4_trans(vb[u], vs + swz<D>(16 * kk + (lane & 15),
+                                               2 * (p + u) + (lane >> 4)));
+#pragma unroll
+        for (int term = 0; term < 3; ++term)
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            mma_bf16(acc[2 * (p + u)], pa[term], vb[u][0], vb[u][1]);
+            mma_bf16(acc[2 * (p + u) + 1], pa[term], vb[u][2], vb[u][3]);
+          }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // acc[n][e]: row g + 8 (e / 2), column 8 n + 2 t + e % 2.  Each warp
+  // writes its own 16 rows of the Q tile (its Q fragments are in
+  // registers), then stores them as 16-byte chunks.
+  float den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    den[r] = fmaxf(l, 1e-30f);
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<__nv_bfloat162*>(
+          smem + swz<D>(warp * 16 + g + 8 * r, n) + 4 * t) =
+          __floats2bfloat162_rn(acc[n][2 * r] / den[r],
+                                acc[n][2 * r + 1] / den[r]);
+  __syncwarp();
+  constexpr int CPR = D / 8;
+  bf16* op = o + b * osb + h * osh;
+#pragma unroll
+  for (int i = 0; i < 16 * CPR / 32; ++i) {
+    const int idx = lane + 32 * i, r = idx / CPR, c = idx % CPR;
+    const int qi = q0 + warp * 16 + r;
+    if (qi < S)
+      *reinterpret_cast<uint4*>(op + qi * oss + c * 8) =
+          *reinterpret_cast<const uint4*>(smem + swz<D>(warp * 16 + r, c));
   }
 }
 
@@ -216,16 +316,24 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
            int Hkv, int S, const long long* st, int causal, float scale,
            cudaStream_t stream) {
-  const size_t bytes = Layout<D>::bytes;
+  constexpr int bytes = Layout<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+      flash_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_fwd<D>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + FQ - 1) / FQ, H, B);
+  const long long n_q = (S + FQ - 1) / FQ;
+  if (n_q * H * B > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  // one block per (q tile, head, batch), the q tile slowest (see the kernel)
+  const dim3 grid(static_cast<unsigned>(n_q * H * B));
   flash_fwd<D><<<grid, F_THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), H, Hkv, S, st[0], st[1],
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), B, H, Hkv, S, st[0],
+      st[1],
       st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
-      causal, scale);
+      causal, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -62,14 +62,23 @@
 //    x reaches the tensor cores as bf16; the wrapper rounds a float32 x to
 //    bf16 once (round to nearest even, the rounding of the Pallas kernel's
 //    astype) and the kernels then write float32.
-#include <cuda.h>  // CUtensorMap; the encoder comes through the runtime
-
-#include <map>
-#include <tuple>
-
 #include "common.cuh"
 
 namespace {
+
+using repro::cp_async16;
+using repro::cp_async4;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
+using repro::ldmatrix_x4;
+using repro::mbar_arrive;
+using repro::mbar_expect_tx;
+using repro::mbar_init;
+using repro::mbar_wait;
+using repro::mma_bf16;
+using repro::smem_addr;
+using repro::tma_load_2d;
+using repro::wg_desc;
 
 constexpr int GV_THREADS = 256;  // 8 warps x 4 row groups of 8 lanes
 constexpr int GV_COLS = 32;      // output columns per block: 8 lanes x 4 bytes
@@ -185,52 +194,10 @@ struct Stage {  // one ring stage: the x tile, then the packed codes tile
   static constexpr int BYTES = XS_BYTES + TK / (8 / BITS) * TN;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// cp.async of 16 (or 4) bytes; with valid == false the src-size is 0: the
-// destination is zero-filled and nothing is read.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
 __device__ __forceinline__ uint32_t lds32(uint32_t addr) {
   uint32_t v;
   asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
   return v;
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t s) {
@@ -502,55 +469,10 @@ struct WgShape {
       WG_STAGES * (WG_XBYTES + WBYTES) + 2 * WG_STAGES * 8 + 1024;
 };
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
 __device__ __forceinline__ uint32_t lds16(uint32_t addr) {
   unsigned short v;
   asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(addr));
   return v;
-}
-
-// Shared-memory descriptor of a K-major bf16 tile with 128-byte rows and the
-// 128-byte swizzle: 8-row groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |            // LBO (unused here)
-         (static_cast<uint64_t>(1024 >> 4) << 32) |    // SBO
-         (static_cast<uint64_t>(1) << 62);             // 128-byte swizzle
 }
 
 #define WG_D8(i)                                                    \
@@ -692,67 +614,23 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up through the runtime so the
-// library needs no -lcuda.  Descriptors are cached by pointer, shape and box.
-int tensor_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
-               int elem_bytes, int rows, int cols, int box_rows,
-               int box_cols) {
-  static EncodeTiled encode = nullptr;
-  static std::map<std::tuple<const void*, int, int, int, int, int>,
-                  CUtensorMap>
-      cache;
-  const auto key =
-      std::make_tuple(ptr, elem_bytes, rows, cols, box_rows, box_cols);
-  const auto hit = cache.find(key);
-  if (hit != cache.end()) {
-    *map = hit->second;
-    return 0;
-  }
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (q != cudaDriverEntryPointSuccess || fn == nullptr)
-      return static_cast<int>(cudaErrorNotSupported);
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  const CUresult r = encode(map, type, 2, const_cast<void*>(ptr), dims,
-                            strides, box, elem_strides,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
-  if (cache.size() >= 4096) cache.clear();
-  cache.emplace(key, *map);
-  return 0;
-}
-
 template <int BITS, typename OT>
 int launch_wg(const void* x, const void* wp, const void* scale, void* out,
               int M, int N, int K, cudaStream_t st) {
   using S = WgShape<BITS>;
   CUtensorMap xmap, wmap;
-  int e = tensor_map(&xmap, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K,
-                     WG_TOK, WG_K);
+  const int kp = K / (8 / BITS);
+  const uint64_t xdims[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(M)};
+  const uint64_t xstride[1] = {static_cast<uint64_t>(K) * 2};
+  const uint32_t xbox[2] = {WG_K, WG_TOK};
+  const uint64_t wdims[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(kp)};
+  const uint64_t wstride[1] = {static_cast<uint64_t>(N)};
+  const uint32_t wbox[2] = {WG_CH, S::WROWS};
+  int e = repro::tensor_map(&xmap, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                            xdims, xstride, xbox);
   if (e == 0)
-    e = tensor_map(&wmap, wp, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K / (8 / BITS),
-                   N, S::WROWS, WG_CH);
+    e = repro::tensor_map(&wmap, wp, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, wdims,
+                          wstride, wbox);
   if (e != 0) return e;
   const cudaError_t a = cudaFuncSetAttribute(
       qmm_wg<BITS, OT>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);

@@ -127,19 +127,25 @@ def test_kv_decode_ref_matches_pallas(jax_side, bits):
 
 
 # ---------------------------------------------------------- flash_attention
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("group", [1, 2])
-def test_flash_ref_matches_pallas(jax_side, causal, group):
+FLASH_PALLAS_CASES = [  # group, causal, (b, hkv, s, d), Pallas bq = bk
+    pytest.param(g, c, (2, 2, 32, 32), 16, id=f"{g}-{c}")
+    for g in (1, 2) for c in (True, False)] + [
+    pytest.param(4, c, (1, 1, 256, 128), 64, id=f"4-{c}-d128")
+    for c in (True, False)]
+
+
+@pytest.mark.parametrize("group,causal,shape,blk", FLASH_PALLAS_CASES)
+def test_flash_ref_matches_pallas(jax_side, group, causal, shape, blk):
     jops, jref = jax_side
     import jax.numpy as jnp
     rng = np.random.default_rng(3)
-    b, hkv, s, d = 2, 2, 32, 32
+    b, hkv, s, d = shape
     q = rng.normal(size=(b, hkv * group, s, d)).astype(np.float32)
     k = rng.normal(size=(b, hkv, s, d)).astype(np.float32)
     v = rng.normal(size=(b, hkv, s, d)).astype(np.float32)
     want = np.asarray(jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
                                            jnp.asarray(v), causal=causal,
-                                           impl="interpret", bq=16, bk=16))
+                                           impl="interpret", bq=blk, bk=blk))
     got = tops.flash_attention(_t(q), _t(k), _t(v), causal=causal).numpy()
     _close(got, want)
 
@@ -294,13 +300,27 @@ def test_cuda_kv_decode(card, bits):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["bhsd", "model"])
 @pytest.mark.parametrize("causal", [True, False])
-def test_cuda_flash(card, causal):
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 129, 300, 513])
+def test_cuda_flash(card, s, d, group, causal, layout):
+    """Ragged S around the 64-row tiles, both head dims, GQA groups, and
+    the model's own (B, S, H, D) projections passed as (B, H, S, D) views
+    (non-contiguous in S), as attention.py's prefill does."""
     from repro_torch.kernels import cuda
     g = torch.Generator(card).manual_seed(1)
-    q = torch.randn((2, 4, 100, 64), generator=g, device=card).bfloat16()
-    k = torch.randn((2, 2, 100, 64), generator=g, device=card).bfloat16()
-    v = torch.randn((2, 2, 100, 64), generator=g, device=card).bfloat16()
+    b, hkv = 2, 2
+
+    def make(heads):
+        if layout == "model":
+            x = torch.randn((b, s, heads, d), generator=g, device=card)
+            return x.bfloat16().transpose(1, 2)
+        return torch.randn((b, heads, s, d), generator=g,
+                           device=card).bfloat16()
+
+    q, k, v = make(hkv * group), make(hkv), make(hkv)
     got = cuda.flash_attention(q, k, v, causal=causal).float()
     # the plain version in float32: in bf16 its scores round to bf16
     # before the softmax, which costs it more than the kernel's error
@@ -310,6 +330,32 @@ def test_cuda_flash(card, causal):
     # each query row too: late causal rows are far smaller than max|ref|
     row = torch.linalg.vector_norm(got - want, dim=-1)
     assert (row <= 1e-2 * torch.linalg.vector_norm(want, dim=-1)).all()
+
+
+def _selector_probe(dev, h, hkv, s):
+    import chip_smoke
+    return chip_smoke.flash_selector_probe(dev, 1, h, hkv, s)
+
+
+@pytest.mark.parametrize("h,hkv", [(4, 4), (4, 1)])
+@pytest.mark.parametrize("s", [128, 129, 300, 513])
+def test_flash_selector_probe_plain(h, hkv, s):
+    """The selector probe itself, on the plain version: every score but the
+    selected one underflows to 0, so row i is V[pi(i)] exactly."""
+    q, k, v, want = _selector_probe(torch.device("cpu"), h, hkv, s)
+    got = tops.flash_attention(q, k, v, causal=True, impl="ref")
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,hkv", [(16, 16), (16, 4)])
+@pytest.mark.parametrize("s", [128, 129, 300, 513])
+def test_cuda_flash_selector_probe(card, h, hkv, s):
+    """The kernel on the selector probe, bit for bit: a wrong row mapping,
+    V transpose, kv-tile offset or swizzled row selects another row of V."""
+    from repro_torch.kernels import cuda
+    q, k, v, want = _selector_probe(card, h, hkv, s)
+    assert torch.equal(cuda.flash_attention(q, k, v, causal=True), want)
 
 
 @pytest.mark.cuda
