@@ -264,7 +264,7 @@ def check_kv_decode(timer, dev, gen):
     return cases[0], cases
 
 
-FLASH_DESIGN = "A: mma.sync m16n8k16, registers, 3-stage cp.async ring"
+FLASH_DESIGN = "B: wgmma + TMA, warp-specialised, 2-stage mbarrier ring"
 PROBE_SCORE = 200.0              # the selected score of the flash probe
 
 

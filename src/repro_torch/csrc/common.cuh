@@ -149,6 +149,18 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ------------------------------------------------------------- wgmma
 // Shared-memory descriptor of a K-major bf16 tile with 128-byte rows and the
 // 128-byte swizzle: 8-row groups 1024 bytes apart.
 __device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
@@ -156,6 +168,32 @@ __device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
          (static_cast<uint64_t>(1) << 16) |            // LBO (unused here)
          (static_cast<uint64_t>(1024 >> 4) << 32) |    // SBO
          (static_cast<uint64_t>(1) << 62);             // 128-byte swizzle
+}
+// The same for an MN-major tile (the transposed B of a K x N product with N
+// contiguous), as TMA's 128-byte swizzle stores it: 64-element N blocks of
+// 128-byte rows, one row per K index; the N blocks `lbo` bytes apart, the
+// 8-row K groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t wg_desc_mn(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |     // LBO: N blocks
+         (static_cast<uint64_t>(1024 >> 4) << 32) |    // SBO: K groups
+         (static_cast<uint64_t>(1) << 62);             // 128-byte swizzle
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// After wg_wait: keep the compiler from reading accumulators before it.
+template <int N>
+__device__ __forceinline__ void wg_hold(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // ------------------------------------------------- host: tensor maps
