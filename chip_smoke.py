@@ -9,11 +9,11 @@ Phases, in order; any failure exits non-zero:
                build/kernels/ (parallel, one process per source).
   3. kernels - each of the six kernels against its plain PyTorch version at
                the main path's shapes, with its tolerance, kernel / plain /
-               library times (CUDA events, warm-up excluded, L2 flushed) and
-               bound; the paged decode also bit for bit against the
-               contiguous kernel on the gathered cache, and the probes of
-               quant_matmul (identity) and flash_attention (selector) bit
-               for bit.
+               library times (CUDA events around device work only, warm-up
+               excluded, L2 flushed) and bound; the paged decode also bit
+               for bit against the contiguous kernel on the gathered cache,
+               and the probes of quant_matmul (identity) and
+               flash_attention (selector) bit for bit.
   select     - EAGL gains of olmo-1b at full width, weights drawn on the
                card from seed 0, through the histogram kernel and through
                impl="ref" (the same knapsack take), and the 4/2 mix the
@@ -77,7 +77,14 @@ def bound_ms(n_bytes: float, n_ops: float, ops_rate: float):
 
 class Timer:
     """Mean device time of a call: CUDA events around each call, the 50 MB
-    L2 flushed (not timed) before each, warm-up calls excluded."""
+    L2 flushed (not timed) before each, warm-up calls excluded.  A sleep
+    kernel queued behind the flush keeps the device busy while the host
+    enqueues the events and the call, so the events bracket device work
+    only: without it the device idles inside the timed window for as long
+    as the host takes past the flush (a kernel wrapper's checks and launch
+    take 40-60 us of Python, the flush 26 us)."""
+
+    SLEEP_CYCLES = 1_000_000     # about 0.5 ms at the H100's 1.98 GHz
 
     def __init__(self, dev):
         self.flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -88,6 +95,7 @@ class Timer:
         total = 0.0
         for _ in range(iters):
             self.flush_buf.zero_()
+            torch.cuda._sleep(self.SLEEP_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()

@@ -35,7 +35,8 @@
 //  * The softmax works on the accumulator layout: a lane holds rows g and
 //    g + 8 of its warp at 2 columns of each 8-column tile, so a row's max
 //    needs two __shfl_xor_sync over the lane quad, and its sum stays per
-//    lane until the end.  log2(e) is folded into the scale; exp2f.
+//    lane until the end.  log2(e) is folded into the scale; one ex2 a
+//    score.  Masks are applied only on tiles that need them.
 //  * The accumulators of two neighbouring 8-key tiles are, lane for lane,
 //    the register A fragment of a 16-key step (the m16n8k16 layout, which
 //    wgmma's register A has per warp), so P splits into its three bf16
@@ -45,8 +46,9 @@
 //    transpose bit.  Three wgmmas a 16-key step, the smallest term first.
 //    O (64 fp32 a thread at D = 128) stays in registers and is rescaled in
 //    place by alpha.
-//  * The output passes through the (by then free) Q tile, so it leaves in
-//    16-byte coalesced stores, and rows past S are clipped there.
+//  * The output is scaled by one reciprocal of the row sum and passes
+//    through the (by then free) Q tile, so it leaves in 16-byte coalesced
+//    stores, and rows past S are clipped there.
 //  * The launch order runs the q-tile index slowest and backwards: causal
 //    tiles near the diagonal's far end, which do the most work, start
 //    first, and the last wave holds the lightest.
@@ -166,6 +168,14 @@ __device__ __forceinline__ void split3(float a, float b, uint32_t& hi,
   lo = bits_of(__floats2bfloat162_rn(ra - mf.x, rb - mf.y));
 }
 
+// 2^x in one MUFU.EX2; results below 2^-126 flush to 0 (exp2f adds range
+// scaling around it for denormal results, which P never needs)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // byte offset of 16-byte chunk c of row r in the output staging tile
 template <int D>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
@@ -267,16 +277,17 @@ __global__ void __launch_bounds__(F_THREADS, 2)
     const int k0 = j * FK;
     const bool edge = k0 + FK > S || (causal && k0 + FK - 1 > q0);
 #pragma unroll
-    for (int n = 0; n < SN; ++n)
+    for (int i = 0; i < FK / 2; ++i) sc[i] *= scale_log2;
+    if (edge) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = sc[4 * n + e] * scale_log2;
-        if (edge) {
+      for (int n = 0; n < SN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
           const int key = k0 + 8 * n + 2 * t + (e & 1);
-          if (key >= S || (causal && key > row0 + 8 * (e >> 1))) x = -INFINITY;
+          if (key >= S || (causal && key > row0 + 8 * (e >> 1)))
+            sc[4 * n + e] = -INFINITY;
         }
-        sc[4 * n + e] = x;
-      }
+    }
     float m_use[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -288,7 +299,7 @@ __global__ void __launch_bounds__(F_THREADS, 2)
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       const float m_new = fmaxf(m_run[r], mx);
       m_use[r] = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = exp2f(m_run[r] - m_use[r]);
+      const float alpha = ex2(m_run[r] - m_use[r]);
       m_run[r] = m_new;
       l_run[r] *= alpha;
 #pragma unroll
@@ -299,7 +310,7 @@ __global__ void __launch_bounds__(F_THREADS, 2)
     }
 #pragma unroll
     for (int i = 0; i < FK / 2; ++i) {
-      const float p = exp2f(sc[i] - m_use[(i >> 1) & 1]);
+      const float p = ex2(sc[i] - m_use[(i >> 1) & 1]);
       l_run[(i >> 1) & 1] += p;
       sc[i] = p;
     }
@@ -335,7 +346,7 @@ __global__ void __launch_bounds__(F_THREADS, 2)
     float l = l_run[r];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
-    den[r] = fmaxf(l, 1e-30f);
+    den[r] = __frcp_rn(fmaxf(l, 1e-30f));  // one reciprocal, not 64 divisions
   }
 #pragma unroll
   for (int n = 0; n < NT; ++n)
@@ -343,8 +354,8 @@ __global__ void __launch_bounds__(F_THREADS, 2)
     for (int r = 0; r < 2; ++r)
       *reinterpret_cast<__nv_bfloat162*>(
           qgen + swz<D>(warp * 16 + g + 8 * r, n) + 4 * t) =
-          __floats2bfloat162_rn(acc[4 * n + 2 * r] / den[r],
-                                acc[4 * n + 2 * r + 1] / den[r]);
+          __floats2bfloat162_rn(acc[4 * n + 2 * r] * den[r],
+                                acc[4 * n + 2 * r + 1] * den[r]);
   __syncwarp();
   constexpr int CPR = D / 8;
   bf16* op = o + b * osb + h * osh;
@@ -397,10 +408,6 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
 
 }  // namespace
 
-// q, o: (B, H, S, D) bf16 views; k, v: (B, Hkv, S, D) bf16 views.  D is
-// contiguous; `strides` holds 12 element strides: (batch, head, seq) for
-// q, k, v, o in turn, each a multiple of 8, with 16-byte aligned bases.
-// D is 64 or 128.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int H,
                                       int Hkv, int S, int D,
