@@ -88,15 +88,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
 }
-// The same, each matrix transposed: a lane holds rows 2t, 2t+1 of column g.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
 
 // d (16 x 8, fp32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col).
 // Lane (g = lane / 4, t = lane % 4): a holds rows g, g + 8 at K pairs

@@ -78,7 +78,11 @@ using repro::mbar_wait;
 using repro::mma_bf16;
 using repro::smem_addr;
 using repro::tma_load_2d;
+using repro::wg_commit;
 using repro::wg_desc;
+using repro::wg_fence;
+using repro::wg_hold;
+using repro::wg_wait;
 
 constexpr int GV_THREADS = 256;  // 8 warps x 4 row groups of 8 lanes
 constexpr int GV_COLS = 32;      // output columns per block: 8 lanes x 4 bytes
@@ -586,17 +590,16 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
         a[kk][2] = b1[0];  // row g, K pair (2t+8, 2t+9)
         a[kk][3] = b1[1];
       }
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      wg_fence();
       const uint64_t desc = wg_desc(xs + s * WG_XBYTES);
 #pragma unroll
       for (int kk = 0; kk < WG_K / 16; ++kk)
         wgmma_m64n256k16(d, a[kk], desc + 2 * kk);  // + 32 bytes of K
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      wg_commit();
+      wg_wait<0>();
       mbar_arrive(empty + 8 * s);
     }
-#pragma unroll
-    for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+    wg_hold(d);
 
     // d[4 i + 2 h + v]: channel 64 wg + 16 warp + 2 g + h, token 8 i + 2 t + v
     const int ch = n0 + 64 * wg + 16 * warp + 2 * g;
