@@ -9,11 +9,11 @@ Phases, in order; any failure exits non-zero:
                build/kernels/ (parallel, one process per source).
   3. kernels - each of the six kernels against its plain PyTorch version at
                the main path's shapes, with its tolerance, kernel / plain /
-               library times (CUDA events around device work only, warm-up
-               excluded, L2 flushed) and bound; the paged decode also bit
-               for bit against the contiguous kernel on the gathered cache,
-               and the probes of quant_matmul (identity) and
-               flash_attention (selector) bit for bit.
+               library times (CUDA events, warm-up excluded, L2 flushed) and
+               bound; the paged decode also bit for bit against the
+               contiguous kernel on the gathered cache, and the probes of
+               quant_matmul (identity) and flash_attention (selector) bit
+               for bit.
   select     - EAGL gains of olmo-1b at full width, weights drawn on the
                card from seed 0, through the histogram kernel and through
                impl="ref" (the same knapsack take), and the 4/2 mix the
@@ -77,14 +77,7 @@ def bound_ms(n_bytes: float, n_ops: float, ops_rate: float):
 
 class Timer:
     """Mean device time of a call: CUDA events around each call, the 50 MB
-    L2 flushed (not timed) before each, warm-up calls excluded.  A sleep
-    kernel queued behind the flush keeps the device busy while the host
-    enqueues the events and the call, so the events bracket device work
-    only: without it the device idles inside the timed window for as long
-    as the host takes past the flush (a kernel wrapper's checks and launch
-    take 40-60 us of Python, the flush 26 us)."""
-
-    SLEEP_CYCLES = 1_000_000     # about 0.5 ms at the H100's 1.98 GHz
+    L2 flushed (not timed) before each, warm-up calls excluded."""
 
     def __init__(self, dev):
         self.flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -95,7 +88,6 @@ class Timer:
         total = 0.0
         for _ in range(iters):
             self.flush_buf.zero_()
-            torch.cuda._sleep(self.SLEEP_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -104,6 +96,21 @@ class Timer:
             end.synchronize()
             total += start.elapsed_time(end)
         return total / iters
+
+
+def host_us(fn, n: int = 100) -> float:
+    """Host microseconds to enqueue one call: the device is synchronized
+    before and after, and only the loop of n calls is timed.  What the
+    Timer's window also holds where a call's host work outlasts the flush."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
 
 
 def bf16_ulp(x: float) -> float:
@@ -276,26 +283,40 @@ FLASH_DESIGN = "B: wgmma + TMA, warp-specialised, 2-stage mbarrier ring"
 PROBE_SCORE = 200.0              # the selected score of the flash probe
 
 
-def flash_selector_probe(dev, b, h, hkv, s, d=128, seed=0):
-    """Inputs of the flash selector probe: k_j = c e_j for j < d and 0
-    beyond; q_i = c e_pi(i) with pi(i) <= i and pi(i) < d, drawn anew for
-    every (batch, head); c * c * d**-0.5 is about PROBE_SCORE.  Every other
-    score of row i is 0, 200 below the selected one, so its exponential
-    underflows to exactly 0 in float32 and the causal output row i is
-    V[pi(i)] bit for bit.  Returns q, k, v ((B, H|Hkv, S, D) bf16) and that
-    expected output."""
+def flash_selector_probe(dev, b, h, hkv, s, d=128, seed=0, causal=True):
+    """Inputs of the flash selector probe: n = min(S, d) keys are one-hot,
+    k at position pos(m) = c e_m for m < n, every other key 0; q_i = c
+    e_pi(i) with pi(i) < n, drawn anew for every (batch, head);
+    c * c * d**-0.5 is about PROBE_SCORE.  Every other score of row i is 0,
+    200 below the selected one, so its exponential underflows to exactly 0
+    in float32 and output row i is V[pos(pi(i))] bit for bit.  Causal:
+    pos(m) = m and pi(i) <= i.  Not causal: the keys lie at positions drawn
+    anew for every (batch, kv head), the last position always among them,
+    so every kv tile, the ragged last one too, holds selected keys.
+    Returns q, k, v ((B, H|Hkv, S, D) bf16) and that expected output."""
     c = math.sqrt(PROBE_SCORE * math.sqrt(d))
     g = torch.Generator(dev).manual_seed(seed)
-    rows = torch.arange(s, device=dev)
-    pi = torch.randint(0, 1 << 30, (b, h, s), generator=g, device=dev) % (
-        torch.clamp(rows, max=d - 1) + 1)
+    n = min(s, d)
+    if causal:
+        rows = torch.arange(s, device=dev)
+        pi = torch.randint(0, 1 << 30, (b, h, s), generator=g,
+                           device=dev) % (torch.clamp(rows, max=d - 1) + 1)
+        pos = torch.arange(n, device=dev).expand(b, hkv, n)
+    else:
+        r = torch.rand((b, hkv, s), generator=g, device=dev)
+        r[..., s - 1] = -1.0
+        pos = r.argsort(dim=-1)[..., :n]
+        pi = torch.randint(0, n, (b, h, s), generator=g, device=dev)
     q = torch.zeros((b, h, s, d), device=dev).scatter_(-1, pi[..., None], c)
-    k = torch.zeros((b, hkv, s, d), device=dev)
-    n = torch.arange(min(s, d), device=dev)
-    k[:, :, n, n] = c
+    one_hot = torch.zeros((n, d), device=dev)
+    one_hot[torch.arange(n), torch.arange(n)] = c
+    k = torch.zeros((b, hkv, s, d), device=dev).scatter_(
+        2, pos[..., None].expand(b, hkv, n, d), one_hot.expand(b, hkv, n, d))
     v = torch.randn((b, hkv, s, d), generator=g, device=dev).bfloat16()
-    want = torch.gather(v.repeat_interleave(h // hkv, dim=1), 2,
-                        pi[..., None].expand(b, h, s, d))
+    group = h // hkv
+    sel = torch.gather(pos.repeat_interleave(group, dim=1), 2, pi)
+    want = torch.gather(v.repeat_interleave(group, dim=1), 2,
+                        sel[..., None].expand(b, h, s, d))
     return q.bfloat16(), k.bfloat16(), v, want
 
 
@@ -303,7 +324,7 @@ def check_flash(timer, dev, gen):
     """The prefill shape and a ragged GQA shape, causal, against the plain
     version in float32 (max-abs and per-row tolerances), timed beside SDPA;
     then the selector probe, bit for bit, at S = 128, 129, 300 and 513 with
-    MHA and GQA 16/4."""
+    MHA and GQA 16/4, causal and with keys spread over every kv tile."""
     from repro_torch.kernels import cuda, ops
     sdpa = torch.nn.functional.scaled_dot_product_attention
     cases = []
@@ -343,6 +364,9 @@ def check_flash(timer, dev, gen):
         rec["tflops"] = flop / rec["ms"] * 1e-9
         rec["x_sdpa"] = rec["ms"] / rec["library_ms"]
         rec["x_bound"] = rec["ms"] / rec["bound_ms"]
+        rec["host_us"] = host_us(lambda: cuda.flash_attention(q, k, v))
+        rec["library_host_us"] = host_us(
+            lambda: sdpa(q, k, v, is_causal=True, enable_gqa=hkv != h))
         log(f"  flash_attention B={b} H={h} Hkv={hkv} S={s} D={d} causal: "
             f"err {err:.3g} (tol {tol:.3g}), worst row |d|/|ref| "
             f"{row_err:.3g} (tol 0.01), {off:.3g} of outputs off the plain "
@@ -351,18 +375,21 @@ def check_flash(timer, dev, gen):
             f"{rec['bound_ms']:.4f} ({rec['bound_by']})")
         log(f"    design {FLASH_DESIGN}: {rec['tflops']:.1f} TFLOP/s (causal "
             f"4BHDS(S+1)/2), {rec['x_sdpa']:.2f}x SDPA, {rec['x_bound']:.2f}x "
-            f"the bound")
+            f"the bound; enqueue {rec['host_us']:.1f} us on the host (SDPA "
+            f"{rec['library_host_us']:.1f})")
         cases.append(rec)
-    for s in (128, 129, 300, 513):
-        for hkv in (16, 4):
-            q, k, v, want = flash_selector_probe(dev, 2, 16, hkv, s)
-            got = cuda.flash_attention(q, k, v, causal=True)
-            same = bool(torch.equal(got, want))
-            cases.append({"selector_probe": True, "b": 2, "h": 16,
-                          "hkv": hkv, "s": s, "d": 128, "bit_equal": same,
-                          "ok": same})
-            log(f"    selector probe S={s} Hkv={hkv}: output row i equals "
-                f"V[pi(i)] bit for bit: {same}")
+    for causal in (True, False):
+        for s in (128, 129, 300, 513):
+            for hkv in (16, 4):
+                q, k, v, want = flash_selector_probe(dev, 2, 16, hkv, s,
+                                                     causal=causal)
+                got = cuda.flash_attention(q, k, v, causal=causal)
+                same = bool(torch.equal(got, want))
+                cases.append({"selector_probe": True, "b": 2, "h": 16,
+                              "hkv": hkv, "s": s, "d": 128, "causal": causal,
+                              "bit_equal": same, "ok": same})
+                log(f"    selector probe S={s} Hkv={hkv} causal={causal}: "
+                    f"output row i equals V[pos(pi(i))] bit for bit: {same}")
     return cases[0], cases
 
 

@@ -31,6 +31,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _LL = ctypes.c_longlong
+_LL12 = _LL * 12                # flash_attention's 12 strides
+_FLASH_STRIDES: Dict[tuple, ctypes.Array] = {}   # strides -> their array
 _SIGNATURES = {
     "quant_matmul": ("quant_matmul_launch",
                      [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
@@ -84,7 +86,8 @@ def _launch(name: str, *args) -> None:
 
 
 def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    # the raw handle, without building a torch.cuda.Stream object per launch
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -94,10 +97,9 @@ def _require(cond: bool, msg: str) -> None:
 
 def _on_card(name: str, *tensors: torch.Tensor) -> torch.device:
     dev = tensors[0].device
-    for t in tensors:
-        _require(t.is_cuda and t.device == dev,
-                 f"{name}: every operand must lie on one CUDA device, got "
-                 f"{[str(x.device) for x in tensors]}")
+    if not all(t.is_cuda and t.device == dev for t in tensors):
+        raise ValueError(f"{name}: every operand must lie on one CUDA device, "
+                         f"got {[str(x.device) for x in tensors]}")
     return dev
 
 
@@ -294,34 +296,43 @@ def paged_kv_decode_attention(q: torch.Tensor, kq_pool: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """q (B, H, S, D), k/v (B, Hkv, S, D) bf16, head_dim contiguous (any
-    batch/head/sequence strides) -> (B, H, S, D) bf16 with q's strides."""
-    _on_card("flash_attention", q, k, v)
+    batch/head/sequence strides) -> (B, H, S, D) bf16 with q's strides.
+    Prefill calls it once a layer, so its host work stays small: messages
+    are formatted only when a check fails, and the array of strides is
+    made once for each set of strides."""
+    name = "flash_attention"
+    _on_card(name, q, k, v)
     _require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
              "flash_attention: q, k, v must be bfloat16")
-    _require(q.ndim == 4 and k.shape == v.shape and k.ndim == 4,
+    qs, ks = q.shape, k.shape
+    _require(len(qs) == 4 and len(ks) == 4 and ks == v.shape,
              "flash_attention: need q (B, H, S, D) and k, v (B, Hkv, S, D)")
-    b, h, s, d = q.shape
-    hkv = k.shape[1]
-    _require(k.shape[0] == b and k.shape[2] == s and k.shape[3] == d,
-             f"flash_attention: k/v {tuple(k.shape)} do not match q "
-             f"{tuple(q.shape)} (self-attention needs equal lengths)")
-    _require(hkv > 0 and h % hkv == 0, f"flash_attention: H={h} is not a "
-             f"multiple of Hkv={hkv}")
-    _require(d in (64, 128), f"flash_attention: head_dim must be 64 or 128, "
-             f"got {d}")
+    b, h, s, d = qs
+    hkv = ks[1]
+    if not (ks[0] == b and ks[2] == s and ks[3] == d):
+        raise ValueError(f"{name}: k/v {tuple(ks)} do not match q "
+                         f"{tuple(qs)} (self-attention needs equal lengths)")
+    if not (hkv > 0 and h % hkv == 0):
+        raise ValueError(f"{name}: H={h} is not a multiple of Hkv={hkv}")
+    if d != 64 and d != 128:
+        raise ValueError(f"{name}: head_dim must be 64 or 128, got {d}")
     out = torch.empty_like(q)
-    ts = (q, k, v, out)
-    _require(all(t.stride(3) == 1 for t in ts),
+    st = q.stride() + k.stride() + v.stride() + out.stride()
+    _require(st[3] == st[7] == st[11] == st[15] == 1,
              "flash_attention: head_dim must be contiguous")
-    strides = [t.stride(i) for t in ts for i in range(3)]
-    _require(all(st % 8 == 0 for st in strides)
-             and all(t.data_ptr() % 16 == 0 for t in ts),
+    strides = st[0:3] + st[4:7] + st[8:11] + st[12:15]
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    _require(not any(x % 8 for x in strides)
+             and not any(p % 16 for p in ptrs),
              "flash_attention: strides must be multiples of 8 elements and "
              "bases 16-byte aligned")
     if b == 0 or s == 0:
         return out
-    arr = (_LL * 12)(*strides)
-    _launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), b, h, hkv, s, d, arr, int(causal), d ** -0.5,
+    arr = _FLASH_STRIDES.get(strides)
+    if arr is None:
+        if len(_FLASH_STRIDES) >= 1024:
+            _FLASH_STRIDES.clear()
+        arr = _FLASH_STRIDES[strides] = _LL12(*strides)
+    _launch(name, *ptrs, b, h, hkv, s, d, arr, int(causal), d ** -0.5,
             _stream())
     return out

@@ -332,9 +332,9 @@ def test_cuda_flash(card, s, d, group, causal, layout):
     assert (row <= 1e-2 * torch.linalg.vector_norm(want, dim=-1)).all()
 
 
-def _selector_probe(dev, h, hkv, s):
+def _selector_probe(dev, h, hkv, s, causal=True):
     import chip_smoke
-    return chip_smoke.flash_selector_probe(dev, 1, h, hkv, s)
+    return chip_smoke.flash_selector_probe(dev, 1, h, hkv, s, causal=causal)
 
 
 @pytest.mark.parametrize("h,hkv", [(4, 4), (4, 1)])
@@ -356,6 +356,33 @@ def test_cuda_flash_selector_probe(card, h, hkv, s):
     from repro_torch.kernels import cuda
     q, k, v, want = _selector_probe(card, h, hkv, s)
     assert torch.equal(cuda.flash_attention(q, k, v, causal=True), want)
+
+
+@pytest.mark.parametrize("h,hkv", [(4, 4), (4, 1)])
+@pytest.mark.parametrize("s", [128, 129, 300, 513])
+def test_flash_selector_probe_spread_plain(h, hkv, s):
+    """The non-causal selector probe on the plain version: its one-hot keys
+    lie at random positions, the last one always among them, and row i is
+    the V row at the selected key's position exactly."""
+    q, k, v, want = _selector_probe(torch.device("cpu"), h, hkv, s,
+                                    causal=False)
+    n_tiles = -(-s // 64)
+    key_tiles = torch.nonzero(k.float().abs().sum(-1))[:, -1] // 64
+    assert set(key_tiles.tolist()) == set(range(n_tiles))
+    got = tops.flash_attention(q, k, v, causal=False, impl="ref")
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,hkv", [(16, 16), (16, 4)])
+@pytest.mark.parametrize("s", [128, 129, 300, 513])
+def test_cuda_flash_selector_probe_spread(card, h, hkv, s):
+    """The kernel on the non-causal selector probe, bit for bit: selected
+    keys in every kv tile pin each tile's offset and both phases of the
+    copy ring."""
+    from repro_torch.kernels import cuda
+    q, k, v, want = _selector_probe(card, h, hkv, s, causal=False)
+    assert torch.equal(cuda.flash_attention(q, k, v, causal=False), want)
 
 
 @pytest.mark.cuda
