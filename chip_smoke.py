@@ -100,8 +100,8 @@ class Timer:
 
 def host_us(fn, n: int = 100) -> float:
     """Host microseconds to enqueue one call: the device is synchronized
-    before and after, and only the loop of n calls is timed.  What the
-    Timer's window also holds where a call's host work outlasts the flush."""
+    before and after, and only the loop of n calls is timed.  The Timer's
+    window also holds the part of this that outlasts its L2 flush."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
