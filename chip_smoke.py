@@ -151,7 +151,8 @@ def phase_build():
 # ------------------------------------------------------------ kernel phases
 def qmm_case(timer, dev, gen, bits, m, k, n, wp=None, x=None):
     """One quant_matmul shape against its plain version (1 bf16 ulp of
-    max|ref|), timed beside cuBLAS bf16 on the dequantized weight."""
+    max|ref|), timed beside cuBLAS bf16 on the dequantized weight.  A GEMV
+    shape (M <= 16) is also read in device time alone (``device_us``)."""
     from repro_torch.kernels import cuda, ref
     unpack = ref.unpack_w4 if bits == 4 else ref.unpack_w2
     if wp is None:
@@ -188,7 +189,76 @@ def qmm_case(timer, dev, gen, bits, m, k, n, wp=None, x=None):
         f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}, cuBLAS bf16 "
         f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} "
         f"({rec['bound_by']}){rate}")
+    if rec["route"] == "gemv":
+        rec["plan"] = list(cuda.gemv_plan(m, n, k, bits))
+        rec["device_us"], rec["device_kernels"] = device_us(
+            timer, lambda: cuda.quant_matmul(x, wp, scale, bits))
+        rec["library_device_us"], rec["library_kernels"] = device_us(
+            timer, lambda: torch.matmul(x, w_bf16))
+        rec["bound_us"] = rec["bound_ms"] * 1e3
+        rec["x_bound_device"] = rec["device_us"] / rec["bound_us"]
+        rec["x_cublas_device"] = rec["device_us"] / rec["library_device_us"]
+        log(f"    device time alone (torch.profiler, L2 flushed): "
+            f"{rec['device_us']:.2f} us, {rec['x_bound_device']:.2f}x the "
+            f"bound ({rec['bound_us']:.2f} us), cuBLAS bf16 "
+            f"{rec['library_device_us']:.2f} us ({rec['x_cublas_device']:.2f}"
+            f"x); plan {rec['plan'][0]} K slices of {rec['plan'][1]} steps")
     return rec, got, want
+
+
+def device_us(timer, fn, iters: int = 20):
+    """Device microseconds of one call of ``fn`` with the L2 cold:
+    torch.profiler over ``iters`` calls, each after the Timer's flush, the
+    device time of every kernel summed but the flush's own, which a profile
+    of the flush alone names.  Returns (us, {kernel: launches a call})."""
+    fn()
+    flush = set(device_rows(timer.flush_buf.zero_))
+
+    def loop():
+        for _ in range(iters):
+            timer.flush_buf.zero_()
+            fn()
+    rows = {k: v for k, v in device_rows(loop).items() if k not in flush}
+    return (sum(us for us, _ in rows.values()) / iters,
+            {k[:90]: n / iters for k, (_, n) in rows.items()})
+
+
+def gemv_selector_probe(dev, bits, m):
+    """The GEMV route's probe: K = N = 256, the packed bytes cycling through
+    all 256 values in every row, x of M one-hot rows; call c puts row r's 1
+    at K position c M + r, so K / M calls place a 1 at every K position.
+    Each output is one code times its scale, rounded once to bf16, so the
+    calls must equal codes x scale bit for bit: a wrong lane byte, bit
+    offset, channel permutation, x staging order or slice breaks it."""
+    from repro_torch.kernels import cuda, ref
+    k = n = 256
+    r = torch.arange(k // (8 // bits), device=dev)[:, None]
+    wp = ((r + torch.arange(n, device=dev)[None, :]) % 256).to(torch.uint8)
+    scale = torch.rand((n,), generator=torch.Generator(dev).manual_seed(3),
+                       device=dev) + 0.5
+    rows = torch.arange(m, device=dev)
+    got = []
+    for c in range(k // m):
+        x = torch.zeros((m, k), device=dev, dtype=torch.bfloat16)
+        x[rows, c * m + rows] = 1.0
+        got.append(cuda.quant_matmul(x, wp, scale, bits))
+    unpack = ref.unpack_w4 if bits == 4 else ref.unpack_w2
+    want = (unpack(wp, torch.float32) * scale[None]).to(torch.bfloat16)
+    return bool(torch.equal(torch.cat(got), want))
+
+
+def gemv_repeat(dev, gen, bits, m=8, k=8192, n=2048):
+    """Two calls on the same inputs through a split-K plan: equal bit for
+    bit (the slices add in a fixed order; no floating-point atomics)."""
+    from repro_torch.kernels import cuda, ref
+    lo, hi = -(1 << (bits - 1)), 1 << (bits - 1)
+    codes = torch.randint(lo, hi, (k, n), generator=gen, device=dev)
+    wp = (ref.pack_w4 if bits == 4 else ref.pack_w2)(codes)
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    scale = torch.rand((n,), generator=gen, device=dev) * 0.02 + 1e-3
+    first = cuda.quant_matmul(x, wp, scale, bits)
+    return cuda.gemv_plan(m, n, k, bits), bool(torch.equal(
+        first, cuda.quant_matmul(x, wp, scale, bits)))
 
 
 def identity_probe(timer, dev, gen, bits):
@@ -214,7 +284,8 @@ def check_quant_matmul(timer, dev, gen):
     shapes of olmo-1b, decode M = 8 and prefill M = 4096), the identity
     probe, and ragged tiled shapes: M = 4099 (a ragged M through the wgmma
     route), and M = 129 with N = 200 and K = 520 (ragged M, N and a partial
-    last K step; N % 16 != 0 takes the mma.sync route)."""
+    last K step; N % 16 != 0 takes the mma.sync route).  Then the GEMV
+    route's selector probe at M = 16 and 8 and its repeat check."""
     cases = []
     for bits in (4, 2):
         for (k, n) in ((2048, 2048), (2048, 8192), (8192, 2048)):
@@ -224,6 +295,19 @@ def check_quant_matmul(timer, dev, gen):
         cases.append(identity_probe(timer, dev, gen, bits))
         for (m, k, n) in ((4099, 2048, 2048), (129, 520, 200)):
             cases.append(qmm_case(timer, dev, gen, bits, m, k, n)[0])
+    for bits in (4, 2):
+        for m in (16, 8):
+            same = gemv_selector_probe(dev, bits, m)
+            cases.append({"gemv_selector_probe": True, "bits": bits, "m": m,
+                          "k": 256, "n": 256, "bit_equal": same, "ok": same})
+            log(f"    GEMV selector probe w{bits} M={m}: every K position "
+                f"one-hot, outputs equal codes x scale bit for bit: {same}")
+        plan, same = gemv_repeat(dev, gen, bits)
+        cases.append({"gemv_repeat": True, "bits": bits, "m": 8, "k": 8192,
+                      "n": 2048, "plan": list(plan), "bit_equal": same,
+                      "ok": same})
+        log(f"    GEMV repeat w{bits} M=8 K=8192 N=2048 ({plan[0]} K "
+            f"slices): two calls equal bit for bit: {same}")
     # headline: the decode gate/up projection at int4
     head = next(c for c in cases if (c["bits"], c["m"], c["k"], c["n"])
                 == (4, 8, 2048, 8192))
@@ -571,6 +655,29 @@ def make_prompts(cfg, rng):
     return tokens, lengths
 
 
+def device_rows(fn) -> dict:
+    """{kernel: (device us, launches)} of the kernels ``fn`` runs, from
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return device_table(prof)
+
+
+def device_table(prof) -> dict:
+    rows = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            rows[e.key] = (us, e.count)
+    return rows
+
+
 def device_breakdown(fn, top: int = 20) -> dict:
     """Run ``fn`` once under torch.profiler: host wall ms, the summed device
     time of its kernels (one stream, so they do not overlap), the device's
@@ -583,14 +690,8 @@ def device_breakdown(fn, top: int = 20) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((e.key, us, e.count))
-    rows.sort(key=lambda r: -r[1])
+    rows = sorted(((k, us, n) for k, (us, n) in device_table(prof).items()),
+                  key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
     return {"wall_ms": wall_us / 1e3, "device_ms": busy_us / 1e3,
             "idle_share": 1.0 - busy_us / wall_us if wall_us else None,
@@ -598,6 +699,8 @@ def device_breakdown(fn, top: int = 20) -> dict:
             "dtoh_copies": sum(n for k, _, n in rows
                                if k.startswith("Memcpy DtoH")),
             "device_ops": sum(n for _, _, n in rows),
+            "qmm_gemv_ms": sum(us for k, us, _ in rows
+                               if "qmm_gemv" in k) / 1e3,
             "top": [{"kernel": k[:90], "ms": us / 1e3, "count": n}
                     for k, us, n in rows[:top]]}
 
@@ -606,7 +709,7 @@ def log_breakdown(what: str, rec: dict) -> None:
     log(f"    profile {what}: wall {rec['wall_ms']:.2f} ms, device busy "
         f"{rec['device_ms']:.2f} ms, idle share {rec['idle_share']:.3f}, "
         f"{rec['device_ops']} device ops, {rec['dtoh_copies']} "
-        f"device-to-host copies")
+        f"device-to-host copies; qmm_gemv {rec['qmm_gemv_ms']:.3f} ms")
     for row in rec["top"][:6]:
         log(f"      {row['ms']:9.3f} ms  x{row['count']:<5d} {row['kernel']}")
 

@@ -11,15 +11,34 @@
 // Plain version: repro_torch/kernels/ref.py::quant_matmul_w4 / _w2.
 //
 // Bound on the H100, by regime:
-//  * Decode (M <= 16) is bound by the bytes of the packed codes: at M = 8,
-//    K = 2048, N = 8192, int4 moves 8.4 MB of codes against 0.27 GFLOP.
-//    qmm_gemv streams them once: a block owns 32 output columns; each warp
-//    reads 4 row groups x 32 contiguous bytes (8 lanes x 4 bytes, so
-//    neighbouring N are neighbouring bytes and reads coalesce along N),
-//    unpacks in registers and keeps M x 4 fp32 accumulators per thread.
-//    The 32 row groups of a block split K; x is staged in shared memory as
-//    bf16 (the values the Pallas kernel feeds its MXU), and the partial sums
-//    reduce through warp shuffles and shared memory in a fixed order.
+//  * Decode (M <= 16, every decode projection) is bound by the bytes of the
+//    packed codes: at M = 8, K = 2048, N = 8192, int4 moves 8.4 MB of codes
+//    against 0.27 GFLOP, 2.5 us at 3.35 TB/s.  A kernel that spends scalar
+//    instructions on every (code, token) pair is bound by issue instead, so
+//    qmm_gemv reads each code byte once and hands the products to the
+//    tensor cores:
+//    - out^T = W^T x^T on mma.sync m16n8k16: the channels are the 16 rows
+//      of A, the <= 16 tokens one or two n = 8 tiles of B.  A is built from
+//      the codes in registers by the exact conversion of 2. below, so a
+//      code costs no int-to-float conversion, shared load or scalar FMA;
+//    - each lane loads 16 bytes (ld.global.nc.v4) of one packed row: the 8
+//      lane groups g cover 128 channels of a row and the 4 lanes t of a
+//      group rows t and t + 4, so a warp's load is whole 128-byte lines and
+//      a K step (8 packed rows x 128 channels, 1 KB) is two loads a lane.
+//      Byte j of group g is channel 16 g + j; fragment row g of mma tile i
+//      is channel 16 g + 2 i and row g + 8 channel 16 g + 2 i + 1, so one
+//      load feeds 8 tiles, and the epilogue undoes the permutation;
+//    - a warp keeps 4 K steps (4 KB) in flight in registers and issues the
+//      next step's loads before a step's unpack and mma;
+//    - split K: a block (8 warps) owns 128 channels and one slice of K.  The
+//      host's plan (cuda.py's gemv_plan) cuts K so that every olmo-1b shape
+//      gives at least 132 blocks (N = 2048 alone gives 16).  Slices write
+//      fp32 partial sums to a workspace, and the last block of a tile to
+//      arrive, found by a counter, adds them in slice order and scales: no
+//      floating-point atomics, so a call repeats bit for bit;
+//    - x is staged once per block, its K slice as bf16 (the values the
+//      Pallas kernel feeds its MXU) in fragment order, so a lane reads its
+//      B fragments of a step in one 8- or 16-byte shared load.
 //  * Prefill (M = tokens, here 4096) is bound by operations: the gate
 //    projection (K = 2048, N = 8192) is 2 * 4096 * 2048 * 8192 = 137 GFLOP,
 //    0.139 ms at 989 TFLOP/s, against 4.2 MB of x and codes.  Two routes,
@@ -83,111 +102,6 @@ using repro::wg_desc;
 using repro::wg_fence;
 using repro::wg_hold;
 using repro::wg_wait;
-
-constexpr int GV_THREADS = 256;  // 8 warps x 4 row groups of 8 lanes
-constexpr int GV_COLS = 32;      // output columns per block: 8 lanes x 4 bytes
-constexpr int GV_GROUPS = 32;    // row groups per block
-constexpr int GV_KC = 1024;      // K elements of x staged per pass
-
-template <int BITS, int MT, typename XT>
-__global__ void __launch_bounds__(GV_THREADS)
-    qmm_gemv(const XT* __restrict__ x, const uint8_t* __restrict__ wp,
-             const float* __restrict__ scale, XT* __restrict__ out, int M,
-             int N, int K) {
-  constexpr int PACK = 8 / BITS;
-  constexpr int RPT = GV_KC / PACK / GV_GROUPS;  // packed rows/thread/pass
-  // x chunk as bf16 (MT x GV_KC); reused for the cross-warp reduction
-  // (8 x MT x GV_COLS floats, half the size) after the K loop.
-  __shared__ __align__(16) unsigned char smem[MT * GV_KC * 2];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int grp = warp * 4 + (lane >> 3);
-  const int n0 = blockIdx.x * GV_COLS + (lane & 7) * 4;
-  const int kp = K / PACK;
-  const bool vec = (N % 4 == 0) && (n0 + 3 < N);
-
-  float acc[MT][4];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[m][c] = 0.f;
-
-  for (int kc = 0; kc < K; kc += GV_KC) {
-    // issue this pass's weight loads first; they overlap the x staging
-    uint32_t wv[RPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = kc / PACK + grp + GV_GROUPS * i;
-      uint32_t w = 0u;
-      if (r < kp) {
-        const uint8_t* p = wp + static_cast<size_t>(r) * N + n0;
-        if (vec) {
-          w = __ldg(reinterpret_cast<const uint32_t*>(p));
-        } else {
-          for (int c = 0; c < 4; ++c)
-            if (n0 + c < N) w |= static_cast<uint32_t>(__ldg(p + c)) << (8 * c);
-        }
-      }
-      wv[i] = w;
-    }
-    for (int idx = tid; idx < MT * GV_KC; idx += GV_THREADS) {
-      const int m = idx / GV_KC, k = kc + idx % GV_KC;
-      const float v = (m < M && k < K)
-                          ? repro::to_f32(x[static_cast<size_t>(m) * K + k])
-                          : 0.f;
-      xs[idx] = __float2bfloat16_rn(v);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int kl = (grp + GV_GROUPS * i) * PACK;
-#pragma unroll
-      for (int j = 0; j < PACK; ++j) {
-        float code[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          code[c] = static_cast<float>(repro::sext<BITS>(wv[i] >> (8 * c + BITS * j)));
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          const float xv = __bfloat162float(xs[m * GV_KC + kl + j]);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[m][c] = fmaf(xv, code[c], acc[m][c]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // the four row groups of a warp hold the same columns: lanes l ^ 8, l ^ 16
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      float v = acc[m][c];
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      acc[m][c] = v;
-    }
-  float* red = reinterpret_cast<float*>(smem);  // [8 warps][MT][GV_COLS]
-  if (lane < 8) {
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        red[(warp * MT + m) * GV_COLS + lane * 4 + c] = acc[m][c];
-  }
-  __syncthreads();
-  for (int idx = tid; idx < MT * GV_COLS; idx += GV_THREADS) {
-    const int m = idx / GV_COLS, col = idx % GV_COLS;
-    const int n = blockIdx.x * GV_COLS + col;
-    if (m < M && n < N) {
-      float s = 0.f;
-      for (int w = 0; w < GV_THREADS / 32; ++w) s += red[(w * MT + m) * GV_COLS + col];
-      out[static_cast<size_t>(m) * N + n] = repro::from_f32<XT>(s * scale[n]);
-    }
-  }
-}
 
 constexpr int TM = 128, TN = 128, TK = 64;   // block tile and K step
 constexpr int T_THREADS = 256, T_STAGES = 4;
@@ -645,25 +559,338 @@ int launch_wg(const void* x, const void* wp, const void* scale, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BITS, typename XT>
+// ---------------------------------------------------------------------------
+// qmm_gemv: the decode route, M <= 16 (see the top of the file).
+constexpr int GV_THREADS = 256;
+constexpr int GV_WARPS = GV_THREADS / 32;
+constexpr int GV_CH = 128;      // channels a block: 8 lane groups x 16 bytes
+constexpr int GV_ROWS = 8;      // packed rows a K step: lane t reads t, t + 4
+constexpr int GV_DEPTH = 4;     // K steps a warp keeps in flight
+constexpr int GV_SLICE_WORDS = 256;  // x words a lane may stage: K <= 2048
+
+template <int BITS>
+struct Gv {
+  static constexpr int PACK = 8 / BITS;
+  static constexpr int KC = GV_ROWS * PACK;  // K a step: 16 (int4), 32 (int2)
+  static constexpr int XWORDS = KC / 8;      // bf16 pairs of x a lane a step
+};
+
+// The 16 code bytes of packed row `row` at channels n .. n + 15; zero past
+// kp rows or N channels.  wvec: 16 (N % 16 == 0, aligned), 4 or 1 bytes.
+__device__ __forceinline__ uint4 gv_load(const uint8_t* __restrict__ wp,
+                                         int row, int kp, int n, int N,
+                                         int wvec) {
+  if (row >= kp || n >= N) return make_uint4(0u, 0u, 0u, 0u);
+  const uint8_t* p = wp + static_cast<size_t>(row) * N + n;
+  if (wvec == 16) return __ldg(reinterpret_cast<const uint4*>(p));
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+  if (wvec == 4) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (n + 4 * e < N) w[e] = __ldg(reinterpret_cast<const uint32_t*>(p + 4 * e));
+  } else {
+    for (int e = 0; e < 16; ++e)
+      if (n + e < N) w[e >> 2] |= static_cast<uint32_t>(__ldg(p + e)) << (8 * (e & 3));
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// One K step of a warp: the codes of packed rows t (v0) and t + 4 (v1) at
+// the lane's 16 channels, times x's B fragments staged at xf.  Byte j of a
+// lane's 16 is channel 16 g + j: tile i takes bytes 2i (row g) and 2i + 1
+// (row g + 8), so word q of v0 / v1 feeds tiles 2q and 2q + 1.
+//  int4: row t holds the K pair (2t, 2t+1) and row t + 4 the pair
+//        (2t+8, 2t+9) of the mma's 16: one mma step, x in natural order;
+//  int2: row t + 4s holds K 4r .. 4r + 3 (r = the row), the pairs (4r, 4r+1)
+//        and (4r+2, 4r+3) of mma step s: the mma's K order is permuted, and
+//        x is staged in the same order.
+template <int BITS, int NT>
+__device__ __forceinline__ void gv_step(float (&acc)[8][NT][4], const uint4& v0,
+                                        const uint4& v1,
+                                        const uint32_t* __restrict__ xf) {
+  constexpr int XW = Gv<BITS>::XWORDS;
+  constexpr uint32_t MASK = BITS == 4 ? 0x0F0F0F0Fu : 0x03030303u;
+  uint32_t b[NT][XW];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    if constexpr (XW == 2) {
+      const uint2 u = *reinterpret_cast<const uint2*>(xf + nt * 32 * XW);
+      b[nt][0] = u.x;
+      b[nt][1] = u.y;
+    } else {
+      const uint4 u = *reinterpret_cast<const uint4*>(xf + nt * 32 * XW);
+      b[nt][0] = u.x;
+      b[nt][1] = u.y;
+      b[nt][2] = u.z;
+      b[nt][3] = u.w;
+    }
+  }
+  const uint32_t w0[4] = {v0.x, v0.y, v0.z, v0.w};
+  const uint32_t w1[4] = {v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int s = 0; s < XW / 2; ++s) {
+      uint32_t lo[4], hi[4];  // a[0], a[1] and a[2], a[3] of tiles 2q, 2q + 1
+      if (BITS == 4) {
+        codes_to_bf16x2<4, 4>(w0[q] & MASK, (w0[q] >> 4) & MASK, lo);
+        codes_to_bf16x2<4, 4>(w1[q] & MASK, (w1[q] >> 4) & MASK, hi);
+      } else {
+        const uint32_t w = s == 0 ? w0[q] : w1[q];
+        codes_to_bf16x2<2, 4>(w & MASK, (w >> 2) & MASK, lo);
+        codes_to_bf16x2<2, 4>((w >> 4) & MASK, (w >> 6) & MASK, hi);
+      }
+      const uint32_t a0[4] = {lo[0], lo[1], hi[0], hi[1]};
+      const uint32_t a1[4] = {lo[2], lo[3], hi[2], hi[3]};
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        mma_bf16(acc[2 * q][nt], a0, b[nt][2 * s], b[nt][2 * s + 1]);
+        mma_bf16(acc[2 * q + 1][nt], a1, b[nt][2 * s], b[nt][2 * s + 1]);
+      }
+    }
+}
+
+// The word of the staged x that holds the bf16 pair (kl, kl + 1) of token
+// m, kl counted from the slice's first K: K step kl / KC, token tile m / 8,
+// lane 4 (m % 8) + t, word.  int4: the pairs (2t, 2t+1), (2t+8, 2t+9) of a
+// step are words 0 and 1; int2: the pairs (4r, 4r+1), (4r+2, 4r+3) of row
+// r = t + 4s are words 2s and 2s + 1.
+template <int BITS, int NT>
+__device__ __forceinline__ int gv_slot(int m, int kl) {
+  using G = Gv<BITS>;
+  const int kk = kl % G::KC;
+  int lt, word;
+  if (BITS == 4) {
+    lt = (kk & 7) >> 1;
+    word = kk >> 3;
+  } else {
+    lt = (kk >> 2) & 3;
+    word = ((kk >> 4) << 1) | ((kk >> 1) & 1);
+  }
+  return (((kl / G::KC) * NT + (m >> 3)) * 32 + (m & 7) * 4 + lt) *
+             G::XWORDS + word;
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// Four fp32 partial sums at p (`left` of them inside N), read from L2.
+__device__ __forceinline__ float4 gv_ld4(const float* p, int left, bool vec) {
+  if (vec && left >= 4) return __ldcg(reinterpret_cast<const float4*>(p));
+  float v[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int e = 0; e < 4 && e < left; ++e) v[e] = __ldcg(p + e);
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void gv_st4(float* p, float4 s, int left, bool vec) {
+  if (vec && left >= 4) {
+    *reinterpret_cast<float4*>(p) = s;
+    return;
+  }
+  const float v[4] = {s.x, s.y, s.z, s.w};
+  for (int e = 0; e < 4 && e < left; ++e) p[e] = v[e];
+}
+
+template <typename XT>
+__device__ __forceinline__ void gv_out(XT* p, const float* __restrict__ scale,
+                                       float4 s, int left) {
+  const float v[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (e < left) p[e] = repro::from_f32<XT>(v[e] * scale[e]);
+}
+
+// Block (tile, slice) computes channels 128 tile .. + 127 over the K steps
+// [slice * per_slice, + per_slice) of 8 packed rows each.  Warp w takes
+// steps w, w + 8, ...; GV_DEPTH of them in flight in registers.  The warps'
+// sums add in warp order through shared memory.  With one slice the block
+// scales and stores; otherwise it writes its sum to ws[slice], and the last
+// block of the tile to arrive (counters[tile]) adds ws[0], ws[1], ... in
+// slice order, scales, stores and sets the counter back to 0.
+template <int BITS, int NT, typename XT>
+__global__ void __launch_bounds__(GV_THREADS, 3 - NT)
+    qmm_gemv(const XT* __restrict__ x, const uint8_t* __restrict__ wp,
+             const float* __restrict__ scale, XT* __restrict__ out,
+             float* __restrict__ ws, unsigned int* __restrict__ counters,
+             int M, int N, int K, int per_slice, int wvec, int x_async) {
+  using G = Gv<BITS>;
+  extern __shared__ __align__(16) uint8_t gv_smem[];
+  uint32_t* xs = reinterpret_cast<uint32_t*>(gv_smem);  // x, fragment order
+  float* red = reinterpret_cast<float*>(gv_smem);        // after the K loop
+  __shared__ int last;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int tile = blockIdx.x, slice = blockIdx.y, slices = gridDim.y;
+  const int kp = K / G::PACK;
+  const int s0 = slice * per_slice;
+  const int s1 = min(s0 + per_slice, (kp + GV_ROWS - 1) / GV_ROWS);
+  const int n_lane = tile * GV_CH + 16 * g;
+  const int mine =
+      s1 - s0 > warp ? (s1 - s0 - warp + GV_WARPS - 1) / GV_WARPS : 0;
+
+  // the slice's x as bf16 pairs (zero past M and K) in fragment order: K
+  // step, token tile, lane, word, so that a lane reads its B fragments of a
+  // step in one 8- or 16-byte load.  A bf16 x goes by cp.async, issued
+  // before the codes; a float32 x is rounded (to nearest even) after them.
+  const int pairs = max(s1 - s0, 0) * G::KC / 2;
+  if (x_async) {
+    for (int idx = tid; idx < NT * 8 * pairs; idx += GV_THREADS) {
+      const int m = idx / pairs, kl = 2 * (idx - m * pairs);
+      const int k = s0 * G::KC + kl;
+      const bool ok = m < M && k < K;  // K is even
+      cp_async4(smem_addr(xs + gv_slot<BITS, NT>(m, kl)),
+                ok ? x + static_cast<size_t>(m) * K + k : x, ok);
+    }
+    cp_async_commit();
+  }
+
+  // the codes of the warp's first K steps
+  uint4 buf[GV_DEPTH][2];
+#pragma unroll
+  for (int d = 0; d < GV_DEPTH; ++d) {
+    const int row = d < mine ? (s0 + warp + d * GV_WARPS) * GV_ROWS + t : kp;
+    buf[d][0] = gv_load(wp, row, kp, n_lane, N, wvec);
+    buf[d][1] = gv_load(wp, row + 4, kp, n_lane, N, wvec);
+  }
+
+  if (x_async) {
+    cp_async_wait<0>();
+  } else {
+    for (int idx = tid; idx < NT * 8 * pairs; idx += GV_THREADS) {
+      const int m = idx / pairs, kl = 2 * (idx - m * pairs);
+      const int k = s0 * G::KC + kl;
+      float a = 0.f, b = 0.f;
+      if (m < M && k < K) {
+        const XT* src = x + static_cast<size_t>(m) * K + k;
+        a = repro::to_f32(src[0]);
+        b = repro::to_f32(src[1]);
+      }
+      const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+      xs[gv_slot<BITS, NT>(m, kl)] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+  }
+  __syncthreads();
+
+  float acc[8][NT][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][nt][e] = 0.f;
+  for (int c = 0; c < mine; c += GV_DEPTH) {
+#pragma unroll
+    for (int d = 0; d < GV_DEPTH; ++d) {
+      const int i = c + d;
+      if (i < mine) {
+        const uint4 v0 = buf[d][0], v1 = buf[d][1];
+        const int j = warp + i * GV_WARPS;  // the slice's K step
+        if (i + GV_DEPTH < mine) {  // refill before this step's math
+          const int row = (s0 + j + GV_DEPTH * GV_WARPS) * GV_ROWS + t;
+          buf[d][0] = gv_load(wp, row, kp, n_lane, N, wvec);
+          buf[d][1] = gv_load(wp, row + 4, kp, n_lane, N, wvec);
+        }
+        gv_step<BITS, NT>(acc, v0, v1, xs + (j * NT * 32 + lane) * G::XWORDS);
+      }
+    }
+  }
+  __syncthreads();  // xs is free
+
+  // lane (g, t) holds channels 16 g .. + 15 at tokens 8 nt + 2 t + e: tile
+  // i's row g is channel 16 g + 2 i, its row g + 8 channel 16 g + 2 i + 1
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float4* dst = reinterpret_cast<float4*>(
+          red + ((warp * NT + nt) * 8 + 2 * t + e) * GV_CH + 16 * g);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        dst[c] = make_float4(acc[2 * c][nt][e], acc[2 * c][nt][2 + e],
+                             acc[2 * c + 1][nt][e], acc[2 * c + 1][nt][2 + e]);
+    }
+  __syncthreads();
+
+  const bool vec = N % 4 == 0;
+  for (int idx = tid; idx < NT * 8 * (GV_CH / 4); idx += GV_THREADS) {
+    const int m = idx / (GV_CH / 4), c4 = idx % (GV_CH / 4);
+    const int n = tile * GV_CH + 4 * c4;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int w = 0; w < GV_WARPS; ++w)
+      s = add4(s, reinterpret_cast<const float4*>(
+                      red + (w * NT * 8 + m) * GV_CH)[c4]);
+    if (m >= M || n >= N) continue;
+    if (slices == 1)
+      gv_out(out + static_cast<size_t>(m) * N + n, scale + n, s, N - n);
+    else
+      gv_st4(ws + (static_cast<size_t>(slice) * M + m) * N + n, s, N - n, vec);
+  }
+  if (slices == 1) return;
+
+  __threadfence();
+  __syncthreads();
+  if (tid == 0)
+    last = atomicAdd(counters + tile, 1u) == static_cast<unsigned>(slices - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int idx = tid; idx < NT * 8 * (GV_CH / 4); idx += GV_THREADS) {
+    const int m = idx / (GV_CH / 4), n = tile * GV_CH + 4 * (idx % (GV_CH / 4));
+    if (m >= M || n >= N) continue;
+    // eight slices' loads in flight at a time, added in slice order
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s8 = 0; s8 < slices; s8 += 8) {
+      float4 v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (s8 + u < slices)
+          v[u] = gv_ld4(ws + (static_cast<size_t>(s8 + u) * M + m) * N + n,
+                        N - n, vec);
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (s8 + u < slices) s = add4(s, v[u]);
+    }
+    gv_out(out + static_cast<size_t>(m) * N + n, scale + n, s, N - n);
+  }
+  if (tid == 0) counters[tile] = 0u;
+}
+
+template <int BITS, int NT, typename XT>
 int launch_gemv(const void* x, const void* wp, const void* scale, void* out,
-                int M, int N, int K, cudaStream_t st) {
-  const XT* xp = static_cast<const XT*>(x);
-  const uint8_t* w = static_cast<const uint8_t*>(wp);
-  const float* s = static_cast<const float*>(scale);
-  XT* o = static_cast<XT*>(out);
-  const dim3 grid((N + GV_COLS - 1) / GV_COLS);
-  if (M <= 1)
-    qmm_gemv<BITS, 1, XT><<<grid, GV_THREADS, 0, st>>>(xp, w, s, o, M, N, K);
-  else if (M <= 2)
-    qmm_gemv<BITS, 2, XT><<<grid, GV_THREADS, 0, st>>>(xp, w, s, o, M, N, K);
-  else if (M <= 4)
-    qmm_gemv<BITS, 4, XT><<<grid, GV_THREADS, 0, st>>>(xp, w, s, o, M, N, K);
-  else if (M <= 8)
-    qmm_gemv<BITS, 8, XT><<<grid, GV_THREADS, 0, st>>>(xp, w, s, o, M, N, K);
-  else
-    qmm_gemv<BITS, 16, XT><<<grid, GV_THREADS, 0, st>>>(xp, w, s, o, M, N, K);
+                void* ws, void* counters, int M, int N, int K, int slices,
+                int per_slice, cudaStream_t st) {
+  // the warps' sums; the slice's x (per_slice * XWORDS <= GV_SLICE_WORDS)
+  // fits in the same bytes
+  constexpr int SMEM = GV_WARPS * NT * 8 * GV_CH * 4;  // 32 KB a token tile
+  if (SMEM > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        qmm_gemv<BITS, NT, XT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const uintptr_t wa = reinterpret_cast<uintptr_t>(wp);
+  const int wvec = (N % 16 == 0 && wa % 16 == 0) ? 16 : (N % 4 == 0 ? 4 : 1);
+  const int x_async = sizeof(XT) == 2 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
+  const dim3 grid((N + GV_CH - 1) / GV_CH, slices);
+  qmm_gemv<BITS, NT, XT><<<grid, GV_THREADS, SMEM, st>>>(
+      static_cast<const XT*>(x), static_cast<const uint8_t*>(wp),
+      static_cast<const float*>(scale), static_cast<XT*>(out),
+      static_cast<float*>(ws), static_cast<unsigned int*>(counters), M, N, K,
+      per_slice, wvec, x_async);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int BITS, typename XT>
+int launch_gemv_m(const void* x, const void* wp, const void* scale, void* out,
+                  void* ws, void* counters, int M, int N, int K, int slices,
+                  int per_slice, cudaStream_t st) {
+  if (M <= 8)
+    return launch_gemv<BITS, 1, XT>(x, wp, scale, out, ws, counters, M, N, K,
+                                    slices, per_slice, st);
+  return launch_gemv<BITS, 2, XT>(x, wp, scale, out, ws, counters, M, N, K,
+                                  slices, per_slice, st);
 }
 
 }  // namespace
@@ -672,16 +899,22 @@ int launch_gemv(const void* x, const void* wp, const void* scale, void* out,
 // out_dtype.  K must be a multiple of the pack factor.  x: (M, K) row-major
 // in x_dtype.  The caller picks the kernel by shape (cuda.py's
 // quant_matmul_route); each launch checks what its kernel needs:
-//   kGemv    M <= 16, x in the output's dtype;
+//   kGemv    M <= 16, x in the output's dtype; the K plan (cuda.py's
+//            gemv_plan): `slices` slices of `per_slice` K steps of 8 packed
+//            rows, covering K, each K <= 2048; with slices > 1 an fp32
+//            workspace ws (slices, M, N) and ceil(N / 128) counters, zero
+//            on entry and left zero;
 //   kMmaSync bf16 x, 4-byte aligned;
 //   kWgmma   bf16 x, K % 8 == 0 and N % 16 == 0 (TMA's 16-byte row
 //            strides), 16-byte aligned x and wp.
+// The tiled routes ignore ws, counters, slices and per_slice.
 enum Route { kGemv = 0, kMmaSync = 1, kWgmma = 2 };
 
 extern "C" int quant_matmul_launch(const void* x, const void* wp,
                                    const void* scale, void* out, int M, int N,
                                    int K, int bits, int x_dtype, int out_dtype,
-                                   int route, void* stream) {
+                                   int route, void* ws, void* counters,
+                                   int slices, int per_slice, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool bf = out_dtype == repro::kBFloat16;
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
@@ -690,12 +923,24 @@ extern "C" int quant_matmul_launch(const void* x, const void* wp,
   if ((bits != 4 && bits != 2) || (!bf && out_dtype != repro::kFloat32))
     return bad;
   if (route == kGemv) {
-    if (M > 16 || x_dtype != out_dtype) return bad;
+    const int steps = (K / (8 / bits) + GV_ROWS - 1) / GV_ROWS;
+    const int words = per_slice * (bits == 4 ? Gv<4>::XWORDS : Gv<2>::XWORDS);
+    if (M > 16 || x_dtype != out_dtype || slices < 1 || per_slice < 1 ||
+        words > GV_SLICE_WORDS ||
+        static_cast<long long>(slices) * per_slice < steps ||
+        (slices > 1 && (ws == nullptr || counters == nullptr)))
+      return bad;
     if (bits == 4)
-      return bf ? launch_gemv<4, __nv_bfloat16>(x, wp, scale, out, M, N, K, st)
-                : launch_gemv<4, float>(x, wp, scale, out, M, N, K, st);
-    return bf ? launch_gemv<2, __nv_bfloat16>(x, wp, scale, out, M, N, K, st)
-              : launch_gemv<2, float>(x, wp, scale, out, M, N, K, st);
+      return bf ? launch_gemv_m<4, __nv_bfloat16>(x, wp, scale, out, ws,
+                                                   counters, M, N, K, slices,
+                                                   per_slice, st)
+                : launch_gemv_m<4, float>(x, wp, scale, out, ws, counters, M,
+                                          N, K, slices, per_slice, st);
+    return bf ? launch_gemv_m<2, __nv_bfloat16>(x, wp, scale, out, ws,
+                                                 counters, M, N, K, slices,
+                                                 per_slice, st)
+              : launch_gemv_m<2, float>(x, wp, scale, out, ws, counters, M, N,
+                                        K, slices, per_slice, st);
   }
   if (x_dtype != repro::kBFloat16 || xa % 4 != 0) return bad;
   if (route == kWgmma) {

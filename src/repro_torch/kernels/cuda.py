@@ -12,7 +12,7 @@ went through each kernel.  The libraries build on first use
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -24,6 +24,11 @@ LAUNCHES: Dict[str, int] = {"quant_matmul": 0, "kv_decode_attention": 0,
 HIST_MAX_BINS = 4096            # the kernel's shared-memory counters
 PAGED_MAX_PAGES = 8192          # table entries a slot stages in shared memory
 GEMV_MAX_M = 16                 # quant_matmul rows of the GEMV; above, tiles
+GEMV_CHANNELS = 128             # output channels a GEMV block: 8 x 16 bytes
+GEMV_STEP_ROWS = 8              # packed rows a GEMV K step
+GEMV_SLICE_MAX_K = 2048         # K a block stages: x fits its shared memory
+GEMV_MIN_STEPS = 4              # K steps a slice at least
+GEMV_TARGET_BLOCKS = 2 * 132    # two blocks on each of an H100's 132 SMs
 QMM_ROUTES = ("gemv", "mma.sync", "wgmma")   # the C launcher's route codes
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -35,7 +40,8 @@ _LL12 = _LL * 12                # flash_attention's 12 strides
 _FLASH_STRIDES: Dict[tuple, ctypes.Array] = {}   # strides -> their array
 _SIGNATURES = {
     "quant_matmul": ("quant_matmul_launch",
-                     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+                     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                      _I, _I, _P]),
     "kv_decode_attention": ("kv_decode_attention_launch",
                             [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _F, _P]),
@@ -60,6 +66,9 @@ def source_of(name: str) -> str:
 
 
 _FNS: Dict[str, object] = {}
+# the GEMV's split-K counters, one buffer for each (device, stream): zero
+# when made, and every launch leaves them zero again
+_GEMV_COUNTERS: Dict[tuple, torch.Tensor] = {}
 
 
 def reset_launches() -> None:
@@ -156,7 +165,18 @@ def quant_matmul(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
     if m == 0 or n == 0:
         return out
     route = quant_matmul_route(m, n, k)
-    if route != "gemv":
+    ws = counters = None
+    slices = per_slice = 0
+    stream = _stream()
+    if route == "gemv":
+        slices, per_slice = gemv_plan(m, n, k, bits)
+        if slices > 1:
+            # the slices' fp32 partial sums; held until the launch
+            counters = _gemv_counters(x.device, stream,
+                                      -(-n // GEMV_CHANNELS))
+            ws = torch.empty((slices, m, n), dtype=torch.float32,
+                             device=x.device)
+    else:
         # the tensor-core kernels read bf16 x (a float32 x rounds to
         # nearest even here, once) and write x's dtype; their copies need
         # 16-byte aligned bases, which a fresh copy has
@@ -167,8 +187,23 @@ def quant_matmul(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
             wp = wp.clone()
     _launch("quant_matmul", x.data_ptr(), wp.data_ptr(), scale.data_ptr(),
             out.data_ptr(), m, n, k, bits, _DTYPE_CODE[x.dtype],
-            _DTYPE_CODE[out.dtype], QMM_ROUTES.index(route), _stream())
+            _DTYPE_CODE[out.dtype], QMM_ROUTES.index(route),
+            None if ws is None else ws.data_ptr(),
+            None if counters is None else counters.data_ptr(), slices,
+            per_slice, stream)
     return out
+
+
+def _gemv_counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` zero int32 counters for GEMV launches on ``stream``.
+    Launches on one stream run in order, and each leaves its counters at
+    zero, so the buffer is made (with ``torch.zeros``) once."""
+    key = (dev.index, stream)
+    buf = _GEMV_COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _GEMV_COUNTERS[key] = torch.zeros(
+            (max(n, 1024),), dtype=torch.int32, device=dev)
+    return buf
 
 
 def quant_matmul_route(m: int, n: int, k: int) -> str:
@@ -178,6 +213,27 @@ def quant_matmul_route(m: int, n: int, k: int) -> str:
     if m <= GEMV_MAX_M:
         return "gemv"
     return "wgmma" if k > 0 and k % 8 == 0 and n % 16 == 0 else "mma.sync"
+
+
+def gemv_plan(m: int, n: int, k: int, bits: int) -> Tuple[int, int]:
+    """The GEMV's split of K: (slices, K steps a slice).
+
+    A K step is GEMV_STEP_ROWS packed rows (16 K at int4, 32 at int2), and
+    a block computes GEMV_CHANNELS channels over one slice.  K is cut into
+    equal slices of whole steps, the last one shorter, as many as the
+    ceil(N / 128) column tiles leave room for in one wave of
+    GEMV_TARGET_BLOCKS blocks, with at least GEMV_MIN_STEPS steps and at
+    most GEMV_SLICE_MAX_K of K a slice.  The plan does not depend on M
+    (<= GEMV_MAX_M)."""
+    if not 0 < m <= GEMV_MAX_M:
+        raise ValueError(f"gemv_plan: M must be in [1, {GEMV_MAX_M}], got {m}")
+    kc = GEMV_STEP_ROWS * (8 // bits)
+    steps = max(-(-k // kc), 1)
+    tiles = -(-n // GEMV_CHANNELS)
+    want = max(GEMV_TARGET_BLOCKS // tiles, 1)
+    per = max(-(-steps // want), GEMV_MIN_STEPS)
+    per = min(per, GEMV_SLICE_MAX_K // kc, steps)
+    return -(-steps // per), per
 
 
 def histogram(codes: torch.Tensor, n_bins: int) -> torch.Tensor:

@@ -287,6 +287,69 @@ def test_cuda_quant_matmul_identity_probe(card, bits):
     assert torch.equal(got, f(x, wp, scale).to(torch.bfloat16))
 
 
+# the olmo-1b decode projections (K, N): q, k, v, o; gate, up; down
+OLMO_DECODE_SHAPES = [(2048, 2048), (2048, 8192), (8192, 2048)]
+GEMV_SHAPES = [(4, 520, 200), (2, 520, 200), (4, 520, 37), (2, 520, 37),
+               (4, 66, 37), (2, 68, 37), (4, 66, 200), (2, 68, 200)] + [
+    (bits, k, n) for bits in (4, 2) for (k, n) in OLMO_DECODE_SHAPES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bits,k,n", GEMV_SHAPES)
+@pytest.mark.parametrize("m", [1, 2, 5, 8, 9, 16])
+def test_cuda_quant_matmul_gemv(card, m, bits, k, n, dtype):
+    """The GEMV route at every M of one and two token tiles, ragged N (37:
+    byte loads; 200: 4-byte loads), a partial last K step (520; 66 at int4,
+    68 at int2) and the three olmo-1b decode shapes, split-K and not;
+    within 1 bf16 ulp of max|ref|, in x's dtype."""
+    from repro_torch.kernels import cuda
+    assert cuda.quant_matmul_route(m, n, k) == "gemv"
+    got, want = _cuda_qmm_case(card, bits, m, k, n, dtype, seed=5)
+    assert got.dtype == dtype
+    assert (got.float() - want).abs().max() <= 2.0 ** -7 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 2])
+@pytest.mark.parametrize("m", [16, 8, 5])
+def test_cuda_gemv_selector_probe(card, bits, m):
+    """K = N = 256, packed bytes cycling through all 256 values, x rows
+    one-hot: over ceil(K / M) calls a 1 lands on every K position, so each
+    output is one code times its scale, rounded once to bf16 -- bit for
+    bit.  It pins every lane's byte, bit offset and channel permutation,
+    the order x is staged in and each K slice of the plan."""
+    from repro_torch.kernels import cuda
+    k = n = 256
+    assert cuda.gemv_plan(m, n, k, bits)[0] > 1
+    r = torch.arange(k // (8 // bits), device=card)[:, None]
+    wp = ((r + torch.arange(n, device=card)[None, :]) % 256).to(torch.uint8)
+    scale = torch.rand((n,), generator=torch.Generator(card).manual_seed(3),
+                       device=card) + 0.5
+    rows, got = torch.arange(m, device=card), []
+    for c in range(-(-k // m)):
+        pos = c * m + rows
+        x = torch.zeros((m, k), device=card, dtype=torch.bfloat16)
+        x[rows[pos < k], pos[pos < k]] = 1.0
+        got.append(cuda.quant_matmul(x, wp, scale, bits)[pos < k])
+    unpack = tref.unpack_w4 if bits == 4 else tref.unpack_w2
+    want = (unpack(wp, torch.float32) * scale[None]).to(torch.bfloat16)
+    assert torch.equal(torch.cat(got), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 2])
+@pytest.mark.parametrize("k,n", OLMO_DECODE_SHAPES)
+def test_cuda_gemv_repeats_bit_for_bit(card, bits, k, n):
+    """Split-K adds the slices in a fixed order, never with floating-point
+    atomics: two calls on the same inputs are equal."""
+    from repro_torch.kernels import cuda
+    assert cuda.gemv_plan(8, n, k, bits)[0] > 1
+    got, _ = _cuda_qmm_case(card, bits, 8, k, n, seed=6)
+    again, _ = _cuda_qmm_case(card, bits, 8, k, n, seed=6)
+    assert torch.equal(got, again)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [8, 4])
 def test_cuda_kv_decode(card, bits):
@@ -496,6 +559,38 @@ def test_quant_matmul_route():
         assert cuda.quant_matmul_route(4096, n, k) == "wgmma"
     for n, k in ((200, 520), (37, 64), (256, 66), (2048, 0)):
         assert cuda.quant_matmul_route(17, n, k) == "mma.sync"
+
+
+@pytest.mark.parametrize("bits,k,n", [
+    (bits, k, n) for bits in (4, 2) for (k, n) in OLMO_DECODE_SHAPES + [
+        (520, 200), (520, 37), (256, 256), (8, 16), (0, 64), (2048 * 5, 128)]]
+    + [(4, 66, 37), (2, 68, 37), (4, 2, 8)])
+def test_gemv_plan(bits, k, n):
+    """The GEMV's K plan: whole K steps of the packed layout (8 packed rows:
+    16 K at int4, 32 at int2), slices that cover K exactly once, none empty
+    and none past GEMV_SLICE_MAX_K; at least 132 blocks (one an H100 SM)
+    for every olmo-1b decode shape.  M does not change it."""
+    from repro_torch.kernels import cuda
+    kc = cuda.GEMV_STEP_ROWS * (8 // bits)
+    slices, per = cuda.gemv_plan(8, n, k, bits)
+    assert all(cuda.gemv_plan(m, n, k, bits) == (slices, per)
+               for m in (1, 5, 9, 16))
+    assert per * kc <= cuda.GEMV_SLICE_MAX_K and per >= 1
+    bounds = [(s * per * kc, min((s + 1) * per * kc, k)) for s in
+              range(slices)]
+    assert all(lo % kc == 0 for lo, _ in bounds)
+    covered = [kk for lo, hi in bounds for kk in range(lo, hi)]
+    assert covered == list(range(k))
+    assert k == 0 or all(hi > lo for lo, hi in bounds)
+    if (k, n) in OLMO_DECODE_SHAPES:
+        assert -(-n // cuda.GEMV_CHANNELS) * slices >= 132 and slices > 1
+    # the card tests' ragged shapes run a plan of one slice and of several
+    if (bits, k, n) in ((2, 68, 37), (4, 2, 8)):
+        assert slices == 1
+    if (k, n) == (520, 37):
+        assert slices > 1
+    with pytest.raises(ValueError, match="M must be"):
+        cuda.gemv_plan(17, n, k, bits)
 
 
 def test_nvcc_missing_raises(monkeypatch, tmp_path):
