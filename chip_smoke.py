@@ -193,6 +193,11 @@ def qmm_case(timer, dev, gen, bits, m, k, n, wp=None, x=None):
         rec["plan"] = list(cuda.gemv_plan(m, n, k, bits))
         rec["device_us"], rec["device_kernels"] = device_us(
             timer, lambda: cuda.quant_matmul(x, wp, scale, bits))
+        # the same kernel on a plan of two blocks an SM, for comparison
+        with patched(cuda, "GEMV_TARGET_BLOCKS", 2 * 132):
+            rec["plan_two_per_sm"] = list(cuda.gemv_plan(m, n, k, bits))
+            rec["device_us_two_per_sm"], _ = device_us(
+                timer, lambda: cuda.quant_matmul(x, wp, scale, bits))
         rec["library_device_us"], rec["library_kernels"] = device_us(
             timer, lambda: torch.matmul(x, w_bf16))
         rec["bound_us"] = rec["bound_ms"] * 1e3
@@ -202,25 +207,42 @@ def qmm_case(timer, dev, gen, bits, m, k, n, wp=None, x=None):
             f"{rec['device_us']:.2f} us, {rec['x_bound_device']:.2f}x the "
             f"bound ({rec['bound_us']:.2f} us), cuBLAS bf16 "
             f"{rec['library_device_us']:.2f} us ({rec['x_cublas_device']:.2f}"
-            f"x); plan {rec['plan'][0]} K slices of {rec['plan'][1]} steps")
+            f"x); plan {rec['plan'][0]} K slices of {rec['plan'][1]} steps;"
+            f" on {rec['plan_two_per_sm'][0]} slices (two blocks an SM) "
+            f"{rec['device_us_two_per_sm']:.2f} us")
     return rec, got, want
 
 
-def device_us(timer, fn, iters: int = 20):
+def device_us(timer, fn, iters: int = 30):
     """Device microseconds of one call of ``fn`` with the L2 cold:
-    torch.profiler over ``iters`` calls, each after the Timer's flush, the
-    device time of every kernel summed but the flush's own, which a profile
-    of the flush alone names.  Returns (us, {kernel: launches a call})."""
+    torch.profiler over ``iters`` calls, each after the Timer's flush; a
+    call's time is the summed duration of its kernels, every kernel but
+    the flush's own, which a profile of the flush alone names.  Returns
+    (the median over the calls, {kernel: launches a call})."""
+    from torch.profiler import ProfilerActivity, profile
     fn()
     flush = set(device_rows(timer.flush_buf.zero_))
-
-    def loop():
-        for _ in range(iters):
-            timer.flush_buf.zero_()
-            fn()
-    rows = {k: v for k, v in device_rows(loop).items() if k not in flush}
-    return (sum(us for us, _ in rows.values()) / iters,
-            {k[:90]: n / iters for k, (_, n) in rows.items()})
+    for _ in range(3):  # a profile that recorded no flush is taken again
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                timer.flush_buf.zero_()
+                fn()
+            torch.cuda.synchronize()
+        calls, names = [], {}
+        for e in sorted((e for e in prof.events() if e.device_type
+                         == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start):
+            if e.key in flush:  # a flush opens the next call
+                calls.append(0.0)
+            elif calls:
+                calls[-1] += e.time_range.elapsed_us()
+                names[e.key[:90]] = names.get(e.key[:90], 0) + 1
+        if calls:
+            return (float(np.median(calls)),
+                    {k: n / len(calls) for k, n in names.items()})
+    raise RuntimeError("device_us: the profiles recorded no flush kernel")
 
 
 def gemv_selector_probe(dev, bits, m):

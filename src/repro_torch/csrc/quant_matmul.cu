@@ -31,14 +31,16 @@
 //    - a warp keeps 4 K steps (4 KB) in flight in registers and issues the
 //      next step's loads before a step's unpack and mma;
 //    - split K: a block (8 warps) owns 128 channels and one slice of K.  The
-//      host's plan (cuda.py's gemv_plan) cuts K so that every olmo-1b shape
-//      gives at least 132 blocks (N = 2048 alone gives 16).  Slices write
-//      fp32 partial sums to a workspace, and the last block of a tile to
-//      arrive, found by a counter, adds them in slice order and scales: no
-//      floating-point atomics, so a call repeats bit for bit;
+//      host's plan (cuda.py's gemv_plan) cuts K into as many slices as one
+//      block on each SM leaves room for: 128 blocks at every olmo-1b shape
+//      (N = 2048 alone gives 16).  Slices write fp32 partial sums to a
+//      workspace, and the last block of a tile to arrive, found by a
+//      counter, adds them in slice order and scales: no floating-point
+//      atomics, so a call repeats bit for bit;
 //    - x is staged once per block, its K slice as bf16 (the values the
-//      Pallas kernel feeds its MXU) in fragment order, so a lane reads its
-//      B fragments of a step in one 8- or 16-byte shared load.
+//      Pallas kernel feeds its MXU) by 16-byte cp.async issued after the
+//      codes' loads, in rows padded so that the lanes' B fragment loads of
+//      a step fall in distinct banks.
 //  * Prefill (M = tokens, here 4096) is bound by operations: the gate
 //    projection (K = 2048, N = 8192) is 2 * 4096 * 2048 * 8192 = 137 GFLOP,
 //    0.139 ms at 989 TFLOP/s, against 4.2 MB of x and codes.  Two routes,
@@ -566,23 +568,27 @@ constexpr int GV_WARPS = GV_THREADS / 32;
 constexpr int GV_CH = 128;      // channels a block: 8 lane groups x 16 bytes
 constexpr int GV_ROWS = 8;      // packed rows a K step: lane t reads t, t + 4
 constexpr int GV_DEPTH = 4;     // K steps a warp keeps in flight
-constexpr int GV_SLICE_WORDS = 256;  // x words a lane may stage: K <= 2048
+constexpr int GV_SLICE_K = 1024;  // K a block stages (cuda.py's plan obeys)
 
 template <int BITS>
 struct Gv {
   static constexpr int PACK = 8 / BITS;
   static constexpr int KC = GV_ROWS * PACK;  // K a step: 16 (int4), 32 (int2)
-  static constexpr int XWORDS = KC / 8;      // bf16 pairs of x a lane a step
+  // padding of a staged x row, in 32-bit words: with it, the lanes' B
+  // fragment loads of a step fall in distinct banks
+  static constexpr int PAD = BITS == 4 ? 4 : 8;
 };
 
 // The 16 code bytes of packed row `row` at channels n .. n + 15; zero past
-// kp rows or N channels.  wvec: 16 (N % 16 == 0, aligned), 4 or 1 bytes.
+// kp rows or N channels.  One 16-byte load where N % 16 == 0 and wp is
+// aligned (V16); else 4-byte loads (wvec 4, N % 4 == 0) or bytes.
+template <bool V16>
 __device__ __forceinline__ uint4 gv_load(const uint8_t* __restrict__ wp,
                                          int row, int kp, int n, int N,
                                          int wvec) {
   if (row >= kp || n >= N) return make_uint4(0u, 0u, 0u, 0u);
   const uint8_t* p = wp + static_cast<size_t>(row) * N + n;
-  if (wvec == 16) return __ldg(reinterpret_cast<const uint4*>(p));
+  if (V16) return __ldg(reinterpret_cast<const uint4*>(p));
   uint32_t w[4] = {0u, 0u, 0u, 0u};
   if (wvec == 4) {
 #pragma unroll
@@ -596,33 +602,37 @@ __device__ __forceinline__ uint4 gv_load(const uint8_t* __restrict__ wp,
 }
 
 // One K step of a warp: the codes of packed rows t (v0) and t + 4 (v1) at
-// the lane's 16 channels, times x's B fragments staged at xf.  Byte j of a
-// lane's 16 is channel 16 g + j: tile i takes bytes 2i (row g) and 2i + 1
-// (row g + 8), so word q of v0 / v1 feeds tiles 2q and 2q + 1.
+// the lane's 16 channels, times x's B fragments.  Byte j of a lane's 16 is
+// channel 16 g + j: tile i takes bytes 2i (row g) and 2i + 1 (row g + 8),
+// so word q of v0 / v1 feeds tiles 2q and 2q + 1.  xg points at the
+// staged x of token g (token 8 + g is 8 rsw words on), at the step's
+// first word for lane t:
 //  int4: row t holds the K pair (2t, 2t+1) and row t + 4 the pair
-//        (2t+8, 2t+9) of the mma's 16: one mma step, x in natural order;
+//        (2t+8, 2t+9) of the mma's 16: one mma step, x words t and t + 4;
 //  int2: row t + 4s holds K 4r .. 4r + 3 (r = the row), the pairs (4r, 4r+1)
 //        and (4r+2, 4r+3) of mma step s: the mma's K order is permuted, and
-//        x is staged in the same order.
+//        a lane reads x words 2 (t + 4s) and the next in one 8-byte load.
 template <int BITS, int NT>
 __device__ __forceinline__ void gv_step(float (&acc)[8][NT][4], const uint4& v0,
                                         const uint4& v1,
-                                        const uint32_t* __restrict__ xf) {
-  constexpr int XW = Gv<BITS>::XWORDS;
+                                        const uint32_t* __restrict__ xg,
+                                        int rsw) {
   constexpr uint32_t MASK = BITS == 4 ? 0x0F0F0F0Fu : 0x03030303u;
-  uint32_t b[NT][XW];
+  constexpr int MS = BITS == 4 ? 1 : 2;  // mma steps a K step
+  uint32_t b[NT][2 * MS];
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
-    if constexpr (XW == 2) {
-      const uint2 u = *reinterpret_cast<const uint2*>(xf + nt * 32 * XW);
-      b[nt][0] = u.x;
-      b[nt][1] = u.y;
+    const uint32_t* p = xg + nt * 8 * rsw;
+    if constexpr (BITS == 4) {
+      b[nt][0] = p[0];
+      b[nt][1] = p[4];
     } else {
-      const uint4 u = *reinterpret_cast<const uint4*>(xf + nt * 32 * XW);
-      b[nt][0] = u.x;
-      b[nt][1] = u.y;
-      b[nt][2] = u.z;
-      b[nt][3] = u.w;
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const uint2 u = *reinterpret_cast<const uint2*>(p + 8 * s);
+        b[nt][2 * s] = u.x;
+        b[nt][2 * s + 1] = u.y;
+      }
     }
   }
   const uint32_t w0[4] = {v0.x, v0.y, v0.z, v0.w};
@@ -630,7 +640,7 @@ __device__ __forceinline__ void gv_step(float (&acc)[8][NT][4], const uint4& v0,
 #pragma unroll
   for (int q = 0; q < 4; ++q)
 #pragma unroll
-    for (int s = 0; s < XW / 2; ++s) {
+    for (int s = 0; s < MS; ++s) {
       uint32_t lo[4], hi[4];  // a[0], a[1] and a[2], a[3] of tiles 2q, 2q + 1
       if (BITS == 4) {
         codes_to_bf16x2<4, 4>(w0[q] & MASK, (w0[q] >> 4) & MASK, lo);
@@ -648,27 +658,6 @@ __device__ __forceinline__ void gv_step(float (&acc)[8][NT][4], const uint4& v0,
         mma_bf16(acc[2 * q + 1][nt], a1, b[nt][2 * s], b[nt][2 * s + 1]);
       }
     }
-}
-
-// The word of the staged x that holds the bf16 pair (kl, kl + 1) of token
-// m, kl counted from the slice's first K: K step kl / KC, token tile m / 8,
-// lane 4 (m % 8) + t, word.  int4: the pairs (2t, 2t+1), (2t+8, 2t+9) of a
-// step are words 0 and 1; int2: the pairs (4r, 4r+1), (4r+2, 4r+3) of row
-// r = t + 4s are words 2s and 2s + 1.
-template <int BITS, int NT>
-__device__ __forceinline__ int gv_slot(int m, int kl) {
-  using G = Gv<BITS>;
-  const int kk = kl % G::KC;
-  int lt, word;
-  if (BITS == 4) {
-    lt = (kk & 7) >> 1;
-    word = kk >> 3;
-  } else {
-    lt = (kk >> 2) & 3;
-    word = ((kk >> 4) << 1) | ((kk >> 1) & 1);
-  }
-  return (((kl / G::KC) * NT + (m >> 3)) * 32 + (m & 7) * 4 + lt) *
-             G::XWORDS + word;
 }
 
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
@@ -692,13 +681,28 @@ __device__ __forceinline__ void gv_st4(float* p, float4 s, int left, bool vec) {
   for (int e = 0; e < 4 && e < left; ++e) p[e] = v[e];
 }
 
+// Four outputs times their scales; one 8- or 16-byte store where all four
+// lie inside N and N % 4 == 0 (vec), so that the store is aligned.
 template <typename XT>
-__device__ __forceinline__ void gv_out(XT* p, const float* __restrict__ scale,
-                                       float4 s, int left) {
-  const float v[4] = {s.x, s.y, s.z, s.w};
+__device__ __forceinline__ void gv_out(XT* p, const float (&scale)[4],
+                                       float4 s, int left, bool vec) {
+  const float v[4] = {s.x * scale[0], s.y * scale[1], s.z * scale[2],
+                      s.w * scale[3]};
+  if (vec && left >= 4) {
+    if constexpr (sizeof(XT) == 2) {
+      const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+      const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+      *reinterpret_cast<uint2*>(p) =
+          make_uint2(*reinterpret_cast<const uint32_t*>(&a),
+                     *reinterpret_cast<const uint32_t*>(&b));
+    } else {
+      *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+    return;
+  }
 #pragma unroll
   for (int e = 0; e < 4; ++e)
-    if (e < left) p[e] = repro::from_f32<XT>(v[e] * scale[e]);
+    if (e < left) p[e] = repro::from_f32<XT>(v[e]);
 }
 
 // Block (tile, slice) computes channels 128 tile .. + 127 over the K steps
@@ -708,15 +712,15 @@ __device__ __forceinline__ void gv_out(XT* p, const float* __restrict__ scale,
 // scales and stores; otherwise it writes its sum to ws[slice], and the last
 // block of the tile to arrive (counters[tile]) adds ws[0], ws[1], ... in
 // slice order, scales, stores and sets the counter back to 0.
-template <int BITS, int NT, typename XT>
+template <int BITS, int NT, typename XT, bool V16>
 __global__ void __launch_bounds__(GV_THREADS, 3 - NT)
     qmm_gemv(const XT* __restrict__ x, const uint8_t* __restrict__ wp,
              const float* __restrict__ scale, XT* __restrict__ out,
              float* __restrict__ ws, unsigned int* __restrict__ counters,
-             int M, int N, int K, int per_slice, int wvec, int x_async) {
+             int M, int N, int K, int per_slice, int wvec, int x16) {
   using G = Gv<BITS>;
   extern __shared__ __align__(16) uint8_t gv_smem[];
-  uint32_t* xs = reinterpret_cast<uint32_t*>(gv_smem);  // x, fragment order
+  uint32_t* xs = reinterpret_cast<uint32_t*>(gv_smem);  // x, bf16 pairs
   float* red = reinterpret_cast<float*>(gv_smem);        // after the K loop
   __shared__ int last;
 
@@ -730,45 +734,52 @@ __global__ void __launch_bounds__(GV_THREADS, 3 - NT)
   const int mine =
       s1 - s0 > warp ? (s1 - s0 - warp + GV_WARPS - 1) / GV_WARPS : 0;
 
-  // the slice's x as bf16 pairs (zero past M and K) in fragment order: K
-  // step, token tile, lane, word, so that a lane reads its B fragments of a
-  // step in one 8- or 16-byte load.  A bf16 x goes by cp.async, issued
-  // before the codes; a float32 x is rounded (to nearest even) after them.
-  const int pairs = max(s1 - s0, 0) * G::KC / 2;
-  if (x_async) {
-    for (int idx = tid; idx < NT * 8 * pairs; idx += GV_THREADS) {
-      const int m = idx / pairs, kl = 2 * (idx - m * pairs);
-      const int k = s0 * G::KC + kl;
-      const bool ok = m < M && k < K;  // K is even
-      cp_async4(smem_addr(xs + gv_slot<BITS, NT>(m, kl)),
-                ok ? x + static_cast<size_t>(m) * K + k : x, ok);
-    }
-    cp_async_commit();
-  }
-
-  // the codes of the warp's first K steps
+  // the codes of the warp's first K steps go out first
   uint4 buf[GV_DEPTH][2];
 #pragma unroll
   for (int d = 0; d < GV_DEPTH; ++d) {
     const int row = d < mine ? (s0 + warp + d * GV_WARPS) * GV_ROWS + t : kp;
-    buf[d][0] = gv_load(wp, row, kp, n_lane, N, wvec);
-    buf[d][1] = gv_load(wp, row + 4, kp, n_lane, N, wvec);
+    buf[d][0] = gv_load<V16>(wp, row, kp, n_lane, N, wvec);
+    buf[d][1] = gv_load<V16>(wp, row + 4, kp, n_lane, N, wvec);
   }
 
-  if (x_async) {
+  // the scales of the four channels this thread stores (every item it
+  // takes below has channels 4 (tid % 32) ..), so that the epilogue waits
+  // on nothing but the sums
+  const int n4 = tile * GV_CH + 4 * (tid % (GV_CH / 4));
+  float sc[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) sc[e] = n4 + e < N ? __ldg(scale + n4 + e) : 0.f;
+
+  // then the slice's x, token m's row at xs + m * rsw words: bf16 x by
+  // 16-byte cp.async where K % 8 == 0 and x is aligned (x16), zero past M
+  // and K; otherwise pairs rounded to bf16 (to nearest even) in registers
+  const int kx = max(s1 - s0, 0) * G::KC, k0 = s0 * G::KC;
+  const int rsw = per_slice * G::KC / 2 + G::PAD;
+  if (x16) {
+    const int chunks = kx / 8;
+    for (int idx = tid; idx < NT * 8 * chunks; idx += GV_THREADS) {
+      const int m = idx / chunks, c = idx - m * chunks;
+      const int k = k0 + 8 * c;
+      const bool ok = m < M && k < K;
+      cp_async16(smem_addr(xs + m * rsw + 4 * c),
+                 ok ? x + static_cast<size_t>(m) * K + k : x, ok);
+    }
+    cp_async_commit();
     cp_async_wait<0>();
   } else {
+    const int pairs = kx / 2;
     for (int idx = tid; idx < NT * 8 * pairs; idx += GV_THREADS) {
-      const int m = idx / pairs, kl = 2 * (idx - m * pairs);
-      const int k = s0 * G::KC + kl;
+      const int m = idx / pairs, p = idx - m * pairs;
+      const int k = k0 + 2 * p;
       float a = 0.f, b = 0.f;
-      if (m < M && k < K) {
+      if (m < M && k < K) {  // K is even
         const XT* src = x + static_cast<size_t>(m) * K + k;
         a = repro::to_f32(src[0]);
         b = repro::to_f32(src[1]);
       }
       const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-      xs[gv_slot<BITS, NT>(m, kl)] = *reinterpret_cast<const uint32_t*>(&h);
+      xs[m * rsw + p] = *reinterpret_cast<const uint32_t*>(&h);
     }
   }
   __syncthreads();
@@ -780,6 +791,7 @@ __global__ void __launch_bounds__(GV_THREADS, 3 - NT)
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][nt][e] = 0.f;
+  const uint32_t* xg = xs + g * rsw + (BITS == 4 ? t : 2 * t);
   for (int c = 0; c < mine; c += GV_DEPTH) {
 #pragma unroll
     for (int d = 0; d < GV_DEPTH; ++d) {
@@ -789,10 +801,10 @@ __global__ void __launch_bounds__(GV_THREADS, 3 - NT)
         const int j = warp + i * GV_WARPS;  // the slice's K step
         if (i + GV_DEPTH < mine) {  // refill before this step's math
           const int row = (s0 + j + GV_DEPTH * GV_WARPS) * GV_ROWS + t;
-          buf[d][0] = gv_load(wp, row, kp, n_lane, N, wvec);
-          buf[d][1] = gv_load(wp, row + 4, kp, n_lane, N, wvec);
+          buf[d][0] = gv_load<V16>(wp, row, kp, n_lane, N, wvec);
+          buf[d][1] = gv_load<V16>(wp, row + 4, kp, n_lane, N, wvec);
         }
-        gv_step<BITS, NT>(acc, v0, v1, xs + (j * NT * 32 + lane) * G::XWORDS);
+        gv_step<BITS, NT>(acc, v0, v1, xg + j * (G::KC / 2), rsw);
       }
     }
   }
@@ -823,36 +835,42 @@ __global__ void __launch_bounds__(GV_THREADS, 3 - NT)
                       red + (w * NT * 8 + m) * GV_CH)[c4]);
     if (m >= M || n >= N) continue;
     if (slices == 1)
-      gv_out(out + static_cast<size_t>(m) * N + n, scale + n, s, N - n);
+      gv_out(out + static_cast<size_t>(m) * N + n, sc, s, N - n, vec);
     else
       gv_st4(ws + (static_cast<size_t>(slice) * M + m) * N + n, s, N - n, vec);
   }
   if (slices == 1) return;
 
-  __threadfence();
+  // the block's writes, ordered by the barrier, are released by thread 0's
+  // add; the last block's add acquires every other block's
   __syncthreads();
-  if (tid == 0)
-    last = atomicAdd(counters + tile, 1u) == static_cast<unsigned>(slices - 1);
+  if (tid == 0) {
+    unsigned int prev;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
+                 : "=r"(prev)
+                 : "l"(counters + tile)
+                 : "memory");
+    last = prev == static_cast<unsigned int>(slices - 1);
+  }
   __syncthreads();
   if (!last) return;
-  __threadfence();
   for (int idx = tid; idx < NT * 8 * (GV_CH / 4); idx += GV_THREADS) {
     const int m = idx / (GV_CH / 4), n = tile * GV_CH + 4 * (idx % (GV_CH / 4));
     if (m >= M || n >= N) continue;
-    // eight slices' loads in flight at a time, added in slice order
+    // sixteen slices' loads in flight at a time, added in slice order
     float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int s8 = 0; s8 < slices; s8 += 8) {
-      float4 v[8];
+    for (int s16 = 0; s16 < slices; s16 += 16) {
+      float4 v[16];
 #pragma unroll
-      for (int u = 0; u < 8; ++u)
-        if (s8 + u < slices)
-          v[u] = gv_ld4(ws + (static_cast<size_t>(s8 + u) * M + m) * N + n,
+      for (int u = 0; u < 16; ++u)
+        if (s16 + u < slices)
+          v[u] = gv_ld4(ws + (static_cast<size_t>(s16 + u) * M + m) * N + n,
                         N - n, vec);
 #pragma unroll
-      for (int u = 0; u < 8; ++u)
-        if (s8 + u < slices) s = add4(s, v[u]);
+      for (int u = 0; u < 16; ++u)
+        if (s16 + u < slices) s = add4(s, v[u]);
     }
-    gv_out(out + static_cast<size_t>(m) * N + n, scale + n, s, N - n);
+    gv_out(out + static_cast<size_t>(m) * N + n, sc, s, N - n, vec);
   }
   if (tid == 0) counters[tile] = 0u;
 }
@@ -861,24 +879,29 @@ template <int BITS, int NT, typename XT>
 int launch_gemv(const void* x, const void* wp, const void* scale, void* out,
                 void* ws, void* counters, int M, int N, int K, int slices,
                 int per_slice, cudaStream_t st) {
-  // the warps' sums; the slice's x (per_slice * XWORDS <= GV_SLICE_WORDS)
-  // fits in the same bytes
+  // the warps' sums; the slice's x (8 NT rows of per_slice * KC / 2 + PAD
+  // words, per_slice * KC <= GV_SLICE_K) fits in the same bytes
   constexpr int SMEM = GV_WARPS * NT * 8 * GV_CH * 4;  // 32 KB a token tile
+  static_assert(8 * NT * (GV_SLICE_K / 2 + 8) * 4 <= SMEM, "x fits");
   if (SMEM > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        qmm_gemv<BITS, NT, XT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SMEM);
-    if (e != cudaSuccess) return static_cast<int>(e);
+    for (auto f : {qmm_gemv<BITS, NT, XT, true>, qmm_gemv<BITS, NT, XT, false>}) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          f, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
   }
   const uintptr_t wa = reinterpret_cast<uintptr_t>(wp);
   const int wvec = (N % 16 == 0 && wa % 16 == 0) ? 16 : (N % 4 == 0 ? 4 : 1);
-  const int x_async = sizeof(XT) == 2 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
+  const int x16 = sizeof(XT) == 2 && K % 8 == 0 &&
+                  reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const dim3 grid((N + GV_CH - 1) / GV_CH, slices);
-  qmm_gemv<BITS, NT, XT><<<grid, GV_THREADS, SMEM, st>>>(
+  auto kernel = wvec == 16 ? qmm_gemv<BITS, NT, XT, true>
+                           : qmm_gemv<BITS, NT, XT, false>;
+  kernel<<<grid, GV_THREADS, SMEM, st>>>(
       static_cast<const XT*>(x), static_cast<const uint8_t*>(wp),
       static_cast<const float*>(scale), static_cast<XT*>(out),
       static_cast<float*>(ws), static_cast<unsigned int*>(counters), M, N, K,
-      per_slice, wvec, x_async);
+      per_slice, wvec, x16);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -901,7 +924,7 @@ int launch_gemv_m(const void* x, const void* wp, const void* scale, void* out,
 // quant_matmul_route); each launch checks what its kernel needs:
 //   kGemv    M <= 16, x in the output's dtype; the K plan (cuda.py's
 //            gemv_plan): `slices` slices of `per_slice` K steps of 8 packed
-//            rows, covering K, each K <= 2048; with slices > 1 an fp32
+//            rows, covering K, each K <= 1024; with slices > 1 an fp32
 //            workspace ws (slices, M, N) and ceil(N / 128) counters, zero
 //            on entry and left zero;
 //   kMmaSync bf16 x, 4-byte aligned;
@@ -924,9 +947,9 @@ extern "C" int quant_matmul_launch(const void* x, const void* wp,
     return bad;
   if (route == kGemv) {
     const int steps = (K / (8 / bits) + GV_ROWS - 1) / GV_ROWS;
-    const int words = per_slice * (bits == 4 ? Gv<4>::XWORDS : Gv<2>::XWORDS);
+    const int kslice = per_slice * (bits == 4 ? Gv<4>::KC : Gv<2>::KC);
     if (M > 16 || x_dtype != out_dtype || slices < 1 || per_slice < 1 ||
-        words > GV_SLICE_WORDS ||
+        kslice > GV_SLICE_K ||
         static_cast<long long>(slices) * per_slice < steps ||
         (slices > 1 && (ws == nullptr || counters == nullptr)))
       return bad;

@@ -26,9 +26,9 @@ PAGED_MAX_PAGES = 8192          # table entries a slot stages in shared memory
 GEMV_MAX_M = 16                 # quant_matmul rows of the GEMV; above, tiles
 GEMV_CHANNELS = 128             # output channels a GEMV block: 8 x 16 bytes
 GEMV_STEP_ROWS = 8              # packed rows a GEMV K step
-GEMV_SLICE_MAX_K = 2048         # K a block stages: x fits its shared memory
+GEMV_SLICE_MAX_K = 1024         # K a block stages: x fits its shared memory
 GEMV_MIN_STEPS = 4              # K steps a slice at least
-GEMV_TARGET_BLOCKS = 2 * 132    # two blocks on each of an H100's 132 SMs
+GEMV_TARGET_BLOCKS = 132        # one block on each of an H100's 132 SMs
 QMM_ROUTES = ("gemv", "mma.sync", "wgmma")   # the C launcher's route codes
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
