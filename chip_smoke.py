@@ -10,10 +10,12 @@ Phases, in order; any failure exits non-zero:
   3. kernels - each of the six kernels against its plain PyTorch version at
                the main path's shapes, with its tolerance, kernel / plain /
                library times (CUDA events, warm-up excluded, L2 flushed) and
-               bound; the paged decode also bit for bit against the
-               contiguous kernel on the gathered cache, and the probes of
-               quant_matmul (identity) and flash_attention (selector) bit
-               for bit.
+               bound; the decode GEMV's shapes also in device time alone
+               (torch.profiler) beside cuBLAS's; the paged decode also bit
+               for bit against the contiguous kernel on the gathered cache,
+               and the probes of quant_matmul (identity, and the GEMV's
+               selector and repeat) and flash_attention (selector) bit for
+               bit.
   select     - EAGL gains of olmo-1b at full width, weights drawn on the
                card from seed 0, through the histogram kernel and through
                impl="ref" (the same knapsack take), and the 4/2 mix the
@@ -248,7 +250,8 @@ def device_us(timer, fn, iters: int = 30):
 def gemv_selector_probe(dev, bits, m):
     """The GEMV route's probe: K = N = 256, the packed bytes cycling through
     all 256 values in every row, x of M one-hot rows; call c puts row r's 1
-    at K position c M + r, so K / M calls place a 1 at every K position.
+    at K position c M + r, so ceil(K / M) calls place a 1 at every K
+    position.
     Each output is one code times its scale, rounded once to bf16, so the
     calls must equal codes x scale bit for bit: a wrong lane byte, bit
     offset, channel permutation, x staging order or slice breaks it."""
@@ -258,12 +261,12 @@ def gemv_selector_probe(dev, bits, m):
     wp = ((r + torch.arange(n, device=dev)[None, :]) % 256).to(torch.uint8)
     scale = torch.rand((n,), generator=torch.Generator(dev).manual_seed(3),
                        device=dev) + 0.5
-    rows = torch.arange(m, device=dev)
-    got = []
-    for c in range(k // m):
+    rows, got = torch.arange(m, device=dev), []
+    for c in range(-(-k // m)):  # the last call's rows past K stay 0
+        pos = c * m + rows
         x = torch.zeros((m, k), device=dev, dtype=torch.bfloat16)
-        x[rows, c * m + rows] = 1.0
-        got.append(cuda.quant_matmul(x, wp, scale, bits))
+        x[rows[pos < k], pos[pos < k]] = 1.0
+        got.append(cuda.quant_matmul(x, wp, scale, bits)[pos < k])
     unpack = ref.unpack_w4 if bits == 4 else ref.unpack_w2
     want = (unpack(wp, torch.float32) * scale[None]).to(torch.bfloat16)
     return bool(torch.equal(torch.cat(got), want))

@@ -40,7 +40,12 @@
 //    - x is staged once per block, its K slice as bf16 (the values the
 //      Pallas kernel feeds its MXU) by 16-byte cp.async issued after the
 //      codes' loads, in rows padded so that the lanes' B fragment loads of
-//      a step fall in distinct banks.
+//      a step fall in distinct banks; the scales are read then too.
+//    What is left (PERF.md §6): with one block an SM, all of an olmo-1b
+//    weight is requested at once, so a launch takes the codes' latency and
+//    transfer plus what must follow the last byte: the math of the last
+//    steps, the warps' sum, and with split K the partial sums' round trip
+//    through L2 and the counter.
 //  * Prefill (M = tokens, here 4096) is bound by operations: the gate
 //    projection (K = 2048, N = 8192) is 2 * 4096 * 2048 * 8192 = 137 GFLOP,
 //    0.139 ms at 989 TFLOP/s, against 4.2 MB of x and codes.  Two routes,

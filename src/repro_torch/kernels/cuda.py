@@ -141,7 +141,9 @@ def quant_matmul(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
     """x (M, K) @ K-major packed codes (K/pack, N) * scale (N,) -> (M, N)
     in x's dtype.  K must be the packed K (a multiple of 8 // bits).
     ``quant_matmul_route`` picks the kernel: the GEMV on x as it is, or a
-    tensor-core kernel on bf16(x)."""
+    tensor-core kernel on bf16(x).  The GEMV splits K by ``gemv_plan``;
+    with more than one slice it takes an fp32 workspace for the slices'
+    partial sums, made here, and the stream's counters."""
     _on_card("quant_matmul", x, wp, scale)
     _require(bits in (2, 4), f"quant_matmul: bits must be 2 or 4, got {bits}")
     _require(x.dtype in _DTYPE_CODE, f"quant_matmul: x must be float32 or "

@@ -232,14 +232,16 @@ def test_cuda_quant_matmul_tiled_ragged(card, bits, m, k, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [129, 8])
 @pytest.mark.parametrize("n", [256, 200])
-def test_cuda_quant_matmul_misaligned_views(card, n):
+def test_cuda_quant_matmul_misaligned_views(card, n, m):
     """x 2 bytes and wp 4 bytes past a 16-byte boundary: the wrapper copies
     what a route's 16-byte copies cannot read, so the shape alone picks the
-    route (wgmma at N = 256, mma.sync at N = 200)."""
+    route (wgmma at N = 256, mma.sync at N = 200); the GEMV (M = 8) reads
+    such x and codes as they are, by 4-byte and 2-byte loads."""
     from repro_torch.kernels import cuda
     g = torch.Generator(card).manual_seed(4)
-    m, k, bits = 129, 520, 4
+    k, bits = 520, 4
     codes = torch.randint(-8, 8, (k, n), generator=g, device=card)
     packed = tref.pack_w4(codes)
     wbuf = torch.empty(packed.numel() + 16, dtype=torch.uint8, device=card)
@@ -319,22 +321,10 @@ def test_cuda_gemv_selector_probe(card, bits, m):
     output is one code times its scale, rounded once to bf16 -- bit for
     bit.  It pins every lane's byte, bit offset and channel permutation,
     the order x is staged in and each K slice of the plan."""
+    import chip_smoke
     from repro_torch.kernels import cuda
-    k = n = 256
-    assert cuda.gemv_plan(m, n, k, bits)[0] > 1
-    r = torch.arange(k // (8 // bits), device=card)[:, None]
-    wp = ((r + torch.arange(n, device=card)[None, :]) % 256).to(torch.uint8)
-    scale = torch.rand((n,), generator=torch.Generator(card).manual_seed(3),
-                       device=card) + 0.5
-    rows, got = torch.arange(m, device=card), []
-    for c in range(-(-k // m)):
-        pos = c * m + rows
-        x = torch.zeros((m, k), device=card, dtype=torch.bfloat16)
-        x[rows[pos < k], pos[pos < k]] = 1.0
-        got.append(cuda.quant_matmul(x, wp, scale, bits)[pos < k])
-    unpack = tref.unpack_w4 if bits == 4 else tref.unpack_w2
-    want = (unpack(wp, torch.float32) * scale[None]).to(torch.bfloat16)
-    assert torch.equal(torch.cat(got), want)
+    assert cuda.gemv_plan(m, 256, 256, bits)[0] > 1
+    assert chip_smoke.gemv_selector_probe(card, bits, m)
 
 
 @pytest.mark.cuda
