@@ -749,9 +749,9 @@ __global__ void __launch_bounds__(GV_THREADS, 3 - NT)
   }
 
   // the scales of the four channels this thread stores (every item it
-  // takes below has channels 4 (tid % 32) ..), so that the epilogue waits
-  // on nothing but the sums
-  const int n4 = tile * GV_CH + 4 * (tid % (GV_CH / 4));
+  // takes below has channels 16 g + 4 c .., c = warp % 4), so that the
+  // epilogue waits on nothing but the sums
+  const int n4 = tile * GV_CH + 16 * g + 4 * (warp & 3);
   float sc[4];
 #pragma unroll
   for (int e = 0; e < 4; ++e) sc[e] = n4 + e < N ? __ldg(scale + n4 + e) : 0.f;
@@ -816,33 +816,36 @@ __global__ void __launch_bounds__(GV_THREADS, 3 - NT)
   __syncthreads();  // xs is free
 
   // lane (g, t) holds channels 16 g .. + 15 at tokens 8 nt + 2 t + e: tile
-  // i's row g is channel 16 g + 2 i, its row g + 8 channel 16 g + 2 i + 1
+  // i's row g is channel 16 g + 2 i, its row g + 8 channel 16 g + 2 i + 1.
+  // Item (nt, e, c, lane) -- channels 16 g + 4 c .. + 3 of token
+  // 8 nt + 2 t + e -- goes to float4 slot ((nt * 2 + e) * 4 + c) * 32 + lane
+  // of the warp's rows: the lanes of a store, and the threads of a load
+  // below, touch consecutive slots, so no bank is hit twice
+  constexpr int ITEMS = NT * 8 * (GV_CH / 4);  // float4s a warp
+  float4* red4 = reinterpret_cast<float4*>(red);
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float4* dst = reinterpret_cast<float4*>(
-          red + ((warp * NT + nt) * 8 + 2 * t + e) * GV_CH + 16 * g);
+    for (int e = 0; e < 2; ++e)
 #pragma unroll
       for (int c = 0; c < 4; ++c)
-        dst[c] = make_float4(acc[2 * c][nt][e], acc[2 * c][nt][2 + e],
-                             acc[2 * c + 1][nt][e], acc[2 * c + 1][nt][2 + e]);
-    }
+        red4[warp * ITEMS + ((nt * 2 + e) * 4 + c) * 32 + lane] =
+            make_float4(acc[2 * c][nt][e], acc[2 * c][nt][2 + e],
+                        acc[2 * c + 1][nt][e], acc[2 * c + 1][nt][2 + e]);
   __syncthreads();
 
+  // thread tid adds item tid (and tid + 256), over the warps in order
   const bool vec = N % 4 == 0;
-  for (int idx = tid; idx < NT * 8 * (GV_CH / 4); idx += GV_THREADS) {
-    const int m = idx / (GV_CH / 4), c4 = idx % (GV_CH / 4);
-    const int n = tile * GV_CH + 4 * c4;
+  for (int idx = tid; idx < ITEMS; idx += GV_THREADS) {
+    const int m = (idx >> 8) * 8 + 2 * (lane & 3) + ((idx >> 7) & 1);
     float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int w = 0; w < GV_WARPS; ++w)
-      s = add4(s, reinterpret_cast<const float4*>(
-                      red + (w * NT * 8 + m) * GV_CH)[c4]);
-    if (m >= M || n >= N) continue;
+    for (int w = 0; w < GV_WARPS; ++w) s = add4(s, red4[w * ITEMS + idx]);
+    if (m >= M || n4 >= N) continue;
     if (slices == 1)
-      gv_out(out + static_cast<size_t>(m) * N + n, sc, s, N - n, vec);
+      gv_out(out + static_cast<size_t>(m) * N + n4, sc, s, N - n4, vec);
     else
-      gv_st4(ws + (static_cast<size_t>(slice) * M + m) * N + n, s, N - n, vec);
+      gv_st4(ws + (static_cast<size_t>(slice) * M + m) * N + n4, s, N - n4,
+             vec);
   }
   if (slices == 1) return;
 
@@ -859,8 +862,9 @@ __global__ void __launch_bounds__(GV_THREADS, 3 - NT)
   }
   __syncthreads();
   if (!last) return;
-  for (int idx = tid; idx < NT * 8 * (GV_CH / 4); idx += GV_THREADS) {
-    const int m = idx / (GV_CH / 4), n = tile * GV_CH + 4 * (idx % (GV_CH / 4));
+  for (int idx = tid; idx < ITEMS; idx += GV_THREADS) {
+    const int m = (idx >> 8) * 8 + 2 * (lane & 3) + ((idx >> 7) & 1);
+    const int n = n4;
     if (m >= M || n >= N) continue;
     // sixteen slices' loads in flight at a time, added in slice order
     float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
