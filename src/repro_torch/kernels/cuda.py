@@ -22,7 +22,6 @@ LAUNCHES: Dict[str, int] = {"quant_matmul": 0, "kv_decode_attention": 0,
                             "flash_attention": 0, "lsq_fakequant": 0,
                             "histogram": 0, "paged_kv_decode_attention": 0}
 HIST_MAX_BINS = 4096            # the kernel's shared-memory counters
-PAGED_MAX_PAGES = 8192          # table entries a slot stages in shared memory
 GEMV_MAX_M = 16                 # quant_matmul rows of the GEMV; above, tiles
 GEMV_CHANNELS = 128             # output channels a GEMV block: 8 x 16 bytes
 GEMV_STEP_ROWS = 8              # packed rows a GEMV K step
@@ -30,6 +29,11 @@ GEMV_SLICE_MAX_K = 1024         # K a block stages: x fits its shared memory
 GEMV_MIN_STEPS = 4              # K steps a slice at least
 GEMV_TARGET_BLOCKS = 132        # one block on each of an H100's 132 SMs
 QMM_ROUTES = ("gemv", "mma.sync", "wgmma")   # the C launcher's route codes
+DECODE_UNIT_ROWS = 16           # a decode chunk is whole units (and pages)
+DECODE_CHUNK_ROWS = 128         # rows a decode block at most, group <= 4
+DECODE_MIN_BLOCKS = 2 * 132     # two waves over an H100's 132 SMs
+DECODE_MAX_SPLITS = 256         # the kernel's merge holds this many
+DECODE_WARPS = 4                # query rows a decode block holds at once
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
@@ -43,8 +47,8 @@ _SIGNATURES = {
                      [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                       _I, _I, _P]),
     "kv_decode_attention": ("kv_decode_attention_launch",
-                            [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _F, _P]),
+                            [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _F, _P]),
     "flash_attention": ("flash_attention_launch",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                          ctypes.POINTER(_LL), _I, _F, _P]),
@@ -52,8 +56,9 @@ _SIGNATURES = {
                       [_P, _P, _LL, _P, _F, _I, _I, _P]),
     "histogram": ("histogram_launch", [_P, _LL, _I, _P, _P, _P]),
     "paged_kv_decode_attention": ("paged_kv_decode_attention_launch",
-                                  [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
-                                   _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+                                  [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                   _I, _F, _P]),
 }
 _SHARED_SOURCE = {"histogram": "entropy_hist",
                   "paged_kv_decode_attention": "kv_decode_attention"}
@@ -66,9 +71,10 @@ def source_of(name: str) -> str:
 
 
 _FNS: Dict[str, object] = {}
-# the GEMV's split-K counters, one buffer for each (device, stream): zero
-# when made, and every launch leaves them zero again
-_GEMV_COUNTERS: Dict[tuple, torch.Tensor] = {}
+# the split kernels' counters (the GEMV's split K, decode attention's split
+# rows), one buffer for each (device, stream): zero when made, and every
+# launch leaves them zero again
+_COUNTERS: Dict[tuple, torch.Tensor] = {}
 
 
 def reset_launches() -> None:
@@ -174,8 +180,8 @@ def quant_matmul(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
         slices, per_slice = gemv_plan(m, n, k, bits)
         if slices > 1:
             # the slices' fp32 partial sums; held until the launch
-            counters = _gemv_counters(x.device, stream,
-                                      -(-n // GEMV_CHANNELS))
+            counters = _split_counters(x.device, stream,
+                                       -(-n // GEMV_CHANNELS))
             ws = torch.empty((slices, m, n), dtype=torch.float32,
                              device=x.device)
     else:
@@ -196,14 +202,15 @@ def quant_matmul(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
     return out
 
 
-def _gemv_counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
-    """At least ``n`` zero int32 counters for GEMV launches on ``stream``.
-    Launches on one stream run in order, and each leaves its counters at
-    zero, so the buffer is made (with ``torch.zeros``) once."""
+def _split_counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` zero int32 counters for a split kernel's launch on
+    ``stream`` (the GEMV and both decode attentions share them).  Launches
+    on one stream run in order, and each leaves its counters at zero, so
+    the buffer is made (with ``torch.zeros``) once."""
     key = (dev.index, stream)
-    buf = _GEMV_COUNTERS.get(key)
+    buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < n:
-        buf = _GEMV_COUNTERS[key] = torch.zeros(
+        buf = _COUNTERS[key] = torch.zeros(
             (max(n, 1024),), dtype=torch.int32, device=dev)
     return buf
 
@@ -257,6 +264,37 @@ def histogram(codes: torch.Tensor, n_bins: int) -> torch.Tensor:
     return out
 
 
+def decode_plan(b: int, hkv: int, group: int, rows: int,
+                bits: int) -> Tuple[int, int]:
+    """Decode attention's split of a slot's rows: (splits, C).  Block
+    (kv head, slot, split) takes rows [split C, split C + C).
+
+    ``rows`` is the cache's row count, S for the contiguous cache and
+    n * page for the paged one, so equal lengths plan alike; the plan reads
+    shapes alone, never the positions (a decode step makes no device-to-
+    host copy).  C is whole DECODE_UNIT_ROWS units (a paged chunk is whole
+    pages of 16), as small as two waves of blocks (DECODE_MIN_BLOCKS) over
+    the B * Hkv heads allow, at most DECODE_CHUNK_ROWS (divided by the
+    rounds a group of more than DECODE_WARPS query rows takes over a
+    chunk), and at least rows / DECODE_MAX_SPLITS.  At the serve shapes
+    (B = 8, Hkv = 16, max_seq 1024) that is 8 splits of 128 rows: 1,024
+    blocks, of which the prompts' 128-576 live rows fill about 400.  Larger
+    chunks mean fewer partial sums for the last block to merge and fewer
+    blocks' fixed costs (a position, a counter, a merge); on the H100 64 and
+    256 rows read slower than 128 at the serve shapes (PERF.md).  Bits do
+    not change the plan."""
+    if min(b, hkv, group, rows) < 1 or bits not in (4, 8):
+        raise ValueError(f"decode_plan: need B, Hkv, group, rows >= 1 and "
+                         f"bits 4 or 8, got {(b, hkv, group, rows, bits)}")
+    unit = DECODE_UNIT_ROWS
+    rounds = -(-group // DECODE_WARPS)
+    cap = max(DECODE_CHUNK_ROWS // rounds, unit)
+    c = min(-(-rows * b * hkv // DECODE_MIN_BLOCKS), cap)
+    c = max(c, -(-rows // DECODE_MAX_SPLITS))
+    c = unit * -(-c // unit)
+    return -(-rows // c), c
+
+
 def _check_decode_operands(name, q, kq, vq, k_scale, bits):
     """The operands both decode kernels share; returns (b, h, d, hkv)."""
     _require(bits in (4, 8), f"{name}: bits must be 4 or 8, got {bits}")
@@ -279,9 +317,23 @@ def _check_decode_operands(name, q, kq, vq, k_scale, bits):
     _require(tuple(k_scale.shape) == (b, hkv, d)
              and k_scale.dtype == torch.float32,
              f"{name}: k_scale must be (B, Hkv, D) float32")
-    _require(kq.data_ptr() % 4 == 0 and vq.data_ptr() % 4 == 0,
-             f"{name}: code buffers must be 4-byte aligned")
     return b, h, d, hkv
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    # the kernels copy code rows by 16-byte cp.async; a view off a 16-byte
+    # boundary is copied once here (a fresh tensor is aligned)
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _decode_scratch(dev, stream, b, h, d, hkv, splits):
+    """The split merge's fp32 workspace (made for each call) and the
+    stream's counters; none for a plan of one split."""
+    if splits == 1:
+        return None, None
+    ws = torch.empty((b * h * splits * (d + 4),), dtype=torch.float32,
+                     device=dev)
+    return ws, _split_counters(dev, stream, b * hkv)
 
 
 def kv_decode_attention(q: torch.Tensor, kq: torch.Tensor,
@@ -289,7 +341,9 @@ def kv_decode_attention(q: torch.Tensor, kq: torch.Tensor,
                         v_scale: torch.Tensor, positions: torch.Tensor,
                         bits: int) -> torch.Tensor:
     """One-query decode attention over an int8 / packed-int4 cache ->
-    (B, H, D) float32.  positions (B,) int32 must be >= 0."""
+    (B, H, D) float32, in one launch: the rows split by ``decode_plan``,
+    the splits merged by the last block of each (slot, kv head).
+    positions (B,) int32 must be >= 0."""
     name = "kv_decode_attention"
     _on_card(name, q, kq, k_scale, vq, v_scale, positions)
     b, h, d, hkv = _check_decode_operands(name, q, kq, vq, k_scale, bits)
@@ -306,10 +360,16 @@ def kv_decode_attention(q: torch.Tensor, kq: torch.Tensor,
     out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
     if b == 0 or s == 0:
         return out.zero_()
-    _launch("kv_decode_attention", q.data_ptr(), _DTYPE_CODE[q.dtype],
-            kq.data_ptr(), k_scale.data_ptr(), vq.data_ptr(),
-            v_scale.data_ptr(), positions.data_ptr(), out.data_ptr(),
-            b, h, s, hkv, d, bits, d ** -0.5, _stream())
+    kq, vq = _aligned16(kq), _aligned16(vq)
+    splits, chunk = decode_plan(b, hkv, h // hkv, s, bits)
+    stream = _stream()
+    ws, counters = _decode_scratch(q.device, stream, b, h, d, hkv, splits)
+    _launch(name, q.data_ptr(), _DTYPE_CODE[q.dtype], kq.data_ptr(),
+            k_scale.data_ptr(), vq.data_ptr(), v_scale.data_ptr(),
+            positions.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            b, h, s, hkv, d, bits, chunk, splits, d ** -0.5, stream)
     return out
 
 
@@ -320,8 +380,9 @@ def paged_kv_decode_attention(q: torch.Tensor, kq_pool: torch.Tensor,
                               bits: int) -> torch.Tensor:
     """``kv_decode_attention`` over page pools (P, page, Hkv, D or D/2)
     with per-page V scales (P, page, Hkv), a per-slot K scale (B, Hkv, D)
-    and a (B, n) int32 block table -> (B, H, D) float32.  Table entries
-    clamp to [0, P - 1]; positions (B,) int32 must be >= 0."""
+    and a (B, n) int32 block table -> (B, H, D) float32, on the plan of a
+    contiguous cache of n * page rows.  Table entries clamp to [0, P - 1];
+    positions (B,) int32 must be >= 0."""
     name = "paged_kv_decode_attention"
     _on_card(name, q, kq_pool, k_scale, vq_pool, v_scale_pool, tbl,
              positions)
@@ -331,10 +392,9 @@ def paged_kv_decode_attention(q: torch.Tensor, kq_pool: torch.Tensor,
     _require(tuple(v_scale_pool.shape) == (p, page, hkv)
              and v_scale_pool.dtype == torch.float32,
              f"{name}: v_scale_pool must be (P, page, Hkv) float32")
-    _require(tbl.ndim == 2 and tbl.shape[0] == b and tbl.dtype == torch.int32
-             and tbl.shape[1] <= PAGED_MAX_PAGES,
-             f"{name}: tbl must be (B, n) int32 with n <= {PAGED_MAX_PAGES}, "
-             f"got {tuple(tbl.shape)} {tbl.dtype}")
+    _require(tbl.ndim == 2 and tbl.shape[0] == b and tbl.dtype == torch.int32,
+             f"{name}: tbl must be (B, n) int32, got {tuple(tbl.shape)} "
+             f"{tbl.dtype}")
     _require(tuple(positions.shape) == (b,) and positions.dtype == torch.int32,
              f"{name}: positions must be (B,) int32")
     ts = (q, kq_pool, k_scale, vq_pool, v_scale_pool, tbl, positions)
@@ -344,10 +404,16 @@ def paged_kv_decode_attention(q: torch.Tensor, kq_pool: torch.Tensor,
     n = tbl.shape[1]
     if b == 0 or n == 0 or p == 0 or page == 0:
         return out.zero_()
+    kq_pool, vq_pool = _aligned16(kq_pool), _aligned16(vq_pool)
+    splits, chunk = decode_plan(b, hkv, h // hkv, n * page, bits)
+    stream = _stream()
+    ws, counters = _decode_scratch(q.device, stream, b, h, d, hkv, splits)
     _launch(name, q.data_ptr(), _DTYPE_CODE[q.dtype], kq_pool.data_ptr(),
             k_scale.data_ptr(), vq_pool.data_ptr(), v_scale_pool.data_ptr(),
-            tbl.data_ptr(), positions.data_ptr(), out.data_ptr(), b, h, p,
-            page, n, hkv, d, bits, d ** -0.5, _stream())
+            tbl.data_ptr(), positions.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(),
+            None if counters is None else counters.data_ptr(), b, h, p,
+            page, n, hkv, d, bits, chunk, splits, d ** -0.5, stream)
     return out
 
 

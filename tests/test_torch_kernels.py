@@ -151,7 +151,12 @@ def test_flash_ref_matches_pallas(jax_side, group, causal, shape, blk):
 
 
 def test_chunked_attention_matches_jax(jax_side):
-    """The port's CPU prefill attention (ragged S: pad rows masked)."""
+    """The port's CPU prefill attention (ragged S: pad rows masked), and
+    each side against float64 attention on the same inputs, so that a
+    failure names the side that moved.  Measured on a CPU host: |port - JAX|
+    is 7.2e-7 at torch threads 1, 2, 4 and 6, and 2.4e-7 with XLA's
+    single-threaded Eigen; each side lies within 6.7e-7 of float64.  The
+    tolerance, 1e-5 * max|ref| (3.0e-5), holds 40x that."""
     import jax.numpy as jnp
     from repro.models import attention as jattn
     from repro_torch.models import attention as tattn
@@ -173,6 +178,14 @@ def test_chunked_attention_matches_jax(jax_side):
     want = np.asarray(jattn.chunked_attention(jnp.asarray(q), kv_fn, n, chunk,
                                               causal=True))
     got = tattn.chunked_attention(_t(q), _t(k), _t(v), chunk, True).numpy()
+    logits = np.einsum("bshd,bthd->bhst", q.astype(np.float64),
+                       k.astype(np.float64)) * 32 ** -0.5
+    logits = np.where(np.tril(np.ones((40, 40), bool)), logits, -np.inf)
+    p = np.exp(logits - logits.max(-1, keepdims=True))
+    exact = np.einsum("bhst,bthd->bshd", p / p.sum(-1, keepdims=True),
+                      v.astype(np.float64))
+    _close(want, exact)
+    _close(got, exact)
     _close(got, want)
 
 
@@ -340,16 +353,44 @@ def test_cuda_gemv_repeats_bit_for_bit(card, bits, k, n):
     assert torch.equal(got, again)
 
 
+# (B, S, Hkv) of the card's decode cases: S not a multiple of the plan's C
+# (C = 16 over 19 splits; C = 96 over 11), and a plan of one split
+DECODE_SHAPES = [(6, 300, 2), (6, 16, 2), (6, 1000, 4)]
+
+
+def _decode_positions(s, c):
+    """Positions 0, C - 1, C, C + 1, the last row and past the end (an
+    inactive slot pinned at max_seq)."""
+    return [0, c - 1, c, c + 1, s - 1, s]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("bits", [8, 4])
-def test_cuda_kv_decode(card, bits):
-    from repro_torch.kernels import cuda
-    q, c, pos = _kv_inputs(bits, d=64)
-    args = [torch.as_tensor(a).to(card) for a in
-            (q, c["kq"], c["k_scale"], c["vq"], c["v_scale"], pos)]
+def test_cuda_kv_decode(card, bits, d, group, dtype, shape):
+    """Within 1e-4 * max|ref| of the plain version at positions around the
+    plan's first chunk boundary, the last row and past it; two calls equal
+    bit for bit (the splits merge in a fixed order)."""
+    from repro_torch.kernels import cuda, kv_quant
+    b, s, hkv = shape
+    g = torch.Generator(card).manual_seed(5)
+    splits, c = cuda.decode_plan(b, hkv, group, s, bits)
+    assert (splits == 1) == (s <= c)
+    k = torch.randn((b, s, hkv, d), generator=g, device=card)
+    v = torch.randn((b, s, hkv, d), generator=g, device=card)
+    qc = kv_quant.quantize_prefill({"k": k, "v": v}, torch.full(
+        (b,), s, dtype=torch.int32, device=card), bits)
+    q = torch.randn((b, hkv * group, d), generator=g, device=card).to(dtype)
+    pos = torch.tensor(_decode_positions(s, c), dtype=torch.int32,
+                       device=card)
+    args = (q, qc["kq"], qc["k_scale"], qc["vq"], qc["v_scale"], pos)
     got = cuda.kv_decode_attention(*args, bits)
     want = tref.kv_cache_attention(*args, bits)
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    assert torch.equal(got, cuda.kv_decode_attention(*args, bits))
 
 
 @pytest.mark.cuda
@@ -465,32 +506,67 @@ def test_cuda_histogram_exact(card, n, n_bins):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 19])
+@pytest.mark.parametrize("d", [128, 64])
 @pytest.mark.parametrize("bits,h,hkv", [(8, 16, 16), (4, 16, 16), (4, 16, 4),
                                         (8, 4, 2)])
-def test_cuda_paged_kv_decode(card, bits, h, hkv):
+def test_cuda_paged_kv_decode(card, bits, h, hkv, d, n):
     """Bit for bit the contiguous kernel on the gathered cache, within
     1e-4 * max|ref| of the plain version, over a shuffled table with stale
-    and -1 entries and NaN-poisoned free pages (chip_smoke's case)."""
+    and -1 entries and NaN-poisoned free pages (chip_smoke's case), at
+    positions on page and chunk boundaries, the last row and past it, with
+    n * page a multiple of the plan's C (n = 64) and not (n = 19)."""
     import sys
     from pathlib import Path
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import chip_smoke
     from repro_torch.kernels import cuda, kv_quant
     g = torch.Generator(card).manual_seed(4)
-    b, n, page = 8, 64, 16
-    pos = torch.tensor([0, 15, 16, 100, 511, 700, 1000, 1023],
+    b, page = 8, 16
+    s = n * page
+    c = cuda.decode_plan(b, hkv, h // hkv, s, bits)[1]
+    pos = torch.tensor([0, 15, 16] + _decode_positions(s, c)[1:],
                        dtype=torch.int32, device=card)
     q, qc, (kqp, vqp, vsp), tbl = chip_smoke.paged_case(
-        g, card, bits, b, h, hkv, 128, n, page, pos)
+        g, card, bits, b, h, hkv, d, n, page, pos)
     args = (q, kqp, qc["k_scale"], vqp, vsp, tbl, pos)
     got = cuda.paged_kv_decode_attention(*args, bits)
     gathered = (q, kv_quant.gather_pages(kqp, tbl), qc["k_scale"],
                 kv_quant.gather_pages(vqp, tbl),
                 kv_quant.gather_pages(vsp, tbl), pos)
     assert torch.equal(got, cuda.kv_decode_attention(*gathered, bits))
+    assert torch.equal(got, cuda.paged_kv_decode_attention(*args, bits))
     want = tref.paged_kv_cache_attention(*args, bits)
     assert torch.isfinite(got).all()
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.parametrize("hkv", [4, 1])
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_kv_decode_selector_probe_plain(bits, layout, hkv):
+    """The decode selector probe itself, on the plain versions: every logit
+    but the selected row's is exactly 0, 200 below it, so each output is
+    the selected V row exactly, in both layouts."""
+    import chip_smoke
+    calls, splits, c, same = chip_smoke.kv_decode_selector_probe(
+        torch.device("cpu"), bits, layout, b=2, h=4, hkv=hkv, s=256, d=64,
+        impl="ref")
+    assert splits > 1 and same
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hkv", [16, 4])
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_cuda_kv_decode_selector_probe(card, bits, layout, hkv):
+    """The kernels on the selector probe, bit for bit, with the selected
+    rows at the first, middle and last row of every chunk of the plan: a
+    wrong chunk offset, row, lane byte, nibble, page entry or merge weight
+    selects or mixes in another V row."""
+    import chip_smoke
+    assert chip_smoke.kv_decode_selector_probe(card, bits, layout,
+                                               hkv=hkv)[3]
 
 
 @pytest.mark.cuda
@@ -511,6 +587,11 @@ def test_wrappers_refuse_cpu_tensors():
                                for _ in range(3)))
     with pytest.raises(ValueError, match="CUDA"):
         cuda.histogram(torch.zeros(8, dtype=torch.int32), 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda.kv_decode_attention(
+            torch.ones(1, 2, 64), torch.zeros(1, 4, 2, 64, dtype=torch.int8),
+            torch.ones(1, 2, 64), torch.zeros(1, 4, 2, 64, dtype=torch.int8),
+            torch.ones(1, 4, 2), torch.zeros(1, dtype=torch.int32), 8)
     with pytest.raises(ValueError, match="CUDA"):
         cuda.paged_kv_decode_attention(
             torch.ones(1, 2, 64), torch.zeros(3, 4, 2, 64, dtype=torch.int8),
@@ -582,6 +663,122 @@ def test_gemv_plan(bits, k, n):
         assert slices > 1
     with pytest.raises(ValueError, match="M must be"):
         cuda.gemv_plan(17, n, k, bits)
+
+
+DECODE_PLAN_CASES = [  # (B, Hkv, group, rows)
+    (8, 16, 1, 1024),     # olmo-1b serving: max_seq 1024
+    (8, 4, 4, 1024),      # GQA 16/4
+    (8, 16, 1, 19 * 16),
+    (1, 16, 1, 1024),
+    (6, 2, 2, 300), (6, 2, 1, 16), (6, 4, 4, 1000), (3, 2, 2, 24),
+    (2, 2, 8, 300),       # a group of 8 takes two rounds over a chunk
+    (8, 16, 1, 8192), (1, 1, 1, 200_000), (1, 1, 1, 1)]
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("b,hkv,group,rows", DECODE_PLAN_CASES)
+def test_decode_plan(b, hkv, group, rows, bits):
+    """Decode attention's split: chunks of whole 16-row units (whole pages
+    of 16) that cover every row exactly once, none empty, at most
+    DECODE_MAX_SPLITS of them; the same at both widths.  At the serve
+    shapes, C = 128 and at least two waves of blocks over 132 SMs."""
+    from repro_torch.kernels import cuda
+    splits, c = cuda.decode_plan(b, hkv, group, rows, bits)
+    assert c % 16 == 0 and c >= 16
+    assert 1 <= splits <= cuda.DECODE_MAX_SPLITS
+    bounds = [(k * c, min((k + 1) * c, rows)) for k in range(splits)]
+    assert all(hi > lo for lo, hi in bounds)
+    assert [r for lo, hi in bounds for r in range(lo, hi)] == list(
+        range(rows))
+    assert cuda.decode_plan(b, hkv, group, rows, 12 - bits) == (splits, c)
+    if (b, hkv, rows) == (8, 16, 1024):
+        assert c == 128 and b * hkv * splits >= 2 * 132
+    if rows <= 16:
+        assert splits == 1
+
+
+def test_decode_plan_refuses():
+    from repro_torch.kernels import cuda
+    for args in ((0, 16, 1, 1024, 8), (8, 16, 1, 0, 8), (8, 16, 1, 64, 2)):
+        with pytest.raises(ValueError, match="decode_plan"):
+            cuda.decode_plan(*args)
+
+
+def _decode_args(layout, b=2, h=4, hkv=2, d=64, bits=8, s=1024, page=16):
+    """CPU operands of a decode wrapper (both layouts over s rows)."""
+    code = torch.int8 if bits == 8 else torch.uint8
+    dp = d if bits == 8 else d // 2
+    q = torch.zeros(b, h, d)
+    ks = torch.ones(b, hkv, d)
+    pos = torch.zeros(b, dtype=torch.int32)
+    if layout == "contiguous":
+        kq = torch.zeros(b, s, hkv, dp, dtype=code)
+        return [q, kq, ks, kq.clone(), torch.ones(b, s, hkv), pos]
+    n = s // page
+    pool = torch.zeros(b * n, page, hkv, dp, dtype=code)
+    return [q, pool, ks, pool.clone(), torch.ones(b * n, page, hkv),
+            torch.zeros(b, n, dtype=torch.int32), pos]
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """The decode wrappers with the device check, the stream and the launch
+    stubbed: returns the list each launch's arguments are appended to."""
+    from repro_torch.kernels import cuda
+    calls = []
+    monkeypatch.setattr(cuda, "_on_card", lambda name, *t: t[0].device)
+    monkeypatch.setattr(cuda, "_stream", lambda: 0)
+    monkeypatch.setattr(cuda, "_launch", lambda name, *a: calls.append(
+        (name, a)))
+    return calls
+
+
+def test_decode_wrappers_plan_equal_rows(fake_card):
+    """A contiguous cache of S rows and a paged one of n * page = S rows
+    launch on the same plan; a plan of several splits gets a workspace of
+    B * H * splits * (D + 4) floats and the stream's counters, one split
+    gets neither."""
+    from repro_torch.kernels import cuda
+    for layout, fn in (("contiguous", cuda.kv_decode_attention),
+                       ("paged", cuda.paged_kv_decode_attention)):
+        out = fn(*_decode_args(layout), 8)
+        assert out.shape == (2, 4, 64) and out.dtype == torch.float32
+    (_, a), (_, p) = fake_card
+    # chunk and splits are the 3rd and 2nd arguments from the end
+    assert a[-4:-2] == p[-4:-2] == tuple(reversed(cuda.decode_plan(
+        2, 2, 2, 1024, 8)))
+    assert a[-4:-2][1] > 1 and a[8] is not None and a[9] is not None
+    fake_card.clear()
+    cuda.kv_decode_attention(*_decode_args("contiguous", s=16), 8)
+    (_, a), = fake_card
+    assert a[-4:-2] == (16, 1) and a[8] is None and a[9] is None
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_decode_wrappers_refuse_bad_shapes(fake_card, layout):
+    """Shapes and types the kernels do not take raise ValueError before a
+    launch: head_dim 96, 2-bit codes, H not a multiple of Hkv, int64
+    positions, V scales of the wrong shape, a non-int32 table."""
+    from repro_torch.kernels import cuda
+    fn = (cuda.kv_decode_attention if layout == "contiguous"
+          else cuda.paged_kv_decode_attention)
+    bad = [(_decode_args(layout, d=96), 8, "head_dim"),
+           (_decode_args(layout), 2, "bits"),
+           (_decode_args(layout, h=3), 8, "multiple")]
+    args = _decode_args(layout)
+    args[-1] = args[-1].long()
+    bad.append((args, 8, "positions"))
+    args = _decode_args(layout)
+    args[4] = args[4][..., :1]
+    bad.append((args, 8, "v_scale"))
+    if layout == "paged":
+        args = _decode_args(layout)
+        args[5] = args[5].long()
+        bad.append((args, 8, "tbl"))
+    for args, bits, match in bad:
+        with pytest.raises(ValueError, match=match):
+            fn(*args, bits)
+    assert not fake_card
 
 
 def test_nvcc_missing_raises(monkeypatch, tmp_path):
