@@ -52,10 +52,12 @@
 //    codes and V scales: 16,640 bytes a stage at int8, D = 128; 8,448 at
 //    int4) in shared memory, filled by 16-byte cp.async (4-byte for the
 //    scales) three stages ahead of the one being read, never more stages
-//    than the chunk has tiles.  At the serve plan a block's whole chunk (two
-//    tiles) is in flight at once, 33 KB at int8 and 17 KB at int4, and
-//    about three live blocks share an SM: some 100 KB (int8) or 50 KB
-//    (int4) in flight an SM, against the ~25 KB that HBM's latency asks;
+//    than the chunk has tiles.  A stage's K and its V are two commit groups,
+//    K's first, so a tile's scores and softmax run while its V arrives.  At
+//    the serve plan a block's whole chunk (two tiles) is in flight at once,
+//    33 KB at int8 and 17 KB at int4, and about three live blocks share an
+//    SM: some 100 KB (int8) or 50 KB (int4) in flight an SM, against the
+//    ~25 KB that HBM's latency asks;
 //  * a row is cut across D / 16 lanes of 16 channels (8 lanes at D = 128:
 //    16 code bytes a lane at int8, 8 at int4), so a row's dot product
 //    reduces over 3 shuffles; the paged policy resolves the chunk's table
@@ -110,8 +112,8 @@ struct Geo {
   static constexpr int PASSES = KV_TILE / RPW;          // warp passes a tile
   static constexpr int STAGE = KV_TILE * (2 * DP + 4);  // K, V, V scales
   static constexpr int CPR = DP / 16;                   // 16-byte copies a row
-  static constexpr int COPIES = 2 * KV_TILE * CPR / KV_THREADS;
-  static_assert(2 * KV_TILE * CPR % KV_THREADS == 0, "copies a thread");
+  static constexpr int COPIES = KV_TILE * CPR / KV_THREADS;  // a thread's, an operand
+  static_assert(KV_TILE * CPR % KV_THREADS == 0 && KV_TILE <= KV_THREADS, "copies");
 };
 
 // The channel of a lane's i-th value, in the order word_to_f32 yields them.
@@ -294,27 +296,38 @@ __global__ void __launch_bounds__(KV_THREADS, KV_MIN_BLOCKS)
   const size_t head = static_cast<size_t>(hk) * DP;
   __syncthreads();  // ent
 
-  // Tile t into its ring slot: codes by 16-byte copies, V scales by
-  // 4-byte; a row past n_valid is zero-filled and not read.
-  auto issue = [&](int t) {
+  // Tile t's K codes (v = 0), or its V codes and scales (v = 1), into its
+  // ring slot as one commit group: 16-byte copies, 4-byte for the scales; a
+  // row past n_valid is zero-filled and not read.
+  auto issue = [&](int t, int v) {
     uint8_t* st = ring + (t % slots) * G::STAGE;
     const int r0 = t * KV_TILE;
+    const uint8_t* codes = v ? vq : kq;
 #pragma unroll 1
     for (int it = 0; it < G::COPIES; ++it) {
-      const int i = tid + it * KV_THREADS;
-      const int isv = i >= KV_TILE * CPR;
-      const int j = i - isv * KV_TILE * CPR;
+      const int j = tid + it * KV_THREADS;
       const int r = j / CPR, c = j % CPR;
       const bool ok = r0 + r < n_valid;
-      const uint8_t* src = isv ? vq : kq;
+      const uint8_t* src = codes;
       if (ok) src += rows.row(b, c0 + r0 + r, ent, j0) * row_bytes + head + c * 16;
-      cp_async16(smem_addr(st + isv * KV_TILE * DP + r * DP + c * 16), src, ok);
+      cp_async16(smem_addr(st + v * KV_TILE * DP + r * DP + c * 16), src, ok);
     }
-    if (tid < KV_TILE) {
+    if (v && tid < KV_TILE) {
       const bool ok = r0 + tid < n_valid;
       const float* src = v_scale;
       if (ok) src += rows.row(b, c0 + r0 + tid, ent, j0) * Hkv + hk;
       cp_async4(smem_addr(st + 2 * KV_TILE * DP + 4 * tid), src, ok);
+    }
+    cp_async_commit();
+  };
+  // two commit groups a tile, K's first, present or not
+  auto issue_tile = [&](int t) {
+    if (t < tiles) {
+      issue(t, 0);
+      issue(t, 1);
+    } else {
+      cp_async_commit();
+      cp_async_commit();
     }
   };
 
@@ -322,10 +335,7 @@ __global__ void __launch_bounds__(KV_THREADS, KV_MIN_BLOCKS)
     const int g = round * gslots + gs;
     const bool busy = g < group;
 #pragma unroll 1
-    for (int s = 0; s < KV_STAGES - 1; ++s) {
-      if (s < tiles) issue(s);
-      cp_async_commit();
-    }
+    for (int s = 0; s < KV_STAGES - 1; ++s) issue_tile(s);
     // q with k_scale and D^-0.5 folded in, in the order of the lane's codes
     if (round > 0) load_q(g);
     float acc[CH];
@@ -336,10 +346,9 @@ __global__ void __launch_bounds__(KV_THREADS, KV_MIN_BLOCKS)
     }
     float m = NEG_INF, l = 0.f;
     for (int t = 0; t < tiles; ++t) {
-      if (t + KV_STAGES - 1 < tiles) issue(t + KV_STAGES - 1);
-      cp_async_commit();
-      cp_async_wait<KV_STAGES - 1>();
-      __syncthreads();  // tile t has landed, from every thread's copies
+      issue_tile(t + KV_STAGES - 1);
+      cp_async_wait<2 * KV_STAGES - 1>();
+      __syncthreads();  // tile t's K has landed, from every thread's copies
       const uint8_t* st = ring + (t % slots) * G::STAGE;
       const int r0 = t * KV_TILE;
       // this warp's row passes of the tile: wj, wj + wpg, ...
@@ -355,10 +364,11 @@ __global__ void __launch_bounds__(KV_THREADS, KV_MIN_BLOCKS)
         }
       }
       __syncthreads();  // the tile's logits
+      float p[KV_VPL];  // the weights of this lane's rows of the tile
       if (busy) {
         // lane i holds rows i, i + 32, ... of the tile: the tile's max,
-        // weights and sum
-        float x[KV_VPL], p[KV_VPL];
+        // weights and sum, while the tile's V is still arriving
+        float x[KV_VPL];
         float xm = NEG_INF;
 #pragma unroll
         for (int v = 0; v < KV_VPL; ++v) {
@@ -379,6 +389,10 @@ __global__ void __launch_bounds__(KV_THREADS, KV_MIN_BLOCKS)
 #pragma unroll
           for (int i = 0; i < CH; ++i) acc[i] *= alpha;
         }
+      }
+      cp_async_wait<2 * KV_STAGES - 2>();
+      __syncthreads();  // tile t's V has landed
+      if (busy) {
         const float* vs = reinterpret_cast<const float*>(st + 2 * KV_TILE * DP);
 #pragma unroll 4
         for (int k = 0; k < npass; ++k) {
