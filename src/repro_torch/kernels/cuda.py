@@ -317,13 +317,10 @@ def _check_decode_operands(name, q, kq, vq, k_scale, bits):
     _require(tuple(k_scale.shape) == (b, hkv, d)
              and k_scale.dtype == torch.float32,
              f"{name}: k_scale must be (B, Hkv, D) float32")
+    _require(kq.data_ptr() % 16 == 0 and vq.data_ptr() % 16 == 0,
+             f"{name}: code buffers must be 16-byte aligned (the kernel "
+             f"copies their rows 16 bytes at a time)")
     return b, h, d, hkv
-
-
-def _aligned16(t: torch.Tensor) -> torch.Tensor:
-    # the kernels copy code rows by 16-byte cp.async; a view off a 16-byte
-    # boundary is copied once here (a fresh tensor is aligned)
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _decode_scratch(dev, stream, b, h, d, hkv, splits):
@@ -360,7 +357,6 @@ def kv_decode_attention(q: torch.Tensor, kq: torch.Tensor,
     out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
     if b == 0 or s == 0:
         return out.zero_()
-    kq, vq = _aligned16(kq), _aligned16(vq)
     splits, chunk = decode_plan(b, hkv, h // hkv, s, bits)
     stream = _stream()
     ws, counters = _decode_scratch(q.device, stream, b, h, d, hkv, splits)
@@ -404,7 +400,6 @@ def paged_kv_decode_attention(q: torch.Tensor, kq_pool: torch.Tensor,
     n = tbl.shape[1]
     if b == 0 or n == 0 or p == 0 or page == 0:
         return out.zero_()
-    kq_pool, vq_pool = _aligned16(kq_pool), _aligned16(vq_pool)
     splits, chunk = decode_plan(b, hkv, h // hkv, n * page, bits)
     stream = _stream()
     ws, counters = _decode_scratch(q.device, stream, b, h, d, hkv, splits)

@@ -367,13 +367,15 @@ def _decode_positions(s, c):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", DECODE_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("bits", [8, 4])
 def test_cuda_kv_decode(card, bits, d, group, dtype, shape):
     """Within 1e-4 * max|ref| of the plain version at positions around the
     plan's first chunk boundary, the last row and past it; two calls equal
-    bit for bit (the splits merge in a fixed order)."""
+    bit for bit (the splits merge in a fixed order).  A group of 3 leaves
+    one of a block's 4 warps idle; a group of 8 takes two rounds over the
+    chunk."""
     from repro_torch.kernels import cuda, kv_quant
     b, s, hkv = shape
     g = torch.Generator(card).manual_seed(5)
@@ -758,7 +760,8 @@ def test_decode_wrappers_plan_equal_rows(fake_card):
 def test_decode_wrappers_refuse_bad_shapes(fake_card, layout):
     """Shapes and types the kernels do not take raise ValueError before a
     launch: head_dim 96, 2-bit codes, H not a multiple of Hkv, int64
-    positions, V scales of the wrong shape, a non-int32 table."""
+    positions, V scales of the wrong shape, codes off a 16-byte boundary,
+    a non-int32 table."""
     from repro_torch.kernels import cuda
     fn = (cuda.kv_decode_attention if layout == "contiguous"
           else cuda.paged_kv_decode_attention)
@@ -771,6 +774,10 @@ def test_decode_wrappers_refuse_bad_shapes(fake_card, layout):
     args = _decode_args(layout)
     args[4] = args[4][..., :1]
     bad.append((args, 8, "v_scale"))
+    args = _decode_args(layout)  # K codes 4 bytes past a 16-byte boundary
+    buf = torch.zeros(args[1].numel() + 4, dtype=args[1].dtype)
+    args[1] = buf[4:].view(args[1].shape)
+    bad.append((args, 8, "aligned"))
     if layout == "paged":
         args = _decode_args(layout)
         args[5] = args[5].long()
