@@ -11,11 +11,12 @@ Phases, in order; any failure exits non-zero:
                the main path's shapes, with its tolerance, kernel / plain /
                library times (CUDA events, warm-up excluded, L2 flushed) and
                bound; the decode GEMV's shapes also in device time alone
-               (torch.profiler) beside cuBLAS's; the paged decode also bit
-               for bit against the contiguous kernel on the gathered cache,
-               and the probes of quant_matmul (identity, and the GEMV's
-               selector and repeat) and flash_attention (selector) bit for
-               bit.
+               (torch.profiler) beside cuBLAS's, and both decode attentions
+               beside SDPA's; the paged decode also bit for bit against the
+               contiguous kernel on the gathered cache, and the probes of
+               quant_matmul (identity, and the GEMV's selector and repeat),
+               decode attention (selector in both layouts, and repeat) and
+               flash_attention (selector) bit for bit.
   select     - EAGL gains of olmo-1b at full width, weights drawn on the
                card from seed 0, through the histogram kernel and through
                impl="ref" (the same knapsack take), and the 4/2 mix the
@@ -385,8 +386,9 @@ def kv_decode_selector_probe(dev, bits, layout, b=4, h=16, hkv=16, s=1024,
     pack = (lambda x: x.to(torch.int8)) if bits == 8 else kv_quant.pack4
     vq = pack(v_codes.contiguous())
     k_scale = torch.rand((b, hkv, d), generator=g, device=dev) + 0.5
-    heads = torch.arange(h, device=dev)
-    hk_of, chan_of = heads // group, heads % d
+    heads = torch.arange(h, device=dev)[None].expand(b, h)
+    bi = torch.arange(b, device=dev)[:, None].expand(b, h)
+    hk_of, chan_of = heads // group, heads % d  # each query head's channel
     per_call = b * h
     calls = -(-len(targets) // per_call)
     order = torch.tensor(targets, device=dev)
@@ -399,19 +401,15 @@ def kv_decode_selector_probe(dev, bits, layout, b=4, h=16, hkv=16, s=1024,
         pos[0] = s
         k_codes = torch.randint(-top, top + 1, (b, s, hkv, d), generator=g,
                                 device=dev)
-        bi = torch.arange(b, device=dev)[:, None].expand(b, h)
-        k_codes[bi, :, hk_of[None].expand(b, h), chan_of[None].expand(
-            b, h)] = 0
-        k_codes[bi, sel, hk_of[None].expand(b, h), chan_of[None].expand(
-            b, h)] = top
+        k_codes[bi, :, hk_of, chan_of] = 0
+        k_codes[bi, sel, hk_of, chan_of] = top
         kq = pack(k_codes)
-        ks = k_scale[bi, hk_of[None].expand(b, h), chan_of[None].expand(b, h)]
         q = torch.zeros((b, h, d), device=dev)
-        q[bi, heads[None].expand(b, h), chan_of[None].expand(b, h)] = (
-            KV_PROBE_SCORE * math.sqrt(d) / (top * ks))
+        q[bi, heads, chan_of] = KV_PROBE_SCORE * math.sqrt(d) / (
+            top * k_scale[bi, hk_of, chan_of])
         q = q.to(torch.bfloat16)
-        want = (v_codes[bi, sel, hk_of[None].expand(b, h)].float()
-                * v_scale[bi, sel, hk_of[None].expand(b, h)][..., None])
+        want = (v_codes[bi, sel, hk_of].float()
+                * v_scale[bi, sel, hk_of][..., None])
         if layout == "contiguous":
             args = (q, kq, k_scale, vq, v_scale, pos)
             fn = (cuda.kv_decode_attention if impl == "cuda"
@@ -421,8 +419,8 @@ def kv_decode_selector_probe(dev, bits, layout, b=4, h=16, hkv=16, s=1024,
             p = b * n + 8
             perm = torch.randperm(p, generator=g, device=dev)
             tbl = torch.full((b, n), -1, dtype=torch.int32, device=dev)
-            pools = [torch.full((p, page, hkv, dp), 0, dtype=kq.dtype,
-                                device=dev) for _ in range(2)]
+            pools = [torch.zeros((p, page, hkv, dp), dtype=kq.dtype,
+                                 device=dev) for _ in range(2)]
             pools.append(torch.full((p, page, hkv), float("nan"),
                                     device=dev))
             for i in range(b):
