@@ -11,12 +11,16 @@ Phases, in order; any failure exits non-zero:
                the main path's shapes, with its tolerance, kernel / plain /
                library times (CUDA events, warm-up excluded, L2 flushed) and
                bound; the decode GEMV's shapes also in device time alone
-               (torch.profiler) beside cuBLAS's, and both decode attentions
-               beside SDPA's; the paged decode also bit for bit against the
-               contiguous kernel on the gathered cache, and the probes of
-               quant_matmul (identity, and the GEMV's selector and repeat),
-               decode attention (selector in both layouts, and repeat) and
-               flash_attention (selector) bit for bit.
+               (torch.profiler) beside cuBLAS's, both decode attentions
+               beside SDPA's, lsq_fakequant (one step and q/k/v's three)
+               beside fake_quantize_per_tensor_affine and the histogram
+               beside torch.bincount; the paged decode also bit for bit
+               against the contiguous kernel on the gathered cache, and the
+               probes of quant_matmul (identity, and the GEMV's selector and
+               repeat), decode attention (selector in both layouts, and
+               repeat), flash_attention (selector), lsq_fakequant (NaN,
+               +-inf, ties, clamp edges, ragged lengths) and the histogram
+               (repeat, one device op a call) bit for bit.
   select     - EAGL gains of olmo-1b at full width, weights drawn on the
                card from seed 0, through the histogram kernel and through
                impl="ref" (the same knapsack take), and the 4/2 mix the
@@ -24,8 +28,9 @@ Phases, in order; any failure exits non-zero:
   4. serve   - that mix packed, 8 prompts of 128-512 tokens right-padded to
                512, 64 new tokens, max_seq 1024, over an int8 and an int4
                KV cache, contiguous and paged (page 16; the same tokens);
-               counts every kernel's launches; a torch.profiler breakdown
-               of one prefill and 8 decode steps.
+               counts every kernel's launches (lsq_fakequant: 4 a layer
+               and the head's, per prefill and per decode step); a
+               torch.profiler breakdown of one prefill and 8 decode steps.
   5. check   - kernel path against the plain path (impl="ref") on the same
                weights, teacher-forced with the kernel path's tokens over
                the prefill and 16 decode steps, beside a control: the plain
@@ -224,8 +229,9 @@ def device_us(timer, fn, iters: int = 30):
     (the median over the calls, {kernel: launches a call})."""
     from torch.profiler import ProfilerActivity, profile
     fn()
-    flush = set(device_rows(timer.flush_buf.zero_))
-    for _ in range(3):  # a profile that recorded no flush is taken again
+    for _ in range(3):  # a profile that recorded no flush is taken again,
+        # and so is the flush's own, which may have recorded no kernel
+        flush = set(device_rows(timer.flush_buf.zero_))
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -340,15 +346,23 @@ def check_quant_matmul(timer, dev, gen):
     return head, cases
 
 
-def decode_device(timer, rec, fn, library):
-    """Decode attention's device time alone (``device_us``) beside SDPA's
-    on the dequantized bf16 cache, and its ratios to the bound and SDPA."""
+def alone_device(timer, rec, fn, library):
+    """A kernel's device time alone (``device_us``) beside the library
+    call's, and its ratios to the bound and the library call."""
     rec["device_us"], rec["device_kernels"] = device_us(timer, fn)
     rec["library_device_us"], rec["library_kernels"] = device_us(timer,
                                                                  library)
     rec["bound_us"] = rec["bound_ms"] * 1e3
     rec["x_bound_device"] = rec["device_us"] / rec["bound_us"]
-    rec["x_sdpa_device"] = rec["device_us"] / rec["library_device_us"]
+    rec["x_library_device"] = rec["device_us"] / rec["library_device_us"]
+
+
+def log_alone(rec, library: str) -> None:
+    log(f"    device time alone (torch.profiler, L2 flushed): "
+        f"{rec['device_us']:.2f} us, {rec['x_bound_device']:.2f}x the bound "
+        f"({rec['bound_us']:.2f} us), {library} "
+        f"{rec['library_device_us']:.2f} us ({rec['x_library_device']:.2f}x);"
+        f" device ops a call: {rec['device_kernels']}")
 
 
 KV_PROBE_SCORE = 200.0          # the selected logit of the decode probe
@@ -493,8 +507,8 @@ def check_kv_decode(timer, dev, gen):
               + b * 4 + b * h * d * 4)
         rec["bound_ms"], rec["bound_by"] = bound_ms(
             nb, 4.0 * rows * (h * d), F32_OPS_PER_S)
-        decode_device(timer, rec,
-                      lambda: cuda.kv_decode_attention(*args, bits), library)
+        alone_device(timer, rec,
+                     lambda: cuda.kv_decode_attention(*args, bits), library)
         # the same kernel on plans of other chunk sizes, for comparison
         rec["device_us_by_chunk"] = {}
         for rows_cap in (64, 256):
@@ -510,7 +524,7 @@ def check_kv_decode(timer, dev, gen):
         log(f"    device time alone: {rec['device_us']:.2f} us, "
             f"{rec['x_bound_device']:.2f}x the bound ({rec['bound_us']:.2f} "
             f"us), SDPA {rec['library_device_us']:.2f} us "
-            f"({rec['x_sdpa_device']:.2f}x); plan {rec['plan'][0]} splits of "
+            f"({rec['x_library_device']:.2f}x); plan {rec['plan'][0]} splits of "
             f"{rec['plan'][1]} rows; other chunks: " + ", ".join(
                 f"C={c} {us:.2f} us"
                 for c, us in rec["device_us_by_chunk"].items()))
@@ -644,39 +658,190 @@ def check_flash(timer, dev, gen):
     return cases[0], cases
 
 
+LSQ_STEPS = (0.7559289, 0.31, 1.7)   # q, k and v's steps in phase 3
+LSQ_PROBE_STEPS = (0.25, 0.1, 3.0)   # exact ties for 0.25; near ties for 0.1
+LSQ_PROBE_LENGTHS = (1, 7, 8 * 1000 + 3, 8 * 250_000 + 3)
+
+
+def same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal bit for bit (signed zeros included), NaN where ``want`` is NaN
+    (any NaN payload)."""
+    gn, wn = torch.isnan(got), torch.isnan(want)
+    if got.dtype != want.dtype or not torch.equal(gn, wn):
+        return False
+    iv = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    return torch.equal(got.view(iv)[~gn], want.view(iv)[~wn])
+
+
+def lsq_probe_values(dtype, steps, dev) -> torch.Tensor:
+    """The values that can break an exact fake-quant: NaN, +-inf, signed
+    zeros; for each step s and every code k of 8 bits and two past the clamp
+    edges, (k + 1/2) s (a rounding tie where exact, a near tie otherwise)
+    and its two neighbours in ``dtype``, and k s; then normal values. The
+    specials lead, so a short prefix holds them."""
+    head = torch.tensor([math.nan, math.inf, -math.inf, 0.0, -0.0, 1e30,
+                         -1e30], dtype=torch.float32, device=dev).to(dtype)
+    k = torch.arange(-130, 130, dtype=torch.float32, device=dev)
+    iv = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    parts = [head]
+    for s in steps:
+        tie = ((k + 0.5) * torch.tensor(s, device=dev)).to(dtype)
+        parts += [tie, (tie.view(iv) + 1).view(dtype),
+                  (tie.view(iv) - 1).view(dtype),
+                  (k * torch.tensor(s, device=dev)).to(dtype)]
+    g = torch.Generator(dev).manual_seed(5)
+    parts.append(torch.randn((8 * 1024,), generator=g, device=dev).to(dtype))
+    return torch.cat(parts)
+
+
+def lsq_probe(dev):
+    """The kernel against the plain version on the probe values, bit for
+    bit: bf16 and float32, bits 2, 4 and 8, 1, 2 and 3 steps as tensors and
+    as floats, the lengths LSQ_PROBE_LENGTHS (the values tiled and
+    shuffled past the first). Returns (calls, failures)."""
+    from repro_torch.kernels import cuda, ref
+    calls, bad = 0, []
+    for dtype in (torch.bfloat16, torch.float32):
+        vals = lsq_probe_values(dtype, LSQ_PROBE_STEPS, dev)
+        g = torch.Generator(dev).manual_seed(6)
+        for n in LSQ_PROBE_LENGTHS:
+            reps = -(-n // vals.numel())
+            tiled = vals.repeat(reps)
+            perm = torch.randperm(tiled.numel() - vals.numel(), generator=g,
+                                  device=dev) + vals.numel()
+            x = torch.cat([vals, tiled[perm]])[:n].contiguous()
+            for bits in (2, 4, 8):
+                for n_steps in (1, 2, 3):
+                    for kind in ("tensor", "float"):
+                        steps = [torch.tensor(v, device=dev) if kind ==
+                                 "tensor" else v
+                                 for v in LSQ_PROBE_STEPS[:n_steps]]
+                        got = cuda.lsq_fakequant(x, steps, bits)
+                        want = ref.lsq_fakequant_grouped(x, steps, bits)
+                        calls += 1
+                        if not all(same_bits(a, b)
+                                   for a, b in zip(got, want)):
+                            bad.append((str(dtype), n, bits, n_steps, kind))
+    return calls, bad
+
+
+def sass_count(source: str, kernel: str):
+    """SASS instructions of each instantiation of ``kernel`` in a built
+    library, from cuobjdump: {mangled name: (all, main path)}, the main
+    path being the instructions up to the last EXIT before the first RET
+    (what follows is the division's slow path, a subroutine); None where
+    the toolkit has no cuobjdump.  Static counts: the kernels have no
+    loops, so the main path is what a thread executes, the tail's branch
+    included."""
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    lib = build.BUILD_DIR / f"lib{source}.so"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    ops, name = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+            if name:
+                ops[name] = []
+        elif name:
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\S*)",
+                         line)
+            if m:
+                ops[name].append(m.group(1))
+    counts = {}
+    for name, seq in ops.items():
+        ret = next((i for i, op in enumerate(seq) if op.startswith("RET")),
+                   len(seq))
+        exits = [i for i, op in enumerate(seq[:ret]) if op == "EXIT"]
+        counts[name] = (len(seq), exits[-1] + 1 if exits else ret)
+    return counts
+
+
 def check_lsq(timer, dev, gen):
+    """The main path's shape (a prefill's 4096 x 2048 bf16 activations) at
+    2, 4 and 8 bits, with one step and with three (q/k/v's grouped call):
+    bit for bit against the plain version, timed, and in device time alone
+    beside fake_quantize_per_tensor_affine (called once a step); then the
+    probe (``lsq_probe``) and the kernel's static SASS count."""
     from repro_torch.kernels import cuda, ref
     x = torch.randn((8 * 512, 2048), generator=gen, device=dev).bfloat16()
-    step = torch.tensor(0.7559289, device=dev)
+    steps = [torch.tensor(v, device=dev) for v in LSQ_STEPS]
     cases = []
-    for bits in (2, 4, 8):
-        got = cuda.lsq_fakequant(x, step, bits)
-        want = ref.lsq_fakequant(x, step, bits)
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        half = 2 ** (bits - 1)
-        rec = {"bits": bits, "shape": list(x.shape), "max_abs_err": err,
-               "tol": 0.0, "ok": err == 0.0,
-               "ms": timer(lambda: cuda.lsq_fakequant(x, step, bits)),
-               "plain_ms": timer(lambda: ref.lsq_fakequant(x, step, bits)),
-               "library_ms": timer(
-                   lambda: torch.fake_quantize_per_tensor_affine(
-                       x, float(step), 0, -half, half - 1))}
-        rec["bound_ms"], rec["bound_by"] = bound_ms(
-            4.0 * x.numel(), 6.0 * x.numel(), F32_OPS_PER_S)
-        log(f"  lsq_fakequant {bits}-bit {tuple(x.shape)} bf16: err {err} "
-            f"(exact) {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}, "
-            f"fake_quantize_per_tensor_affine {rec['library_ms']:.4f}, bound "
-            f"{rec['bound_ms']:.4f} ({rec['bound_by']})")
-        cases.append(rec)
+    for n_steps in (1, 3):
+        st = steps[0] if n_steps == 1 else steps[:n_steps]
+        for bits in (2, 4, 8):
+            half = 2 ** (bits - 1)
+
+            def kernel():
+                return cuda.lsq_fakequant(x, st, bits)
+
+            def plain():
+                return ref.lsq_fakequant_grouped(x, steps[:n_steps], bits)
+
+            def library():
+                return [torch.fake_quantize_per_tensor_affine(
+                    x, float(s), 0, -half, half - 1) for s in steps[:n_steps]]
+
+            got = kernel()
+            got = [got] if n_steps == 1 else got
+            want = plain()
+            torch.cuda.synchronize()
+            err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(got, want))
+            equal = all(same_bits(a, b) for a, b in zip(got, want))
+            rec = {"bits": bits, "steps": n_steps, "shape": list(x.shape),
+                   "max_abs_err": err, "tol": 0.0, "bit_equal": equal,
+                   "ok": equal, "ms": timer(kernel), "plain_ms": timer(plain),
+                   "library_ms": timer(library)}
+            n = x.numel()
+            rec["bound_ms"], rec["bound_by"] = bound_ms(
+                2.0 * n * (1 + n_steps), 6.0 * n * n_steps, F32_OPS_PER_S)
+            alone_device(timer, rec, kernel, library)
+            # PyTorch moving at least the same bytes: a copy of x (one
+            # step), or x concatenated with itself, once an output
+            rec["same_bytes_device_us"], _ = device_us(
+                timer, lambda: torch.cat([x] * n_steps))
+            log(f"  lsq_fakequant {bits}-bit, {n_steps} step(s), "
+                f"{tuple(x.shape)} bf16: err {err} (exact; bit for bit: "
+                f"{equal}) {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}, "
+                f"fake_quantize_per_tensor_affine x{n_steps} "
+                f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} "
+                f"({rec['bound_by']})")
+            log_alone(rec, f"fake_quantize_per_tensor_affine x{n_steps}")
+            log(f"    torch.cat of x, once an output (the same bytes): "
+                f"{rec['same_bytes_device_us']:.2f} us")
+            cases.append(rec)
+    calls, bad = lsq_probe(dev)
+    cases.append({"lsq_probe": True, "calls": calls, "failures": bad,
+                  "ok": not bad})
+    log(f"    probe (NaN, +-inf, ties and near ties, clamp edges; lengths "
+        f"{LSQ_PROBE_LENGTHS}; bf16, f32; bits 2/4/8; 1-3 steps, tensors "
+        f"and floats): {calls} calls, bit for bit against the plain version"
+        f" in all but {len(bad)}: {bad[:4]}")
+    sass = sass_count("lsq_fakequant", "lsq_kernel")
+    for name, (total, main) in sorted((sass or {}).items()):
+        m = re.search(r"lsq_kernelI(13__nv_bfloat16|f)Li(\d)E", name)
+        if m:  # one 16-byte vector a thread: 8 bf16 or 4 float32
+            elems = 8 if m.group(1) != "f" else 4
+            log(f"    SASS lsq_kernel<{m.group(1)[2:] or 'float'}, "
+                f"{m.group(2)}>: {main} instructions on the main path, "
+                f"{main / elems:.1f} an element ({total} with the "
+                f"division's slow path)")
+    cases[1]["sass"] = sass
     return cases[1], cases
 
 
 def check_histogram(timer, dev, gen):
     """EAGL's histogram at the largest olmo-1b tensor (2048 x 8192 codes of
-    normal weights quantized at 4 and 2 bits), and a ragged length with
-    negatives and the sentinel n_bins.  Exact against the plain version;
-    timed against torch.bincount on the in-range codes."""
+    normal weights quantized at 4 and 2 bits), and ragged lengths with
+    negatives and the sentinel n_bins at 16 bins and at 17 and 4096 (the
+    shared-counter path).  Exact against the plain version, two calls in a
+    row equal (the counters reset), one device op a call; timed against
+    torch.bincount on the in-range codes."""
     from repro_torch.core import quant
     from repro_torch.kernels import cuda, ref
     cases = []
@@ -690,26 +855,46 @@ def check_histogram(timer, dev, gen):
     ragged = torch.randint(-3, 16 + 3, (1_000_003,), generator=gen,
                            device=dev, dtype=torch.int32)
     cases.append((16, ragged))
+    for n_bins in (17, 4096):
+        cases.append((n_bins, torch.randint(
+            -3, n_bins + 3, (1_000_003,), generator=gen, device=dev,
+            dtype=torch.int32)))
     out = []
     for n_bins, codes in cases:
         got = cuda.histogram(codes, n_bins)
+        again = cuda.histogram(codes, n_bins)
         want = ref.histogram(codes, n_bins)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
+        repeat = bool(torch.equal(got, again))
         kept = codes[(codes >= 0) & (codes < n_bins)]
         n = codes.numel()
         rec = {"n": n, "n_bins": n_bins, "max_abs_err": err, "tol": 0.0,
-               "ok": err == 0.0 and float(got.sum()) == kept.numel(),
+               "repeat_equal": repeat,
+               "ok": (err == 0.0 and repeat
+                      and float(got.sum()) == kept.numel()),
                "ms": timer(lambda: cuda.histogram(codes, n_bins)),
                "plain_ms": timer(lambda: ref.histogram(codes, n_bins)),
                "library_ms": timer(lambda: torch.bincount(
                    kept, minlength=n_bins))}
         rec["bound_ms"], rec["bound_by"] = bound_ms(
             4.0 * n + 4.0 * n_bins, float(n), F32_OPS_PER_S)
-        log(f"  histogram n={n} bins={n_bins}: err {err} (exact) "
+        alone_device(timer, rec, lambda: cuda.histogram(codes, n_bins),
+                     lambda: torch.bincount(kept, minlength=n_bins))
+        rec["device_ops"] = sum(rec["device_kernels"].values())
+        rec["ok"] = rec["ok"] and rec["device_ops"] == 1
+        # PyTorch reading the same bytes (a reduction over the codes)
+        rec["same_bytes_device_us"], _ = device_us(timer,
+                                                   lambda: codes.max())
+        log(f"  histogram n={n} bins={n_bins}: err {err} (exact; two calls "
+            f"equal: {repeat}) "
             f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}, bincount "
             f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} "
             f"({rec['bound_by']})")
+        log_alone(rec, "bincount")
+        log(f"    one device op a call: {rec['device_ops'] == 1}; "
+            f"codes.max() over the same bytes: "
+            f"{rec['same_bytes_device_us']:.2f} us")
         out.append(rec)
     return out[0], out
 
@@ -810,9 +995,9 @@ def check_paged_kv_decode(timer, dev, gen):
               + pages_read * 4 + b * 4 + b * h * d * 4)
         rec["bound_ms"], rec["bound_by"] = bound_ms(
             nb, 4.0 * rows * (h * d), F32_OPS_PER_S)
-        decode_device(timer, rec,
-                      lambda: cuda.paged_kv_decode_attention(*args, bits),
-                      library)
+        alone_device(timer, rec,
+                     lambda: cuda.paged_kv_decode_attention(*args, bits),
+                     library)
         rec["contiguous_device_us"], _ = device_us(
             timer, lambda: cuda.kv_decode_attention(*gathered, bits))
         rec["x_contiguous_device"] = (rec["device_us"]
@@ -827,7 +1012,7 @@ def check_paged_kv_decode(timer, dev, gen):
         log(f"    device time alone: {rec['device_us']:.2f} us, "
             f"{rec['x_bound_device']:.2f}x the bound ({rec['bound_us']:.2f} "
             f"us), SDPA {rec['library_device_us']:.2f} us "
-            f"({rec['x_sdpa_device']:.2f}x); contiguous on the same rows "
+            f"({rec['x_library_device']:.2f}x); contiguous on the same rows "
             f"{rec['contiguous_device_us']:.2f} us "
             f"({rec['x_contiguous_device']:.2f}x); plan {rec['plan'][0]} "
             f"splits of {rec['plan'][1]} rows")
@@ -904,6 +1089,8 @@ def device_breakdown(fn, top: int = 20) -> dict:
                                if "qmm_gemv" in k) / 1e3,
             "decode_attention_ms": sum(us for k, us, _ in rows
                                        if "kv_decode" in k) / 1e3,
+            "lsq_fakequant_ms": sum(us for k, us, _ in rows
+                                    if "lsq_kernel" in k) / 1e3,
             "top": [{"kernel": k[:90], "ms": us / 1e3, "count": n}
                     for k, us, n in rows[:top]]}
 
@@ -913,7 +1100,8 @@ def log_breakdown(what: str, rec: dict) -> None:
         f"{rec['device_ms']:.2f} ms, idle share {rec['idle_share']:.3f}, "
         f"{rec['device_ops']} device ops, {rec['dtoh_copies']} "
         f"device-to-host copies; qmm_gemv {rec['qmm_gemv_ms']:.3f} ms, "
-        f"decode attention {rec['decode_attention_ms']:.3f} ms")
+        f"decode attention {rec['decode_attention_ms']:.3f} ms, "
+        f"lsq_fakequant {rec['lsq_fakequant_ms']:.3f} ms")
     for row in rec["top"][:6]:
         log(f"      {row['ms']:9.3f} ms  x{row['count']:<5d} {row['kernel']}")
 
@@ -1022,6 +1210,14 @@ def phase_serve(cfg, packed, pa, dev, tokens, lengths):
                 raise RuntimeError(f"{name}: {step[decode_kernel]} "
                                    f"{decode_kernel} launches per decode "
                                    f"step, expected {cfg.n_repeats}")
+            # one grouped fake-quant for q/k/v, o, gate/up and down a layer,
+            # and the head's
+            lsq = (rec["launches_per_prefill"]["lsq_fakequant"],
+                   step["lsq_fakequant"])
+            if lsq != (4 * cfg.n_repeats + 1,) * 2:
+                raise RuntimeError(f"{name}: lsq_fakequant launched {lsq} "
+                                   f"times per prefill and decode step, "
+                                   f"expected {4 * cfg.n_repeats + 1}")
             if layout == "paged":
                 base = runs[f"contiguous-int{bits}"]
                 if rec["tokens"] != base["tokens"]:

@@ -80,6 +80,20 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// ------------------------------------------------- last-block counters
+// Add one to a counter in device memory, acquire-release at GPU scope, and
+// return the value before the add.  The split kernels find their last
+// block so: each block's writes, ordered by a barrier, are released by its
+// thread 0's add, and the add that reads count - 1 acquires all of them.
+__device__ __forceinline__ unsigned int arrive(unsigned int* counter) {
+  unsigned int prev;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
+               : "=r"(prev)
+               : "l"(counter)
+               : "memory");
+  return prev;
+}
+
 // ---------------------------------------------- mma.sync and its operands
 // Four 8 x 8 b16 matrices; lanes 8i..8i+7 address the rows of matrix i.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {

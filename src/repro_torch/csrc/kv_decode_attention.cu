@@ -450,14 +450,8 @@ __global__ void __launch_bounds__(KV_THREADS, KV_MIN_BLOCKS)
   // the block's partials, ordered by the barrier, are released by thread
   // 0's add; the last block's add acquires every other block's
   unsigned int* counter = counters + static_cast<size_t>(b) * Hkv + hk;
-  if (tid == 0) {
-    unsigned int prev;
-    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
-                 : "=r"(prev)
-                 : "l"(counter)
-                 : "memory");
-    last_block = prev == static_cast<unsigned int>(n_act - 1);
-  }
+  if (tid == 0)
+    last_block = repro::arrive(counter) == static_cast<unsigned int>(n_act - 1);
   __syncthreads();
   if (!last_block) return;
 

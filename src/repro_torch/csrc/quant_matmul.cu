@@ -852,14 +852,8 @@ __global__ void __launch_bounds__(GV_THREADS, 3 - NT)
   // the block's writes, ordered by the barrier, are released by thread 0's
   // add; the last block's add acquires every other block's
   __syncthreads();
-  if (tid == 0) {
-    unsigned int prev;
-    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
-                 : "=r"(prev)
-                 : "l"(counters + tile)
-                 : "memory");
-    last = prev == static_cast<unsigned int>(slices - 1);
-  }
+  if (tid == 0)
+    last = repro::arrive(counters + tile) == static_cast<unsigned int>(slices - 1);
   __syncthreads();
   if (!last) return;
   for (int idx = tid; idx < ITEMS; idx += GV_THREADS) {

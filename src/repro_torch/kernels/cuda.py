@@ -22,6 +22,7 @@ LAUNCHES: Dict[str, int] = {"quant_matmul": 0, "kv_decode_attention": 0,
                             "flash_attention": 0, "lsq_fakequant": 0,
                             "histogram": 0, "paged_kv_decode_attention": 0}
 HIST_MAX_BINS = 4096            # the kernel's shared-memory counters
+LSQ_MAX_STEPS = 3               # steps (outputs) of one lsq_fakequant launch
 GEMV_MAX_M = 16                 # quant_matmul rows of the GEMV; above, tiles
 GEMV_CHANNELS = 128             # output channels a GEMV block: 8 x 16 bytes
 GEMV_STEP_ROWS = 8              # packed rows a GEMV K step
@@ -53,7 +54,8 @@ _SIGNATURES = {
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                          ctypes.POINTER(_LL), _I, _F, _P]),
     "lsq_fakequant": ("lsq_fakequant_launch",
-                      [_P, _P, _LL, _P, _F, _I, _I, _P]),
+                      [_P, _P, _P, _P, _LL, _P, _P, _P, _F, _F, _F, _I, _I,
+                       _I, _P]),
     "histogram": ("histogram_launch", [_P, _LL, _I, _P, _P, _P]),
     "paged_kv_decode_attention": ("paged_kv_decode_attention_launch",
                                   [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -72,8 +74,8 @@ def source_of(name: str) -> str:
 
 _FNS: Dict[str, object] = {}
 # the split kernels' counters (the GEMV's split K, decode attention's split
-# rows), one buffer for each (device, stream): zero when made, and every
-# launch leaves them zero again
+# rows, the histogram's counts), one buffer for each (device, stream): zero
+# when made, and every launch leaves them zero again
 _COUNTERS: Dict[tuple, torch.Tensor] = {}
 
 
@@ -118,28 +120,43 @@ def _on_card(name: str, *tensors: torch.Tensor) -> torch.device:
     return dev
 
 
-def lsq_fakequant(x: torch.Tensor, step, bits) -> torch.Tensor:
-    """Fake-quantize a contiguous float32/bf16 tensor; ``step`` is a 0-d
-    float32 tensor on the same device or a Python float, ``bits`` an
-    integer bit-width."""
-    _on_card("lsq_fakequant", x)
-    _require(x.dtype in _DTYPE_CODE, f"lsq_fakequant: x must be float32 or "
+def lsq_fakequant(x: torch.Tensor, step, bits):
+    """Fake-quantize a contiguous float32/bf16 tensor at one integer
+    bit-width.  ``step`` is one step, or a list or tuple of 1 to
+    LSQ_MAX_STEPS steps for the projections that share ``x``; each is a
+    0-d float32 tensor on x's device or a Python float.  One launch reads
+    x once and writes one output per step: a tensor for one step, a list
+    for a sequence.  x must be 16-byte aligned (the kernel moves 16-byte
+    vectors; there is no scalar kernel)."""
+    name = "lsq_fakequant"
+    _on_card(name, x)
+    many = isinstance(step, (list, tuple))
+    steps = list(step) if many else [step]
+    _require(1 <= len(steps) <= LSQ_MAX_STEPS, f"{name}: 1 to "
+             f"{LSQ_MAX_STEPS} steps, got {len(steps)}")
+    _require(x.dtype in _DTYPE_CODE, f"{name}: x must be float32 or "
              f"bfloat16, got {x.dtype}")
-    _require(x.is_contiguous(), "lsq_fakequant: x must be contiguous")
+    _require(x.is_contiguous(), f"{name}: x must be contiguous")
     b = int(round(float(bits)))
     _require(b == float(bits) and 1 <= b <= 16,
-             f"lsq_fakequant: bits must be an integer in [1, 16], got {bits}")
-    if isinstance(step, torch.Tensor):
-        _on_card("lsq_fakequant", x, step)
-        _require(step.dtype == torch.float32 and step.numel() == 1,
-                 "lsq_fakequant: a tensor step must be one float32 value")
-        step_ptr, step_val = step.data_ptr(), 0.0
-    else:
-        step_ptr, step_val = None, float(step)
-    out = torch.empty_like(x)
-    _launch("lsq_fakequant", x.data_ptr(), out.data_ptr(), x.numel(),
-            step_ptr, step_val, b, _DTYPE_CODE[x.dtype], _stream())
-    return out
+             f"{name}: bits must be an integer in [1, 16], got {bits}")
+    ptrs, vals = [None] * LSQ_MAX_STEPS, [0.0] * LSQ_MAX_STEPS
+    for k, s in enumerate(steps):
+        if isinstance(s, torch.Tensor):
+            _on_card(name, x, s)
+            _require(s.dtype == torch.float32 and s.numel() == 1,
+                     f"{name}: a tensor step must be one float32 value")
+            ptrs[k] = s.data_ptr()
+        else:
+            vals[k] = float(s)
+    outs = [torch.empty_like(x) for _ in steps]
+    _require(all(t.data_ptr() % 16 == 0 for t in [x] + outs),
+             f"{name}: x and the outputs must be 16-byte aligned")
+    optrs = [t.data_ptr() for t in outs] + [None] * (LSQ_MAX_STEPS
+                                                      - len(outs))
+    _launch(name, x.data_ptr(), *optrs, x.numel(), *ptrs, *vals, len(steps),
+            b, _DTYPE_CODE[x.dtype], _stream())
+    return outs if many else outs[0]
 
 
 def quant_matmul(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
@@ -204,9 +221,9 @@ def quant_matmul(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
 
 def _split_counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
     """At least ``n`` zero int32 counters for a split kernel's launch on
-    ``stream`` (the GEMV and both decode attentions share them).  Launches
-    on one stream run in order, and each leaves its counters at zero, so
-    the buffer is made (with ``torch.zeros``) once."""
+    ``stream`` (the GEMV, both decode attentions and the histogram share
+    them).  Launches on one stream run in order, and each leaves its
+    counters at zero, so the buffer is made (with ``torch.zeros``) once."""
     key = (dev.index, stream)
     buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < n:
@@ -248,7 +265,9 @@ def gemv_plan(m: int, n: int, k: int, bits: int) -> Tuple[int, int]:
 def histogram(codes: torch.Tensor, n_bins: int) -> torch.Tensor:
     """Counts of int32 codes in [0, n_bins) -> (n_bins,) float32; codes
     outside the range fall in no bin.  codes: contiguous, 16-byte
-    aligned, any length."""
+    aligned, any length.  One launch: the counts go to the stream's
+    counters (``_split_counters``; n_bins counts and a block counter),
+    which the kernel's last block converts and leaves at zero."""
     _on_card("histogram", codes)
     _require(codes.dtype == torch.int32 and codes.ndim == 1,
              f"histogram: codes must be (n,) int32, got "
@@ -257,10 +276,11 @@ def histogram(codes: torch.Tensor, n_bins: int) -> torch.Tensor:
              f"[1, {HIST_MAX_BINS}], got {n_bins}")
     _require(codes.is_contiguous() and codes.data_ptr() % 16 == 0,
              "histogram: codes must be contiguous and 16-byte aligned")
-    counts = torch.empty((n_bins,), dtype=torch.int32, device=codes.device)
+    stream = _stream()
+    counters = _split_counters(codes.device, stream, n_bins + 1)
     out = torch.empty((n_bins,), dtype=torch.float32, device=codes.device)
     _launch("histogram", codes.data_ptr(), codes.numel(), n_bins,
-            counts.data_ptr(), out.data_ptr(), _stream())
+            counters.data_ptr(), out.data_ptr(), stream)
     return out
 
 

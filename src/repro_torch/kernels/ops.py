@@ -43,11 +43,18 @@ def entropy_bits(codes: torch.Tensor, n_bins: int, impl: str = "auto"
     return ref.entropy_from_counts(histogram(codes, n_bins, impl=impl))
 
 
-def lsq_fakequant(x: torch.Tensor, step, bits, impl: str = "auto"
-                  ) -> torch.Tensor:
-    """Forward-only LSQ fake-quant of an activation tensor."""
+def lsq_fakequant(x: torch.Tensor, step, bits, impl: str = "auto"):
+    """Forward-only LSQ fake-quant of an activation tensor.  ``step`` is
+    one step, or a list or tuple of 1 to 3 steps for projections that share
+    ``x`` (one launch on the card, x read once), which gives a list of
+    outputs.  A view off a 16-byte boundary is copied for the kernel."""
     if use_kernel(x, impl):
-        return cuda.lsq_fakequant(x.contiguous(), step, bits)
+        x = x.contiguous()
+        if x.data_ptr() % 16:
+            x = x.clone()
+        return cuda.lsq_fakequant(x, step, bits)
+    if isinstance(step, (list, tuple)):
+        return ref.lsq_fakequant_grouped(x, step, bits)
     return ref.lsq_fakequant(x, step, bits)
 
 

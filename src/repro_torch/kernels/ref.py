@@ -45,6 +45,12 @@ def lsq_fakequant(x: torch.Tensor, step, bits) -> torch.Tensor:
     return quant.lsq_fake_quant(x, step, bits)
 
 
+def lsq_fakequant_grouped(x: torch.Tensor, steps, bits) -> list:
+    """The grouped kernel's plain version: one output per step, all at
+    one bit-width."""
+    return [lsq_fakequant(x, s, bits) for s in steps]
+
+
 # ------------------------------------------------------------- quant_matmul
 def unpack_w4(w_packed: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     """(K//2, N) uint8 -> (K, N) sign-extended codes."""

@@ -22,7 +22,7 @@ import torch
 from repro_torch.kernels import kv_quant as kvq
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common
-from repro_torch.models.common import init_qdense, qproj
+from repro_torch.models.common import init_qdense, qproj, qproj_group
 
 DEFAULT_CHUNK = 512
 NEG_INF = -1e30
@@ -139,9 +139,11 @@ def gqa_apply(p: dict, x: torch.Tensor, bits: dict, cfg, mode: str, cache,
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     group = h // hkv
-    q = qproj(x, p["wq"], bits["attn_qkv"], impl).reshape(b, s, h, dh)
-    k = qproj(x, p["wk"], bits["attn_qkv"], impl).reshape(b, s, hkv, dh)
-    v = qproj(x, p["wv"], bits["attn_qkv"], impl).reshape(b, s, hkv, dh)
+    q, k, v = qproj_group(x, (p["wq"], p["wk"], p["wv"]), bits["attn_qkv"],
+                          impl)
+    q = q.reshape(b, s, h, dh)
+    k = k.reshape(b, s, hkv, dh)
+    v = v.reshape(b, s, hkv, dh)
     if cfg.rope == "rope":
         cos, sin = common.rope_angles(positions, dh, cfg.rope_base)
         q, k = common.apply_rope(q, cos, sin), common.apply_rope(k, cos, sin)

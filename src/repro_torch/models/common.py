@@ -1,7 +1,8 @@
 """Shared model building blocks: norms, RoPE, quantized dense — port of
 ``repro/models/common.py``.
 
-Every projection goes through ``qproj``: the input activation is
+Every projection goes through ``qproj`` (``qproj_group`` for the
+projections that share an input): the input activation is
 LSQ-fake-quantized at the unit's policy bits (``kernels/ops.lsq_fakequant``)
 and multiplied by the packed low-bit codes (``kernels/ops.packed_matmul``),
 or by a dequantized view of them (``{'wpre', 'sa'}``, the CPU decode path),
@@ -116,11 +117,19 @@ def weight_of(p, bits) -> torch.Tensor:
 def qproj(x: torch.Tensor, p, bits, impl: str = "auto") -> torch.Tensor:
     """Quantized projection: activation fake-quant at ``bits``, then the
     packed matmul (PackedLinear) or a float matmul (dict layouts)."""
-    if isinstance(p, PackedLinear):
-        xq = kops.lsq_fakequant(x, p.sa, bits, impl=impl)
-        return kops.packed_matmul(xq, p, impl=impl)
-    xq = kops.lsq_fakequant(x, p["sa"], bits, impl=impl)
-    return kref.matmul(xq, weight_of(p, bits).to(xq.dtype))
+    return qproj_group(x, (p,), bits, impl)[0]
+
+
+def qproj_group(x: torch.Tensor, ps, bits, impl: str = "auto") -> list:
+    """``qproj`` of one input through 1 to 3 projections at one bit-width
+    (q/k/v, gate/up): one grouped fake-quant of ``x``, each at its own
+    step, then each projection's matmul."""
+    steps = [p.sa if isinstance(p, PackedLinear) else p["sa"] for p in ps]
+    xqs = kops.lsq_fakequant(x, steps, bits, impl=impl)
+    return [kops.packed_matmul(xq, p, impl=impl)
+            if isinstance(p, PackedLinear)
+            else kref.matmul(xq, weight_of(p, bits).to(xq.dtype))
+            for xq, p in zip(xqs, ps)]
 
 
 def init_qdense(gen: torch.Generator, d_in: int, d_out: int, dtype, device,

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.common import init_qdense, qproj
+from repro_torch.models.common import init_qdense, qproj, qproj_group
 
 
 def init_dense_mlp(gen: torch.Generator, cfg, device, d_ff=None) -> dict:
@@ -20,7 +20,6 @@ def init_dense_mlp(gen: torch.Generator, cfg, device, d_ff=None) -> dict:
 def dense_mlp_apply(p: dict, x: torch.Tensor, bits: dict,
                     impl: str = "auto") -> torch.Tensor:
     """SwiGLU; bits: {'mlp_gateup', 'mlp_down'}."""
-    g = qproj(x, p["gate"], bits["mlp_gateup"], impl)
-    u = qproj(x, p["up"], bits["mlp_gateup"], impl)
+    g, u = qproj_group(x, (p["gate"], p["up"]), bits["mlp_gateup"], impl)
     return qproj(torch.nn.functional.silu(g) * u, p["down"],
                  bits["mlp_down"], impl)

@@ -4,7 +4,8 @@ contiguous or paged, full or quantized KV cache — port of
 
 On the card every projection streams its packed codes through the CUDA
 ``quant_matmul`` (prefill and every decode step; nothing is dequantized per
-dispatch), each projection's input goes through the CUDA ``lsq_fakequant``,
+dispatch), each projection's input goes through the CUDA ``lsq_fakequant``
+(one launch for q/k/v and one for gate/up, which share their input),
 prefill attention through ``flash_attention`` and quantized-cache decode
 attention through ``kv_decode_attention`` (``paged_kv_decode_attention``
 over a paged cache).  On the CPU the engine runs the

@@ -58,6 +58,104 @@ def test_lsq_fakequant_exact(jax_side, shape, bits):
                                            jnp.float32(bits))))
 
 
+LSQ_GROUP_STEPS = (0.25, 0.1, 3.0)   # chip_smoke.LSQ_PROBE_STEPS
+
+
+def _bits_of(a):
+    """The bits of a torch or numpy float array, as int16 / int32."""
+    if isinstance(a, torch.Tensor):
+        a = a.view(torch.int16 if a.dtype == torch.bfloat16
+                   else torch.int32).numpy()
+    a = np.asarray(a)
+    return a.view(np.int16 if a.dtype.itemsize == 2 else np.int32)
+
+
+def _assert_same_bits(got, want):
+    """Bit for bit (signed zeros too), NaN where ``want`` is NaN."""
+    gn = np.isnan(got.float().numpy())
+    wn = np.isnan(np.asarray(want).astype(np.float32)) \
+        if not isinstance(want, torch.Tensor) else np.isnan(
+            want.float().numpy())
+    np.testing.assert_array_equal(gn, wn)
+    np.testing.assert_array_equal(_bits_of(got)[~gn], _bits_of(want)[~wn])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_steps", [1, 2, 3])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_lsq_grouped_matches_jax(jax_side, bits, n_steps, dtype):
+    """The grouped plain version, one output per step, against the JAX
+    Pallas kernel in interpret mode at each step, bit for bit, on the
+    chip_smoke probe values: NaN, +-inf, signed zeros, ties and near ties
+    of every code, both clamp edges, normal values."""
+    import chip_smoke
+    import jax.numpy as jnp
+    jops, _ = jax_side
+    tdt = getattr(torch, dtype)
+    x = chip_smoke.lsq_probe_values(tdt, LSQ_GROUP_STEPS, torch.device("cpu"))
+    steps = [np.float32(v) for v in LSQ_GROUP_STEPS[:n_steps]]
+    got = tops.lsq_fakequant(x, [_t(s) for s in steps], bits)
+    assert isinstance(got, list) and len(got) == n_steps
+    xj = jnp.asarray(x.float().numpy()).astype(getattr(jnp, dtype))
+    for g, s in zip(got, steps):
+        assert g.dtype == tdt and g.shape == x.shape
+        want = jops.lsq_fakequant(xj, jnp.float32(s), float(bits),
+                                  impl="interpret")
+        _assert_same_bits(g, want)
+        _assert_same_bits(g, tref.lsq_fakequant(x, _t(s), bits))
+
+
+def test_lsq_probe_catches_nan_to_bound():
+    """The probe's first value is NaN: a quantizer that clamps NaN to a
+    bound (fminf/fmaxf) differs from the plain version on it."""
+    import chip_smoke
+    x = chip_smoke.lsq_probe_values(torch.bfloat16, LSQ_GROUP_STEPS,
+                                    torch.device("cpu"))
+    assert torch.isnan(x[0]) and torch.isinf(x[1:3]).all()
+    want = tref.lsq_fakequant(x, 0.25, 4)
+    assert torch.isnan(want[0])
+    assert not chip_smoke.same_bits(torch.nan_to_num(want, nan=-2.0), want)
+    assert chip_smoke.same_bits(want.clone(), want)
+
+
+def test_lsq_grouped_dispatch_and_count(monkeypatch):
+    """ops with a list of steps gives a list from one call; with one step
+    a tensor; the grouped models fake-quantize each shared input once:
+    attention q/k/v then o, the MLP gate/up then down."""
+    from repro_torch.configs import olmo_1b
+    from repro_torch.models import attention as attn
+    from repro_torch.models import common
+    from repro_torch.models import mlp
+    x = torch.randn(2, 3, 8)
+    assert isinstance(tops.lsq_fakequant(x, 0.1, 4), torch.Tensor)
+    assert len(tops.lsq_fakequant(x, (0.1, 0.2), 4)) == 2
+    cfg = olmo_1b.config().smoke()
+    gen = torch.Generator().manual_seed(0)
+    pa = attn.init_gqa(gen, cfg, "cpu")
+    pm = mlp.init_dense_mlp(gen, cfg, "cpu")
+    xs = torch.randn((2, 5, cfg.d_model), generator=gen)
+    calls = []
+    real = tops.lsq_fakequant
+
+    def counted(x, step, bits, impl="auto"):
+        calls.append(len(step) if isinstance(step, (list, tuple)) else 0)
+        return real(x, step, bits, impl=impl)
+
+    bits = {"attn_qkv": 4.0, "attn_wo": 2.0, "mlp_gateup": 4.0,
+            "mlp_down": 2.0}
+    pos = torch.arange(5)[None].expand(2, 5)
+    monkeypatch.setattr(tops, "lsq_fakequant", counted)
+    y_attn, _ = attn.gqa_apply(pa, xs, bits, cfg, "train", None, pos)
+    attn_calls, calls[:] = list(calls), []
+    y_mlp = mlp.dense_mlp_apply(pm, xs, bits)
+    mlp_calls, calls[:] = list(calls), []
+    sep = [common.qproj(xs, pm[k], 4.0) for k in ("gate", "up")]
+    grouped = common.qproj_group(xs, (pm["gate"], pm["up"]), 4.0)
+    assert attn_calls == [3, 1] and mlp_calls == [2, 1]
+    assert y_attn.shape == y_mlp.shape == xs.shape
+    assert all(torch.equal(a, b) for a, b in zip(sep, grouped))
+
+
 # ------------------------------------------------------------- quant_matmul
 @pytest.mark.parametrize("bits", [4, 2])
 @pytest.mark.parametrize("m,k,n", [(3, 64, 40), (8, 256, 128),
@@ -483,6 +581,10 @@ def test_cuda_flash_selector_probe_spread(card, h, hkv, s):
 
 @pytest.mark.cuda
 def test_cuda_lsq_exact(card):
+    """The random case, then the chip_smoke probe: NaN, +-inf, ties and
+    near ties, clamp edges, lengths 1, 7 and 8k + 3, bf16 and float32,
+    bits 2/4/8, 1-3 steps as tensors and as floats, bit for bit."""
+    import chip_smoke
     from repro_torch.kernels import cuda
     g = torch.Generator(card).manual_seed(2)
     x = torch.randn((3, 1000), generator=g, device=card).bfloat16()
@@ -491,20 +593,40 @@ def test_cuda_lsq_exact(card):
         torch.testing.assert_close(cuda.lsq_fakequant(x, step, bits),
                                    tref.lsq_fakequant(x, step, bits),
                                    rtol=0, atol=0)
+    calls, bad = chip_smoke.lsq_probe(card)
+    assert calls == 144 and not bad, bad
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,n_bins", [(2048 * 8192, 16), (2048 * 8192, 4),
-                                      (1_000_003, 16), (5, 4096)])
+def test_cuda_lsq_refuses_misaligned(card):
+    """An x off a 16-byte boundary raises in the wrapper; ops copies it
+    to an aligned buffer and launches."""
+    from repro_torch.kernels import cuda
+    buf = torch.zeros(1003, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        cuda.lsq_fakequant(buf[3:], 0.1, 4)
+    before = cuda.LAUNCHES["lsq_fakequant"]
+    got = tops.lsq_fakequant(buf[3:], [0.1, 0.2], 4)
+    assert cuda.LAUNCHES["lsq_fakequant"] == before + 1 and len(got) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_bins", [
+    (2048 * 8192, 16), (2048 * 8192, 4), (1_000_003, 16), (1_000_003, 4),
+    (1_000_003, 1), (1_000_003, 17), (1_000_003, 4096), (5, 4096), (3, 16),
+    (0, 4)])
 def test_cuda_histogram_exact(card, n, n_bins):
     """Exact against the plain version, with negatives and the sentinel
-    n_bins in the codes and a ragged length."""
+    n_bins in the codes and ragged lengths, through the register path
+    (n_bins <= 16) and the shared one; two calls in a row equal (the
+    counters reset)."""
     from repro_torch.kernels import cuda
     g = torch.Generator(card).manual_seed(3)
     codes = torch.randint(-3, n_bins + 3, (n,), generator=g, device=card,
                           dtype=torch.int32)
-    assert torch.equal(cuda.histogram(codes, n_bins),
-                       tref.histogram(codes, n_bins))
+    first = cuda.histogram(codes, n_bins)
+    assert torch.equal(first, tref.histogram(codes, n_bins))
+    assert torch.equal(cuda.histogram(codes, n_bins), first)
 
 
 @pytest.mark.cuda
@@ -786,6 +908,51 @@ def test_decode_wrappers_refuse_bad_shapes(fake_card, layout):
         with pytest.raises(ValueError, match=match):
             fn(*args, bits)
     assert not fake_card
+
+
+def test_lsq_wrapper_launch_args(fake_card):
+    """The lsq wrapper's launch: one per call, the outputs and steps padded
+    to LSQ_MAX_STEPS (a tensor step by pointer, a float by value), the step
+    count, integer bits; a list in, a list out.  It refuses 4 steps,
+    non-integer bits and an x off a 16-byte boundary before launching."""
+    from repro_torch.kernels import cuda
+    x = torch.zeros(37)
+    st = torch.tensor(0.5)
+    out = cuda.lsq_fakequant(x, [st, 0.25], 4.0)
+    assert isinstance(out, list) and len(out) == 2
+    (name, a), = fake_card
+    assert name == "lsq_fakequant" and a[4] == 37
+    assert a[1:3] == (out[0].data_ptr(), out[1].data_ptr()) and a[3] is None
+    assert a[5:8] == (st.data_ptr(), None, None)
+    assert a[8:11] == (0.0, 0.25, 0.0) and a[11:14] == (2, 4, 0)
+    assert isinstance(cuda.lsq_fakequant(x, 0.5, 4), torch.Tensor)
+    fake_card.clear()
+    buf = torch.zeros(41)
+    for args, match in (((x, [0.1] * 4, 4), "steps"), ((x, 0.1, 4.5), "bits"),
+                        ((buf[1:], 0.1, 4), "aligned")):
+        with pytest.raises(ValueError, match=match):
+            cuda.lsq_fakequant(*args)
+    assert not fake_card
+
+
+def test_histogram_wrapper_uses_stream_counters(fake_card):
+    """The histogram's one launch gets the stream's counters (n_bins + 1 of
+    them at least, the buffer every split kernel shares) and allocates
+    only its output."""
+    from repro_torch.kernels import cuda
+    codes = torch.zeros(10, dtype=torch.int32)
+    cuda._COUNTERS.clear()
+    try:
+        out = cuda.histogram(codes, 2000)
+        (name, a), = fake_card
+        buf = cuda._COUNTERS[(None, 0)]
+        assert name == "histogram" and a[1:3] == (10, 2000)
+        assert a[3] == buf.data_ptr() and buf.numel() >= 2001
+        assert a[4] == out.data_ptr() and out.shape == (2000,)
+        cuda.histogram(codes, 16)
+        assert fake_card[1][1][3] == buf.data_ptr()  # the same buffer
+    finally:
+        cuda._COUNTERS.clear()
 
 
 def test_nvcc_missing_raises(monkeypatch, tmp_path):

@@ -206,6 +206,31 @@ def test_paged_generate_equals_contiguous(setup, cache, bits):
     assert torch.equal(got, want)
 
 
+def test_engine_fake_quant_calls_per_step(setup, monkeypatch):
+    """A prefill and a decode step each fake-quantize 4 inputs a layer
+    (q/k/v grouped, o, gate/up grouped, down) and the head's: 4 L + 1
+    calls of ``ops.lsq_fakequant``, one launch each on the card."""
+    from repro_torch.kernels import ops
+    calls = []
+    real = ops.lsq_fakequant
+
+    def counted(x, step, bits, impl="auto"):
+        calls.append(len(step) if isinstance(step, (list, tuple)) else 1)
+        return real(x, step, bits, impl=impl)
+
+    monkeypatch.setattr(ops, "lsq_fakequant", counted)
+    engine = _port_engine(setup, "mixed", "quantized", 8)
+    prompt = torch.as_tensor(_prompt("mixed", "quantized"))
+    last, pre = engine.prefill(prompt, torch.tensor([prompt.shape[1]]))
+    n_layers = setup["cfg"].n_repeats
+    want = [3, 1, 2, 1] * n_layers + [1]
+    assert calls == want
+    calls.clear()
+    cache = engine.splice_prefill(pre, torch.tensor([prompt.shape[1]]))
+    engine.decode_step(cache, last.argmax(-1, keepdim=True))
+    assert calls == want
+
+
 def test_paged_engine_refuses_small_pools(setup):
     ta = setup["arrays"]["mixed"][1]
     params = pack_params(setup["tparams"], ta, setup["cfg"], device="cpu")
