@@ -18,7 +18,9 @@ Phases, in order; any failure exits non-zero:
                against the contiguous kernel on the gathered cache, and the
                probes of quant_matmul (identity, and the GEMV's selector and
                repeat), decode attention (selector in both layouts, and
-               repeat), flash_attention (selector), lsq_fakequant (NaN,
+               repeat), flash_attention (selector, also with the queries
+               cut to their last rows; and the suffix prefill's Sk > Sq
+               shapes beside SDPA with a bottom-right mask), lsq_fakequant (NaN,
                +-inf, ties, clamp edges, ragged lengths) and the histogram
                (repeat, one device op a call) bit for bit.
   select     - EAGL gains of olmo-1b at full width, weights drawn on the
@@ -31,6 +33,13 @@ Phases, in order; any failure exits non-zero:
                counts every kernel's launches (lsq_fakequant: 4 a layer
                and the head's, per prefill and per decode step); a
                torch.profiler breakdown of one prefill and 8 decode steps.
+  schedule   - the continuous-batching scheduler over that mix: 24
+               requests (12 sharing a 256-token system prompt, 4 repeats, 8
+               unique; 8-32 new tokens) through 8 slots, paged full bf16,
+               paged int8 and contiguous int4, pools of 160 pages; gates A
+               (equal to a serial run), B (sharing on against off), D
+               (allocator, hits, deferrals, pages) and the device-to-host
+               copies (see phase_schedule).
   5. check   - kernel path against the plain path (impl="ref") on the same
                weights, teacher-forced with the kernel path's tokens over
                the prefill and 16 decode steps, beside a control: the plain
@@ -47,6 +56,7 @@ import re
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -588,8 +598,11 @@ def flash_selector_probe(dev, b, h, hkv, s, d=128, seed=0, causal=True):
 def check_flash(timer, dev, gen):
     """The prefill shape and a ragged GQA shape, causal, against the plain
     version in float32 (max-abs and per-row tolerances), timed beside SDPA;
+    the suffix prefill's offset shapes (``FLASH_OFFSET_CASES``) likewise,
+    beside SDPA with a bottom-right mask; a digest of the Sk = Sq outputs;
     then the selector probe, bit for bit, at S = 128, 129, 300 and 513 with
-    MHA and GQA 16/4, causal and with keys spread over every kv tile."""
+    MHA and GQA 16/4, causal and with keys spread over every kv tile, and
+    causal with the queries cut to their last rows (q_offset > 0)."""
     from repro_torch.kernels import cuda, ops
     sdpa = torch.nn.functional.scaled_dot_product_attention
     cases = []
@@ -643,6 +656,12 @@ def check_flash(timer, dev, gen):
             f"the bound; enqueue {rec['host_us']:.1f} us on the host (SDPA "
             f"{rec['library_host_us']:.1f})")
         cases.append(rec)
+    for (s, s_k, hkv) in FLASH_OFFSET_CASES:
+        cases.append(flash_offset_case(timer, dev, gen, s, s_k, hkv))
+    digest = flash_digest(dev)
+    cases.append({"digest": digest, "ok": True})
+    log(f"    Sk = Sq outputs (seeded inputs, B=8 H=16 S=512 and B=2 H=16 "
+        f"Hkv=4 S=300, D=128): sha256 {digest}")
     for causal in (True, False):
         for s in (128, 129, 300, 513):
             for hkv in (16, 4):
@@ -655,7 +674,86 @@ def check_flash(timer, dev, gen):
                               "bit_equal": same, "ok": same})
                 log(f"    selector probe S={s} Hkv={hkv} causal={causal}: "
                     f"output row i equals V[pos(pi(i))] bit for bit: {same}")
+    for (s, off) in ((16, 256), (37, 16), (200, 496), (1, 512)):
+        for hkv in (16, 4):
+            q, k, v, want = flash_selector_probe(dev, 2, 16, hkv, off + s)
+            got = cuda.flash_attention(q[:, :, off:], k, v, causal=True)
+            same = bool(torch.equal(got, want[:, :, off:]))
+            cases.append({"selector_probe": True, "b": 2, "h": 16,
+                          "hkv": hkv, "s": s, "q_offset": off, "d": 128,
+                          "causal": True, "bit_equal": same, "ok": same})
+            log(f"    selector probe Sq={s} q_offset={off} Hkv={hkv}: row i "
+                f"equals V[pos(pi(q_offset + i))] bit for bit: {same}")
     return cases[0], cases
+
+
+# the suffix prefill's shapes: (Sq, Sk, Hkv) at B = 1, H = 16, D = 128;
+# Sk - Sq is the shared prefix (256 rows of the schedule phase's system
+# prompt, or more)
+FLASH_OFFSET_CASES = ((16, 272, 16), (64, 320, 16), (240, 496, 16),
+                      (200, 712, 16), (200, 712, 4))
+
+
+def flash_offset_case(timer, dev, gen, s, s_k, hkv, h=16, d=128):
+    """Keys longer than the queries (query row i at position Sk - Sq + i)
+    against the plain version in float32 with the flash tolerance; timed
+    beside SDPA with an explicit bottom-right mask (its is_causal aligns
+    top-left when Sq != Sk)."""
+    from repro_torch.kernels import cuda, ops
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    off = s_k - s
+    q = torch.randn((1, h, s, d), generator=gen, device=dev).bfloat16()
+    k = torch.randn((1, hkv, s_k, d), generator=gen, device=dev).bfloat16()
+    v = torch.randn((1, hkv, s_k, d), generator=gen, device=dev).bfloat16()
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = cuda.flash_attention(q, k, v, causal=True)
+    want = ops.flash_attention(qf, kf, vf, causal=True, impl="ref")
+    got = out.float()
+    err = float((got - want).abs().max())
+    tol = 1e-2 * float(want.abs().max())
+    row_err = float((torch.linalg.vector_norm(got - want, dim=-1)
+                     / torch.linalg.vector_norm(want, dim=-1)).max())
+    mask = torch.ones((s, s_k), dtype=torch.bool,
+                      device=dev).tril(diagonal=off)
+    lib = sdpa(q, k, v, attn_mask=mask, enable_gqa=hkv != h)
+    lib_err = float((lib.float() - want).abs().max())
+    rec = {"b": 1, "h": h, "hkv": hkv, "s": s, "s_k": s_k, "q_offset": off,
+           "d": d, "max_abs_err": err, "tol": tol, "max_row_rel_err": row_err,
+           "row_tol": 1e-2, "sdpa_max_abs_err": lib_err,
+           "ok": err <= tol and row_err <= 1e-2,
+           "ms": timer(lambda: cuda.flash_attention(q, k, v)),
+           "plain_ms": timer(lambda: ops.flash_attention(
+               qf, kf, vf, causal=True, impl="ref")),
+           "library_ms": timer(lambda: sdpa(q, k, v, attn_mask=mask,
+                                            enable_gqa=hkv != h))}
+    nb = 2 * (2 * h * s * d) + 2 * (2 * hkv * s_k * d)
+    flop = 4.0 * h * d * (s * off + s * (s + 1) / 2)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nb, flop, BF16_OPS_PER_S)
+    rec["x_sdpa"] = rec["ms"] / rec["library_ms"]
+    rec["x_bound"] = rec["ms"] / rec["bound_ms"]
+    log(f"  flash_attention offset B=1 H={h} Hkv={hkv} Sq={s} Sk={s_k} "
+        f"(q_offset {off}) D={d}: err {err:.3g} (tol {tol:.3g}), worst row "
+        f"{row_err:.3g} (tol 0.01); {rec['ms']:.4f} ms, plain "
+        f"{rec['plain_ms']:.4f}, masked SDPA {rec['library_ms']:.4f} "
+        f"({rec['x_sdpa']:.2f}x), bound {rec['bound_ms']:.4f} "
+        f"({rec['bound_by']}, {rec['x_bound']:.1f}x)")
+    return rec
+
+
+def flash_digest(dev) -> str:
+    """sha256 of the kernel's outputs at Sk = Sq on seeded inputs (the
+    prefill shape and a ragged GQA shape): equal digests from two trees in
+    one call show the two kernels compute the same bits."""
+    import hashlib
+    from repro_torch.kernels import cuda
+    g = torch.Generator(dev).manual_seed(7)
+    h = hashlib.sha256()
+    for (b, hkv, s) in ((8, 16, 512), (2, 4, 300)):
+        q, k, v = (torch.randn((b, n, s, 128), generator=g,
+                               device=dev).bfloat16() for n in (16, hkv, hkv))
+        out = cuda.flash_attention(q, k, v, causal=True)
+        h.update(out.view(torch.int16).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 LSQ_STEPS = (0.7559289, 0.31, 1.7)   # q, k and v's steps in phase 3
@@ -1298,6 +1396,443 @@ def serve_run(engine, cfg, tok_t, len_t, lengths):
             "tokens": out.tolist()}
 
 
+# ------------------------------------------------------------- schedule
+SCHED_SLOTS = 8
+SCHED_MAX_SEQ = 1024
+SCHED_POOL = 160                 # pages; 8 slots' worst case is 512
+GATE_A_MIN = 18                  # of 24 requests equal to their serial run
+MIN_HITS = 12                    # registry hits in the paged full run
+# run -> (EngineSpec fields, kernels the run must launch, and must not)
+SCHED_RUNS = {
+    "paged-full": ({"cache": "full", "cache_layout": "paged"},
+                   {"quant_matmul", "flash_attention", "lsq_fakequant"},
+                   {"kv_decode_attention", "paged_kv_decode_attention"}),
+    "paged-int8": ({"cache": "quantized", "cache_bits": 8,
+                    "cache_layout": "paged"},
+                   {"quant_matmul", "flash_attention", "lsq_fakequant",
+                    "paged_kv_decode_attention"}, {"kv_decode_attention"}),
+    "contiguous-int4": ({"cache": "quantized", "cache_bits": 4},
+                        {"quant_matmul", "flash_attention", "lsq_fakequant",
+                         "kv_decode_attention"},
+                        {"paged_kv_decode_attention"}),
+}
+# submission order: s = shares the system prompt, u = shares nothing,
+# r = repeats an earlier s prompt exactly
+# r = repeats an earlier s prompt exactly.  Each hit's donor comes first;
+# with these budgets the paged full run defers admissions under sharing
+# too, and its peak of pages in use stays under the run without sharing
+SCHED_ORDER = ("s0 u0 s1 s2 s3 s4 s5 r0 u1 u2 u3 s6 u4 u5 s7 u6 s8 r1 s9 "
+               "r2 u7 r3 s10 s11").split()
+
+
+def schedule_requests(cfg, rng):
+    """The schedule phase's 24 requests, in submission order: 12 share a
+    256-token system prompt (16 pages) and add 5-200 tokens of their own
+    (s0 fewer than 16, so the prefix it registers is the system prompt's
+    16 pages), 4 repeat the s prompt submitted last before them, 8 share
+    nothing
+    (64-512 tokens); 8-32 new tokens each.  Returns [(uid, prompt,
+    max_new_tokens)]."""
+    sys_prompt = rng.integers(0, cfg.vocab, 256).tolist()
+    prompts = {}
+    for i in range(12):
+        n = int(rng.integers(5, 16)) if i == 0 else int(rng.integers(5, 201))
+        prompts[f"s{i}"] = sys_prompt + rng.integers(0, cfg.vocab, n).tolist()
+    for i in range(8):
+        prompts[f"u{i}"] = rng.integers(0, cfg.vocab,
+                                        int(rng.integers(64, 513))).tolist()
+    for uid in (u for u in SCHED_ORDER if u[0] == "r"):
+        # the latest s prompt before it, so that its donor's entry is
+        # still registered when it arrives
+        donor = [u for u in SCHED_ORDER[:SCHED_ORDER.index(uid)]
+                 if u[0] == "s"][-1]
+        prompts[uid] = list(prompts[donor])
+    budgets = rng.integers(8, 33, len(SCHED_ORDER))
+    return [(uid, prompts[uid], int(n)) for uid, n in zip(SCHED_ORDER,
+                                                            budgets)]
+
+
+def audited(engine, share: bool = True):
+    """A ContinuousBatchingScheduler that records, without changing what
+    it does: each admission's plan (miss, aligned hit at its
+    suffix_start, identical hit) and first-token logits, deferrals,
+    decode chunks, the wall clock of every emission, and the peak of the
+    distinct pages live slots map; and checks the allocator after every
+    admission and eviction."""
+    from repro_torch.serve import ContinuousBatchingScheduler, paging
+
+    class Audited(ContinuousBatchingScheduler):
+        def __init__(self):
+            super().__init__(engine, n_slots=SCHED_SLOTS, prompt_bucket=16,
+                             share_prefixes=share)
+            self.plans, self.first_logits, self.emit_wall = {}, {}, {}
+            self.deferrals = self.chunks = self.live_peak = 0
+            self._plan = None
+
+        def _record(self, plan, *args, **kw):
+            self._plan = plan(*args, **kw)
+            return self._plan
+
+        def _admit_contiguous(self, j, req):
+            last = super()._admit_contiguous(j, req)
+            self.plans[req.uid] = ("miss", 0)
+            self.first_logits[req.uid] = last[0].float().clone()
+            return last
+
+        def _admit_paged(self, j, req):
+            orig = paging.plan_admission
+            with patched(paging, "plan_admission",
+                         lambda *a, **k: self._record(orig, *a, **k)):
+                last = super()._admit_paged(j, req)
+            self.allocator.check()
+            if last is None:
+                self.deferrals += 1
+                return None
+            plan, n = self._plan, len(req.prompt)
+            self.plans[req.uid] = (
+                "miss" if plan.entry is None else
+                "identical" if plan.suffix_start >= n else "aligned",
+                plan.suffix_start)
+            self.first_logits[req.uid] = last[0].float().clone()
+            live = set()
+            for pages in self._slot_pages:
+                live.update(pages or ())
+            self.live_peak = max(self.live_peak, len(live))
+            return last
+
+        def _decode_harvest(self):
+            self.chunks += 1
+            super()._decode_harvest()
+
+        def _record_emit(self, uid, clock=None):
+            super()._record_emit(uid, clock)
+            self.emit_wall.setdefault(uid, []).append(time.perf_counter())
+
+        def _evict(self, slot, j):
+            super()._evict(slot, j)
+            if self._paged:
+                self.allocator.check()
+
+    return Audited()
+
+
+def pcts(xs) -> dict:
+    a = np.asarray(xs if len(xs) else [0.0], np.float64)
+    return {"p50": float(np.percentile(a, 50, method="nearest")),
+            "p99": float(np.percentile(a, 99, method="nearest"))}
+
+
+def schedule_run(engine, reqs, dev, share=True, profile=False):
+    """Submit every request, then drain: the launches counted, the wall
+    clock kept and, with ``profile``, the device-to-host copies counted
+    (torch.profiler, device activity only).  Returns the scheduler and the
+    run's record."""
+    from torch.profiler import ProfilerActivity, profile as profiler
+    from repro_torch.kernels import cuda
+    from repro_torch.serve import Request, kv_cache
+    sched = audited(engine, share)
+    for uid, prompt, n, eos in reqs:
+        sched.submit(Request(uid=uid, prompt=prompt, max_new_tokens=n,
+                             eos_id=eos))
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launches()
+    act = ProfilerActivity.CUDA if dev.type == "cuda" else \
+        ProfilerActivity.CPU
+    ctx = profiler(activities=[act]) if profile else contextlib.nullcontext()
+    with ctx as prof:
+        t0 = time.perf_counter()
+        sched.run()
+        sync(dev)
+        wall = time.perf_counter() - t0
+    rec = {"wall_s": wall, "launches": dict(cuda.LAUNCHES),
+           "admissions": len(sched.first_logits), "chunks": sched.chunks,
+           "deferrals": sched.deferrals, "plans": sched.plans,
+           "latency_report": sched.latency_report(),
+           "pool_bytes": kv_cache.cache_bytes(sched.cache),
+           "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                    if dev.type == "cuda" else None)}
+    n_tok = sum(len(c.tokens) for c in sched.completed.values())
+    ttft = [w[0] - t0 for w in sched.emit_wall.values()]
+    gaps = [b - a for w in sched.emit_wall.values() for a, b in zip(w, w[1:])]
+    rec.update(tokens=n_tok, tokens_per_s=n_tok / wall,
+               wall_ttft_ms={k: v * 1e3 for k, v in pcts(ttft).items()},
+               wall_inter_token_ms={k: v * 1e3 for k, v in pcts(gaps).items()})
+    if profile:
+        rows = device_table(prof)
+        busy = sum(us for us, _ in rows.values())
+        rec.update(dtoh_copies=sum(n for k, (_, n) in rows.items()
+                                   if k.startswith("Memcpy DtoH")),
+                   device_ms=busy / 1e3,
+                   idle_share=1.0 - busy / (wall * 1e6))
+    if sched._paged:
+        rec.update(peak_pages=sched.allocator.peak_in_use,
+                   live_peak_pages=sched.live_peak,
+                   pages_in_use_after=sched.allocator.in_use,
+                   registry_hits=(sched.registry.hits if sched.registry
+                                  else 0),
+                   registry_misses=(sched.registry.misses if sched.registry
+                                    else 0))
+    return sched, rec
+
+
+def check_completions(sched, reqs, vocab) -> None:
+    for uid, prompt, n, eos in reqs:
+        c = sched.completed.get(uid)
+        if c is None or not 1 <= len(c.tokens) <= n or \
+                not all(0 <= t < vocab for t in c.tokens) or \
+                c.prompt_len != len(prompt):
+            raise RuntimeError(f"request {uid}: bad completion {c}")
+        stop = "eos" if eos is not None and c.tokens[-1] == eos else "length"
+        if c.finish_reason != stop or (stop == "length" and
+                                       len(c.tokens) != n):
+            raise RuntimeError(f"request {uid}: finish {c.finish_reason} "
+                               f"after {len(c.tokens)} of {n} tokens")
+
+
+def suffix_prefill_device(engine, sched, reqs, dev) -> dict:
+    """One aligned hit's suffix prefill (over the registered system-prompt
+    pages, mapped into slot 0 of the drained scheduler) beside the same
+    prompt's whole prefill: device ms from torch.profiler."""
+    from repro_torch.serve import paging
+    uid, st = max(((u, p[1]) for u, p in sched.plans.items()
+                   if p[0] == "aligned"), key=lambda x: x[1])
+    prompt = next(p for u, p, _, _ in reqs if u == uid)
+    suffix = prompt[st:]
+    pad = sched._bucket_pad(len(suffix), engine.max_seq - st)
+    whole_pad = sched._bucket_pad(len(prompt), engine.max_seq)
+    toks = sched._prompt_tokens(suffix, pad)
+    whole = sched._prompt_tokens(prompt, whole_pad)
+    n = torch.tensor([len(prompt)])
+    # the prefix rows into pages of the drained scheduler's pool
+    sched.registry.make_room(st // PAGE)
+    pages = sched.allocator.alloc(st // PAGE)
+    _, pre = engine.prefill(whole, n)
+    cache = paging.write_slot_pages(sched.cache, pre, 0, len(prompt), 0,
+                                    pages)
+    cache = paging.set_table_rows(cache, 0, pages)
+    suf = device_breakdown(lambda: engine.prefill_suffix(
+        toks, len(suffix), st, cache, 0))
+    full = device_breakdown(lambda: engine.prefill(whole, n))
+    paging.set_table_rows(cache, 0, [])
+    sched.allocator.release(pages)
+    return {"uid": uid, "prefix": st, "suffix": len(suffix),
+            "suffix_pad": pad, "whole_pad": whole_pad,
+            "suffix_device_ms": suf["device_ms"],
+            "whole_device_ms": full["device_ms"],
+            "suffix_wall_ms": suf["wall_ms"], "whole_wall_ms": full["wall_ms"],
+            "suffix_top": suf["top"][:8], "whole_top": full["top"][:8]}
+
+
+def phase_schedule(cfg, packed, pa, dev, smi_line):
+    """The continuous-batching scheduler over olmo-1b at full width: the 24
+    requests of ``schedule_requests`` through 8 slots (max_seq 1024, page
+    16, decode chunk 16, prompt bucket 16), paged full bf16 (aligned hits
+    through the suffix prefill), paged int8 (identical hits and
+    copy-on-write) and contiguous int4; the paged pools hold 160 pages, so
+    admissions are deferred and pages recycled.  Gates:
+
+      A - each request whose admission plan is the same in both runs
+          decodes the same tokens as in a serial run (the same 24, one at a
+          time, through a fresh scheduler of the same spec), and at least
+          GATE_A_MIN of 24 match;
+      B - paged int8: an identical hit's tokens equal its donor's over
+          their common length; paged full: each aligned hit's first-token
+          logits lie within CONTROL_FACTOR x the control of the same
+          prompt served with share_prefixes=False, the control being those
+          prompts' whole prefill, kernel path against impl="ref";
+      D - the allocator's invariants after every admission and eviction;
+          at least MIN_HITS registry hits and one deferral in the paged
+          full run; its peak of pages in use lower with sharing than
+          without; without sharing, every page back at the end;
+      copies - device-to-host copies at most one per admission plus one
+          per decode chunk;
+    and every kernel of each run's path launched (and none of another's).
+    """
+    from repro_torch.serve import EngineSpec, Request, ServeEngine
+    base = schedule_requests(cfg, np.random.default_rng(2))
+    out = {}
+    for name, (spec, need, never) in SCHED_RUNS.items():
+        engine = ServeEngine(cfg, packed, pa, SCHED_MAX_SEQ,
+                             EngineSpec(page_size=PAGE, decode_chunk=16,
+                                        n_pages=SCHED_POOL, **spec),
+                             device=dev)
+        # one miss stops at EOS: the token its serial run emits at step 5
+        first_u = next(r for r in base if r[0][0] == "u")
+        probe, _ = schedule_run(engine, [first_u + (None,)], dev)
+        eos_uid = first_u[0]
+        eos = probe.completed[eos_uid].tokens[4]
+        reqs = [r + ((eos if r[0] == eos_uid else None),) for r in base]
+        del probe
+        sched, rec = schedule_run(engine, reqs, dev)
+        launches = rec["launches"]
+        missing = sorted(k for k in need if launches[k] == 0)
+        stray = sorted(k for k in never if launches[k] != 0)
+        if missing or stray:
+            raise RuntimeError(f"schedule {name}: the path launched no "
+                               f"{missing} and launched {stray}")
+        check_completions(sched, reqs, cfg.vocab)
+        conc = sched
+        prof_sched, prof = schedule_run(engine, reqs, dev, profile=True)
+        rec["profiled"] = {k: prof[k] for k in (
+            "dtoh_copies", "admissions", "chunks", "device_ms", "idle_share",
+            "wall_s")}
+        if prof_sched.latency_report() != rec["latency_report"] or any(
+                prof_sched.completed[u].tokens != conc.completed[u].tokens
+                for u, *_ in reqs):
+            raise RuntimeError(f"schedule {name}: the profiled run's "
+                               f"tokens or latency report differ")
+        del prof_sched
+        if prof["dtoh_copies"] > prof["admissions"] + prof["chunks"]:
+            raise RuntimeError(f"schedule {name}: {prof['dtoh_copies']} "
+                               f"device-to-host copies for "
+                               f"{prof['admissions']} admissions and "
+                               f"{prof['chunks']} decode chunks")
+        serial = audited(engine)
+        for uid, prompt, n, e in reqs:
+            serial.submit(Request(uid=uid, prompt=prompt, max_new_tokens=n,
+                                  eos_id=e))
+            serial.run()
+        same_plan = [u for u, *_ in reqs
+                     if conc.plans[u] == serial.plans[u]]
+        matched = [u for u in same_plan if conc.completed[u].tokens
+                   == serial.completed[u].tokens]
+        rec["gate_a"] = {"same_plan": len(same_plan), "matched":
+                         len(matched), "differs": sorted(set(same_plan)
+                                                         - set(matched)),
+                         "plans_differ": sorted(
+                             u for u, *_ in reqs
+                             if conc.plans[u] != serial.plans[u])}
+        log(f"  schedule {name}: {rec['tokens']} tokens in "
+            f"{rec['wall_s']:.2f} s ({rec['tokens_per_s']:.1f} tok/s); "
+            f"{rec['admissions']} admissions, {rec['deferrals']} deferrals, "
+            f"{rec['chunks']} decode chunks; pool {rec['pool_bytes'] / 1e6:.1f}"
+            f" MB, peak memory "
+            f"{(rec['max_memory_allocated'] or 0) / 1e9:.2f} GB; {smi_line}")
+        lat = rec["latency_report"]
+        log(f"    latency (model steps): TTFT p50 {lat['ttft']['p50']} p99 "
+            f"{lat['ttft']['p99']}, inter-token p50 "
+            f"{lat['inter_token']['p50']} p99 {lat['inter_token']['p99']}; "
+            f"wall: TTFT p50 {rec['wall_ttft_ms']['p50']:.1f} ms p99 "
+            f"{rec['wall_ttft_ms']['p99']:.1f}, inter-token p50 "
+            f"{rec['wall_inter_token_ms']['p50']:.1f} ms p99 "
+            f"{rec['wall_inter_token_ms']['p99']:.1f}")
+        log(f"    profiled run: {prof['dtoh_copies']} device-to-host copies "
+            f"for {prof['admissions']} admissions + {prof['chunks']} chunks;"
+            f" device busy {prof['device_ms']:.1f} ms of "
+            f"{prof['wall_s'] * 1e3:.1f}, idle share "
+            f"{prof['idle_share']:.3f}; launches {launches}")
+        log(f"    gate A: {len(matched)} of {len(reqs)} requests equal their "
+            f"serial run ({len(same_plan)} with the same admission plan; "
+            f"plans differ for {rec['gate_a']['plans_differ']})")
+        if rec["gate_a"]["differs"] or len(matched) < GATE_A_MIN:
+            raise RuntimeError(f"schedule {name}: gate A: {rec['gate_a']}")
+        if conc._paged:
+            log(f"    pages: peak {rec['peak_pages']} in use, "
+                f"{rec['live_peak_pages']} mapped by live slots, "
+                f"{rec['pages_in_use_after']} in use after; registry "
+                f"{rec['registry_hits']} hits, {rec['registry_misses']} "
+                f"misses; plans "
+                f"{sorted(Counter(k for k, _ in conc.plans.values()).items())}")
+        if name == "paged-int8":
+            rec["gate_b_identical"] = identical_hits(conc, reqs)
+            log(f"    gate B: identical hits equal to their donors' tokens:"
+                f" {rec['gate_b_identical']}")
+            if not all(rec["gate_b_identical"].values()):
+                raise RuntimeError(f"schedule {name}: gate B: "
+                                   f"{rec['gate_b_identical']}")
+        if name == "paged-full":
+            rec.update(sharing_off(cfg, packed, pa, dev, engine, conc, reqs,
+                                   rec))
+            rec["suffix_prefill"] = suffix_prefill_device(engine, conc,
+                                                          reqs, dev)
+            sp = rec["suffix_prefill"]
+            log(f"    suffix prefill of {sp['uid']} ({sp['suffix']} tokens "
+                f"padded to {sp['suffix_pad']} over {sp['prefix']} shared): "
+                f"{sp['suffix_device_ms']:.2f} device ms against "
+                f"{sp['whole_device_ms']:.2f} for the whole prompt "
+                f"(padded to {sp['whole_pad']}); the largest items of each:")
+            for what in ("suffix_top", "whole_top"):
+                for row in sp[what][:4]:
+                    log(f"      {what[:-4]:6s} {row['ms']:8.3f} ms "
+                        f"x{row['count']:<4d} {row['kernel']}")
+        rec["plans"] = {u: list(p) for u, p in rec["plans"].items()}
+        out[name] = rec
+        del engine, sched, conc, serial
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def identical_hits(sched, reqs) -> dict:
+    """Each identical hit's tokens against its donor's (the first request
+    with the same prompt, admitted as a miss), over their common length."""
+    res = {}
+    for i, (uid, prompt, _, _) in enumerate(reqs):
+        if sched.plans[uid][0] != "identical":
+            continue
+        donor = next(u for u, p, _, _ in reqs[:i]
+                     if p == prompt and sched.plans[u][0] == "miss")
+        a, b = sched.completed[uid].tokens, sched.completed[donor].tokens
+        n = min(len(a), len(b))
+        res[f"{uid}<-{donor}"] = a[:n] == b[:n]
+    return res
+
+
+def sharing_off(cfg, packed, pa, dev, engine, conc, reqs, rec) -> dict:
+    """Gates B (paged full) and D: the same requests with
+    share_prefixes=False; each aligned hit's first-token logits against
+    that run's, beside the control (the hit prompts' whole prefill, kernel
+    path against impl="ref")."""
+    from repro_torch.serve import EngineSpec, ServeEngine
+    off, off_rec = schedule_run(engine, reqs, dev, share=False)
+    hits = [u for u, p in conc.plans.items() if p[0] == "aligned"]
+    if not hits:
+        raise RuntimeError("schedule paged-full: no aligned prefix hit")
+    ref = ServeEngine(cfg, packed, pa, SCHED_MAX_SEQ, EngineSpec(),
+                      device=dev, impl="ref")
+    gaps, control, equal = {}, {}, {}
+    for uid in hits:
+        prompt = next(p for u, p, _, _ in reqs if u == uid)
+        pad = conc._bucket_pad(len(prompt), SCHED_MAX_SEQ)
+        want, _ = ref.prefill(conc._prompt_tokens(prompt, pad),
+                              torch.tensor([len(prompt)]))
+        gaps[uid] = rel_err(conc.first_logits[uid], off.first_logits[uid])
+        control[uid] = rel_err(off.first_logits[uid], want[0])
+        equal[uid] = conc.completed[uid].tokens == off.completed[uid].tokens
+    bound = CONTROL_FACTOR * max(control.values())
+    res = {"sharing_off": {k: off_rec[k] for k in (
+               "peak_pages", "live_peak_pages", "pages_in_use_after",
+               "wall_s", "tokens_per_s")},
+           "gate_b_aligned": {"gap": gaps, "control": control,
+                              "bound": bound, "tokens_equal": equal}}
+    log(f"    gate B: {len(hits)} aligned hits, first-token logit gap to "
+        f"share_prefixes=False at most {max(gaps.values()):.4g} (bound "
+        f"{CONTROL_FACTOR} x control {max(control.values()):.4g} = "
+        f"{bound:.4g}); tokens equal for {sum(equal.values())} of "
+        f"{len(hits)}")
+    log(f"    gate D: without sharing peak {off_rec['peak_pages']} pages in "
+        f"use, {off_rec['live_peak_pages']} mapped by live slots (with: "
+        f"{rec['peak_pages']}, {rec['live_peak_pages']}), "
+        f"{off_rec['pages_in_use_after']} in use after")
+    bad = []
+    if max(gaps.values()) > bound:
+        bad.append(f"gate B gap {gaps} over {bound}")
+    if rec["registry_hits"] < MIN_HITS or rec["deferrals"] < 1:
+        bad.append(f"gate D: {rec['registry_hits']} hits, "
+                   f"{rec['deferrals']} deferrals")
+    if not rec["peak_pages"] < off_rec["peak_pages"]:
+        bad.append(f"gate D: peak {rec['peak_pages']} pages in use with "
+                   f"sharing, {off_rec['peak_pages']} without")
+    if off_rec["pages_in_use_after"] != 0:
+        bad.append(f"gate D: {off_rec['pages_in_use_after']} pages in use "
+                   f"after the run without sharing")
+    if bad:
+        raise RuntimeError(f"schedule paged-full: {bad}")
+    return res
+
+
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got.float() - want.float()).abs().max()
                  / want.float().abs().max())
@@ -1519,6 +2054,8 @@ def main():
     tokens, lengths = make_prompts(cfg, np.random.default_rng(0))
     log("serve:")
     runs = phase_serve(cfg, packed, pa, dev, tokens, lengths)
+    log("schedule (continuous batching, prefix sharing):")
+    schedule = phase_schedule(cfg, packed, pa, dev, smi_line)
     log("check (kernel path vs plain path):")
     check = phase_check(cfg, packed, pa, dev, tokens, lengths)
 
@@ -1547,7 +2084,8 @@ def main():
                    "flash_attention": {
                        "prefill_head": checks["flash_attention"][0]},
                    "kernels": {k: cases for k, (_, cases) in checks.items()},
-                   "select": select, "serve": runs, "check": check,
+                   "select": select, "serve": runs,
+                   "schedule": schedule, "check": check,
                    "launch_counts_after": dict(cuda.LAUNCHES)}, f, indent=1)
     log(smi_line)
     log(json.dumps({"kernels": kernels}))

@@ -1,6 +1,10 @@
 // Blocked online-softmax (flash) attention for prefill, bf16 in and out:
 //   out[b, h, i] = softmax_j(q[b, h, i] . k[b, hk, j] * scale) @ v[b, hk]
-// over j <= i when causal, with hk = h / (H / Hkv) (GQA).  Running max,
+// over j <= q_off + i when causal, with hk = h / (H / Hkv) (GQA).  q has
+// Sq rows and k, v have Sk >= Sq: query row i sits at absolute position
+// q_off + i with q_off = Sk - Sq, the bottom-right alignment of the plain
+// version (a prefix-hit admission prefills its suffix over the shared
+// prefix rows; a whole prompt has Sk = Sq and q_off = 0).  Running max,
 // sum and accumulator stay in fp32.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention
@@ -24,11 +28,12 @@
 //    once, then K and V tiles of 64 rows into a 2-stage ring of mbarriers
 //    (`full`: the copy's bytes have landed; `empty`: all 128 consumer
 //    threads are done with the stage).  The tensor maps are 4-D, (D, S,
-//    heads, B) with the caller's strides, so the model's transposed views
-//    need no copy; a box is 64 columns (128 bytes, the 128-byte swizzle's
-//    limit) by 64 rows, so a D = 128 row arrives as two boxes.  Rows past
-//    S arrive as zeros.  setmaxnreg hands the producer's registers to the
-//    consumer (40 and 216 a thread; two blocks an SM).
+//    heads, B) with the caller's strides (S = Sq for Q, Sk for K and V),
+//    so the model's transposed views need no copy; a box is 64 columns
+//    (128 bytes, the 128-byte swizzle's limit) by 64 rows, so a D = 128
+//    row arrives as two boxes.  Rows past S arrive as zeros.  setmaxnreg
+//    hands the producer's registers to the consumer (40 and 216 a thread;
+//    two blocks an SM).
 //  * The consumer warpgroup owns the 64 query rows, warp w rows 16w ..
 //    16w + 15.  S = Q.K^T runs on wgmma.m64n64k16 with both operands
 //    K-major in shared memory (D contiguous), one wgmma a 16-deep step.
@@ -48,12 +53,16 @@
 //    place by alpha.
 //  * The output is scaled by one reciprocal of the row sum and passes
 //    through the (by then free) Q tile, so it leaves in 16-byte coalesced
-//    stores, and rows past S are clipped there.
+//    stores, and rows past Sq are clipped there.
 //  * The launch order runs the q-tile index slowest and backwards: causal
 //    tiles near the diagonal's far end, which do the most work, start
 //    first, and the last wave holds the lightest.
-// Ragged S is masked in the kernel (-inf scores on the last key tile and
-// on tiles that cross the causal diagonal), so no divisibility is needed.
+// Ragged Sq and Sk are masked in the kernel (-inf scores on the last key
+// tile and on tiles that cross the causal diagonal), so no divisibility is
+// needed.  A key tile that masks all of a row's keys leaves that row's
+// max, sum and accumulator exactly as they were (alpha = 1, p = 0), so a
+// row's result does not depend on which q tile holds it: with q_off = 0
+// the kernel computes what it computed before the offset existed.
 // Inputs take arbitrary batch/head/sequence strides (D contiguous; strides
 // multiples of 8 elements, 16-byte aligned bases: TMA's rules).
 #include <math.h>
@@ -187,8 +196,8 @@ __global__ void __launch_bounds__(F_THREADS, 2)
     flash_wg(const __grid_constant__ CUtensorMap qmap,
              const __grid_constant__ CUtensorMap kmap,
              const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o,
-             int B, int H, int Hkv, int S, long long osb, long long osh,
-             long long oss, int causal, float scale_log2) {
+             int B, int H, int Hkv, int Sq, int Sk, long long osb,
+             long long osh, long long oss, int causal, float scale_log2) {
   using L = Layout<D>;
   constexpr int NB = D / 64;   // 64-column boxes of a row
   constexpr int KD = D / 16;   // 16-deep steps over D
@@ -204,14 +213,16 @@ __global__ void __launch_bounds__(F_THREADS, 2)
   const uint32_t empty = full + 8 * F_STAGES;
   const uint32_t qbar = empty + 8 * F_STAGES;
 
-  const int n_q = (S + FQ - 1) / FQ;
+  const int n_q = (Sq + FQ - 1) / FQ;
+  const int q_off = Sk - Sq;  // absolute position of query row 0
   const int hb = blockIdx.x % (H * B);
   const int qt = n_q - 1 - static_cast<int>(blockIdx.x / (H * B));
   const int h = hb % H, b = hb / H;
   const int hk = h / (H / Hkv);
   const int q0 = qt * FQ;
-  const int n_kv_all = (S + FK - 1) / FK;
-  const int n_kv = causal ? min(n_kv_all, (q0 + FQ - 1) / FK + 1) : n_kv_all;
+  const int n_kv_all = (Sk + FK - 1) / FK;
+  const int n_kv =
+      causal ? min(n_kv_all, (q_off + q0 + FQ - 1) / FK + 1) : n_kv_all;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -275,7 +286,7 @@ __global__ void __launch_bounds__(F_THREADS, 2)
 
     // sc[4n + e]: row g + 8 (e / 2) of the warp, key k0 + 8 n + 2 t + e % 2
     const int k0 = j * FK;
-    const bool edge = k0 + FK > S || (causal && k0 + FK - 1 > q0);
+    const bool edge = k0 + FK > Sk || (causal && k0 + FK - 1 > q_off + q0);
 #pragma unroll
     for (int i = 0; i < FK / 2; ++i) sc[i] *= scale_log2;
     if (edge) {
@@ -284,7 +295,7 @@ __global__ void __launch_bounds__(F_THREADS, 2)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = k0 + 8 * n + 2 * t + (e & 1);
-          if (key >= S || (causal && key > row0 + 8 * (e >> 1)))
+          if (key >= Sk || (causal && key > q_off + row0 + 8 * (e >> 1)))
             sc[4 * n + e] = -INFINITY;
         }
     }
@@ -363,7 +374,7 @@ __global__ void __launch_bounds__(F_THREADS, 2)
   for (int i = 0; i < 16 * CPR / 32; ++i) {
     const int idx = lane + 32 * i, r = idx / CPR, c = idx % CPR;
     const int qi = q0 + warp * 16 + r;
-    if (qi < S)
+    if (qi < Sq)
       *reinterpret_cast<uint4*>(op + qi * oss + c * 8) =
           *reinterpret_cast<const uint4*>(qgen + swz<D>(warp * 16 + r, c));
   }
@@ -386,23 +397,24 @@ int flash_map(CUtensorMap* map, const void* p, int D, int S, int heads,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int Hkv, int S, const long long* st, int causal, float scale,
-           cudaStream_t stream) {
+           int Hkv, int Sq, int Sk, const long long* st, int causal,
+           float scale, cudaStream_t stream) {
+  if (Sk < Sq) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap qmap, kmap, vmap;
-  int e = flash_map(&qmap, q, D, S, H, B, st);
-  if (e == 0) e = flash_map(&kmap, k, D, S, Hkv, B, st + 3);
-  if (e == 0) e = flash_map(&vmap, v, D, S, Hkv, B, st + 6);
+  int e = flash_map(&qmap, q, D, Sq, H, B, st);
+  if (e == 0) e = flash_map(&kmap, k, D, Sk, Hkv, B, st + 3);
+  if (e == 0) e = flash_map(&vmap, v, D, Sk, Hkv, B, st + 6);
   if (e != 0) return e;
   constexpr int bytes = Layout<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       flash_wg<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long n_q = (S + FQ - 1) / FQ;
+  const long long n_q = (Sq + FQ - 1) / FQ;
   if (n_q * H * B > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(n_q * H * B));
   flash_wg<D><<<grid, F_THREADS, bytes, stream>>>(
-      qmap, kmap, vmap, static_cast<bf16*>(o), B, H, Hkv, S, st[9], st[10],
-      st[11], causal, scale * 1.4426950408889634f);
+      qmap, kmap, vmap, static_cast<bf16*>(o), B, H, Hkv, Sq, Sk, st[9],
+      st[10], st[11], causal, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -410,11 +422,15 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
 
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int H,
-                                      int Hkv, int S, int D,
+                                      int Hkv, int Sq, int Sk, int D,
                                       const long long* strides, int causal,
                                       float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 128) return launch<128>(q, k, v, o, B, H, Hkv, S, strides, causal, scale, st);
-  if (D == 64) return launch<64>(q, k, v, o, B, H, Hkv, S, strides, causal, scale, st);
+  if (D == 128)
+    return launch<128>(q, k, v, o, B, H, Hkv, Sq, Sk, strides, causal, scale,
+                       st);
+  if (D == 64)
+    return launch<64>(q, k, v, o, B, H, Hkv, Sq, Sk, strides, causal, scale,
+                      st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

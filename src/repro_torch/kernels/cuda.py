@@ -51,7 +51,7 @@ _SIGNATURES = {
                             [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                              _I, _I, _I, _I, _I, _I, _F, _P]),
     "flash_attention": ("flash_attention_launch",
-                        [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          ctypes.POINTER(_LL), _I, _F, _P]),
     "lsq_fakequant": ("lsq_fakequant_launch",
                       [_P, _P, _P, _P, _LL, _P, _P, _P, _F, _F, _F, _I, _I,
@@ -434,23 +434,28 @@ def paged_kv_decode_attention(q: torch.Tensor, kq_pool: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
-    """q (B, H, S, D), k/v (B, Hkv, S, D) bf16, head_dim contiguous (any
-    batch/head/sequence strides) -> (B, H, S, D) bf16 with q's strides.
-    Prefill calls it once a layer, so its host work stays small: messages
-    are formatted only when a check fails, and the array of strides is
-    made once for each set of strides."""
+    """q (B, H, Sq, D), k/v (B, Hkv, Sk, D) bf16 with Sk >= Sq, head_dim
+    contiguous (any batch/head/sequence strides) -> (B, H, Sq, D) bf16
+    with q's strides.  Causal rows are aligned bottom-right: query row i
+    sits at position Sk - Sq + i (the suffix prefill over shared prefix
+    rows; Sk = Sq for a whole prompt).  Prefill calls it once a layer, so
+    its host work stays small: messages are formatted only when a check
+    fails, and the array of strides is made once for each set of
+    strides."""
     name = "flash_attention"
     _on_card(name, q, k, v)
     _require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
              "flash_attention: q, k, v must be bfloat16")
     qs, ks = q.shape, k.shape
     _require(len(qs) == 4 and len(ks) == 4 and ks == v.shape,
-             "flash_attention: need q (B, H, S, D) and k, v (B, Hkv, S, D)")
+             "flash_attention: need q (B, H, Sq, D) and k, v (B, Hkv, Sk, "
+             "D)")
     b, h, s, d = qs
-    hkv = ks[1]
-    if not (ks[0] == b and ks[2] == s and ks[3] == d):
+    hkv, s_k = ks[1], ks[2]
+    if not (ks[0] == b and s_k >= s and ks[3] == d):
         raise ValueError(f"{name}: k/v {tuple(ks)} do not match q "
-                         f"{tuple(qs)} (self-attention needs equal lengths)")
+                         f"{tuple(qs)} (need the same B and D, and Sk >= "
+                         f"Sq)")
     if not (hkv > 0 and h % hkv == 0):
         raise ValueError(f"{name}: H={h} is not a multiple of Hkv={hkv}")
     if d != 64 and d != 128:
@@ -472,6 +477,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if len(_FLASH_STRIDES) >= 1024:
             _FLASH_STRIDES.clear()
         arr = _FLASH_STRIDES[strides] = _LL12(*strides)
-    _launch(name, *ptrs, b, h, hkv, s, d, arr, int(causal), d ** -0.5,
+    _launch(name, *ptrs, b, h, hkv, s, s_k, d, arr, int(causal), d ** -0.5,
             _stream())
     return out

@@ -126,7 +126,9 @@ def paged_kv_cache_attention(q: torch.Tensor, kq_pool: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, impl: str = "auto") -> torch.Tensor:
-    """q (B, H, S, D), k/v (B, Hkv, S, D) -> (B, H, S, D) in q's dtype."""
+    """q (B, H, Sq, D), k/v (B, Hkv, Sk, D) with Sk >= Sq -> (B, H, Sq, D)
+    in q's dtype; causal rows aligned bottom-right (query row i at
+    position Sk - Sq + i), as ``ref.attention`` masks them."""
     if use_kernel(q, impl):
         return cuda.flash_attention(q, k, v, causal=causal)
     group = q.shape[1] // k.shape[1]

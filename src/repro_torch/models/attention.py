@@ -11,9 +11,12 @@ cache ``paged_kv_decode_attention``.  Caches are updated in place (the
 engine owns them); the JAX functions return new arrays.
 
 A paged leaf holds page pools (P, page, ...) and, for the call, the block
-table under ``"tbl"`` (``serve/paging.with_tables``).  Its S > 1 decode
-(speculative verify), the chunked-prefill ``role`` staging and the suffix
-prefill over shared pages are not ported.
+table under ``"tbl"`` (``serve/paging.with_tables``).  A prefill over a
+paged full-dtype leaf is the suffix prefill of a prefix-hit admission
+(``ServeEngine.prefill_suffix``): the unshared suffix attends over the
+shared prefix pages, through ``flash_attention`` with Sk > Sq on the card.
+Paged S > 1 decode (speculative verify) and the chunked-prefill ``role``
+staging wait for ROADMAP Queue 1 item 10.
 """
 from __future__ import annotations
 
@@ -29,25 +32,28 @@ NEG_INF = -1e30
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      chunk: int, causal: bool, scale=None) -> torch.Tensor:
+                      chunk: int, causal: bool, q_offset: int = 0,
+                      scale=None) -> torch.Tensor:
     """Online-softmax attention over KV chunks (the JAX scan's math).
 
-    q: (B, S, H, D); k, v: (B, S, H, D) at the query head count.  Rows past
-    S in the last chunk are zero-padded and causally masked.  Returns
-    (B, S, H, D) in q's dtype.
+    q: (B, S, H, D); k, v: (B, Sk, H, D) at the query head count; query
+    row i sits at position ``q_offset + i``.  Rows past Sk in the last
+    chunk are zero-padded and causally masked.  Returns (B, S, H, D) in
+    q's dtype.
     """
     b, s, h, d = q.shape
+    s_k = k.shape[1]
     if scale is None:
         scale = d ** -0.5
-    n_chunks = -(-s // chunk)
-    pad = n_chunks * chunk - s
+    n_chunks = -(-s_k // chunk)
+    pad = n_chunks * chunk - s_k
     if pad and not causal:
         raise ValueError("bidirectional attention requires S % chunk == 0")
     if pad:
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
     qf = q.float() * scale
-    q_pos = torch.arange(s, device=q.device)
+    q_pos = q_offset + torch.arange(s, device=q.device)
     m = torch.full((b, h, s, 1), NEG_INF, dtype=torch.float32, device=q.device)
     l_sum = torch.zeros((b, h, s, 1), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, h, s, d), dtype=torch.float32, device=q.device)
@@ -110,11 +116,53 @@ def _dense_decode_attention(q, ck, cv, positions, group) -> torch.Tensor:
     return torch.einsum("bhqs,bshd->bqhd", pr, vv.float())
 
 
+def _suffix_prefill(q, k, v, cache: dict, group: int, impl: str):
+    """Attention of a prefix-hit admission's suffix (B = 1, full-dtype
+    pages; the reference's ``attention.py:329-371``).  q, k, v: (1, S_pad,
+    ·, D) at absolute positions [off, off + S_pad), where ``off`` =
+    ``cache["prefix_len"]`` (page-aligned, a host int).
+
+    On the card the keys are the gathered prefix rows [0, off) followed by
+    the suffix's own K/V, and ``flash_attention`` aligns the queries
+    bottom-right (q_offset = off); no stale row past the suffix is read.
+    Elsewhere it is the reference's layout: the suffix written into the
+    slot's whole gathered window at ``off``, 512-row chunks, rows past the
+    suffix causally masked (and their V zeroed: 0 * NaN would smear)."""
+    if q.shape[0] != 1:
+        raise ValueError("the suffix prefill admits one request at a time")
+    if "pk" not in cache:
+        raise ValueError("a quantized prefix hit never prefills: it shares "
+                         "the donor's whole prompt")
+    if "prefix_len" not in cache:
+        raise ValueError("a prefill over paged pages is a suffix prefill: "
+                         "call it through ServeEngine.prefill_suffix")
+    off, tbl = cache["prefix_len"], cache["tbl"]
+    pk, pv = cache["pk"], cache["pv"]
+    page = pk.shape[1]
+    if off % page:
+        raise ValueError(f"prefix_len {off} is not page-aligned ({page})")
+    s = q.shape[1]
+    if kops.use_kernel(q, impl):
+        pre = tbl[:, :off // page]
+        kk = torch.cat([kvq.gather_pages(pk, pre), k.to(pk.dtype)], dim=1)
+        vv = torch.cat([kvq.gather_pages(pv, pre), v.to(pv.dtype)], dim=1)
+        return kops.flash_attention(q.transpose(1, 2), kk.transpose(1, 2),
+                                    vv.transpose(1, 2), causal=True,
+                                    impl=impl).transpose(1, 2)
+    kk = kvq.gather_pages(pk, tbl)
+    vv = kvq.gather_pages(pv, tbl)
+    kk[:, off:off + s] = k.to(kk.dtype)
+    vv[:, off:off + s] = v.to(vv.dtype)
+    vv[:, off + s:] = 0
+    return chunked_attention(q, _repeat_kv(kk, group), _repeat_kv(vv, group),
+                             min(DEFAULT_CHUNK, kk.shape[1]), True,
+                             q_offset=off)
+
+
 def _check_paged_call(cache: dict, mode: str, s: int) -> None:
     if mode != "decode":
-        raise NotImplementedError("prefill over a paged cache (the suffix "
-                                  "prefill over shared prefix pages) is "
-                                  "ROADMAP Queue 1 item 9")
+        raise ValueError(f"a paged cache takes decode, or the suffix "
+                         f"prefill of a prefix hit, not mode={mode!r}")
     if "role" in cache or s != 1:
         raise NotImplementedError("a paged decode takes one token per "
                                   "request: chunked-prefill staging and "
@@ -147,6 +195,14 @@ def gqa_apply(p: dict, x: torch.Tensor, bits: dict, cfg, mode: str, cache,
     if cfg.rope == "rope":
         cos, sin = common.rope_angles(positions, dh, cfg.rope_base)
         q, k = common.apply_rope(q, cos, sin), common.apply_rope(k, cos, sin)
+
+    if cache is not None and ("pk" in cache or "pkq" in cache) \
+            and mode == "prefill":
+        out = _suffix_prefill(q, k, v, cache, group, impl)
+        y = qproj(out.reshape(b, s, h * dh), p["wo"], bits["attn_wo"], impl)
+        # only the fresh suffix rows: the engine writes them into the
+        # slot's own pages (paging.write_slot_pages)
+        return y, {"k": k.to(cfg.cache_dtype), "v": v.to(cfg.cache_dtype)}
 
     if cache is not None and ("pk" in cache or "pkq" in cache):
         _check_paged_call(cache, mode, s)

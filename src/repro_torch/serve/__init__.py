@@ -1,8 +1,14 @@
-"""Serving: packed weights, KV cache, greedy engine."""
+"""Serving: packed weights, KV cache (contiguous or paged, with prefix
+sharing), greedy engine and the continuous-batching scheduler."""
 from repro_torch.serve.config import EngineSpec
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.packing import pack_params
+from repro_torch.serve.paging import PageAllocator, PrefixRegistry
 from repro_torch.serve.sampling import GREEDY, SamplerConfig
+from repro_torch.serve.scheduler import (Completion,
+                                         ContinuousBatchingScheduler,
+                                         Request, serve_all)
 
-__all__ = ["EngineSpec", "GREEDY", "SamplerConfig", "ServeEngine",
-           "pack_params"]
+__all__ = ["Completion", "ContinuousBatchingScheduler", "EngineSpec",
+           "GREEDY", "PageAllocator", "PrefixRegistry", "Request",
+           "SamplerConfig", "ServeEngine", "pack_params", "serve_all"]

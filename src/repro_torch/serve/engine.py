@@ -15,7 +15,11 @@ op order that keeps it greedy-parity with the JAX engine.
 
 The reference's decode is one ``lax.scan`` per chunk of ``decode_chunk``
 steps; eager PyTorch needs no scan, so a chunk is a Python loop of
-``decode_step`` calls that never syncs with the host.  The reference's
+``decode_step`` calls that never syncs with the host.  The
+continuous-batching scheduler (``serve/scheduler.py``) drives the engine
+one request at a time at admission (``prefill``, or ``prefill_suffix``
+for a prefix hit) and all slots together in decode, idle slots masked by
+``active``.  The reference's
 bucket-boundary checks exist to bound XLA compile time and have no
 counterpart.
 """
@@ -108,6 +112,33 @@ class ServeEngine:
                                logits_at=lengths.long() - 1)
         return logits[:, 0], pre
 
+    def prefill_suffix(self, tokens: torch.Tensor, length: int,
+                       prefix_len: int, cache: PagedServeCache, slot: int
+                       ) -> Tuple[torch.Tensor, Any]:
+        """Prefill only a request's unshared suffix against slot ``slot``'s
+        already-mapped prefix pages (a prefix-hit admission over a paged
+        full-dtype cache; a quantized hit never prefills).  ``tokens``:
+        (1, S_pad) suffix tokens at positions [prefix_len, prefix_len +
+        S_pad); ``length``: valid suffix tokens; ``prefix_len``: shared rows
+        (page-aligned).  Returns (the last valid logits (1, V), the suffix
+        K/V rows)."""
+        if not isinstance(cache, PagedServeCache) or self.cache != "full":
+            raise ValueError("prefill_suffix runs over a paged full-dtype "
+                             "cache")
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        b, s = tokens.shape
+        positions = prefix_len + torch.arange(
+            s, device=self.device).expand(b, s)
+        layers = paging.with_tables(cache.layers,
+                                    cache.block_tbl[slot:slot + 1],
+                                    prefix_len=int(prefix_len))
+        logits, suf = tf.apply(
+            self.params, self.policy_arrays, tokens, self._cfg,
+            mode="prefill", caches=layers, positions=positions,
+            impl=self.impl,
+            logits_at=torch.full((b,), int(length) - 1, device=self.device))
+        return logits[:, 0], suf
+
     def new_cache(self, batch: int):
         """Preallocated cache in this engine's layout: (B, S_max) buffers,
         or page pools of ``n_pages`` (default B * max_pages, the contiguous
@@ -167,13 +198,17 @@ class ServeEngine:
         step = paging.advance if paged else kv_cache.advance
         return step(cache, 1, active), logits[:, -1]
 
-    def decode_chunk_step(self, cache, tok: torch.Tensor, *,
+    def decode_chunk_step(self, cache, tok: torch.Tensor, key=None, *,
+                          nonces=None, step0=None,
                           active: Optional[torch.Tensor] = None,
                           n_steps: Optional[int] = None
                           ) -> Tuple[Any, torch.Tensor, torch.Tensor]:
         """Advance every slot by ``n_steps`` (default ``decode_chunk``)
         greedy steps.  Returns (cache, next feed token (B, 1), emitted
-        tokens (B, n_steps))."""
+        tokens (B, n_steps)).  ``key``, ``nonces`` and ``step0`` are the
+        reference's sampling-key state: greedy decoding reads none of them,
+        and ``EngineSpec`` refuses every other sampler (ROADMAP Queue 1
+        item 11)."""
         n_steps = self.decode_chunk if n_steps is None else int(n_steps)
         params = self.decode_params()
         toks = []

@@ -8,6 +8,11 @@ results are written at position 0; decode writes land at each request's
 own ``lengths[i]``; rows at or beyond ``lengths[i]`` are garbage until
 overwritten and are never read (the decode mask is ``s <= position``).
 Buffers are updated in place.
+
+Every leaf of the port's cache has its batch on axis 0, so the
+reference's ``batch_axis_index`` (and ``ServeEngine.cache_batch_axes``,
+which feeds it to ``write_slot``) has no counterpart here, as the bucketed
+layout has none.
 """
 from __future__ import annotations
 
@@ -74,6 +79,40 @@ def splice_prefill(cache: ServeCache, prefill_layers: Any,
     _splice(cache.layers, quantize_like(cache.layers, prefill_layers,
                                         lengths))
     return ServeCache(layers=cache.layers, lengths=lengths)
+
+
+def set_length(cache: ServeCache, slot: int, length: int) -> ServeCache:
+    """Pin one slot's valid length, in place (no host sync)."""
+    cache.lengths[slot] = int(length)
+    return cache
+
+
+def _put_slot(full, got, slot: int) -> None:
+    """A batch-1 leaf into row ``slot`` of its (B, ...) buffer, at the
+    origin of the other axes."""
+    if isinstance(full, dict):
+        for k in full:
+            _put_slot(full[k], got[k], slot)
+    elif isinstance(full, list):
+        for f, g in zip(full, got):
+            _put_slot(f, g, slot)
+    else:
+        full[(slot,) + tuple(slice(0, n) for n in got.shape[1:])] = \
+            got[0].to(full.dtype)
+
+
+def write_slot(cache: ServeCache, slot_cache: Any, slot: int,
+               length: int) -> ServeCache:
+    """Admit one prefilled request (batch-1 prefill layers) into batch
+    slot ``slot``, in place.  Stale rows past the new prompt stay garbage
+    until overwritten, as after ``splice_prefill``.  On a quantized cache
+    the slot's prefill is quantized first, with a fresh K grid for the
+    slot, so a re-admitted slot never inherits the evicted request's."""
+    _put_slot(cache.layers,
+              quantize_like(cache.layers, slot_cache,
+                            torch.tensor([length], dtype=torch.int32)),
+              slot)
+    return set_length(cache, slot, length)
 
 
 def advance(cache: ServeCache, steps: int = 1, active=None) -> ServeCache:

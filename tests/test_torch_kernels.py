@@ -287,6 +287,51 @@ def test_chunked_attention_matches_jax(jax_side):
     _close(got, want)
 
 
+@pytest.mark.parametrize("s,s_virt,off", [(16, 64, 32), (7, 48, 16),
+                                          (24, 40, 16)])
+def test_chunked_attention_offset_matches_jax(jax_side, s, s_virt, off):
+    """The suffix prefill's CPU attention: queries at positions [off,
+    off + S) over a window of S_virt keys (rows past the suffix causally
+    masked), chunks of 16 with a ragged last one, against JAX's
+    ``chunked_attention`` with the same ``q_offset``; tolerance 1e-5 *
+    max|ref| as for the whole-prompt case above."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import attention as jattn
+    from repro_torch.models import attention as tattn
+    rng = np.random.default_rng(5)
+    q = rng.normal(size=(1, s, 4, 32)).astype(np.float32)
+    k, v = (rng.normal(size=(1, s_virt, 4, 32)).astype(np.float32)
+            for _ in range(2))
+    chunk = 16
+    n = -(-s_virt // chunk)
+    kp, vp = (jnp.pad(jnp.asarray(a), ((0, 0), (0, n * chunk - s_virt),
+                                       (0, 0), (0, 0))) for a in (k, v))
+
+    def kv_fn(i):
+        return (jax.lax.dynamic_slice_in_dim(kp, i * chunk, chunk, axis=1),
+                jax.lax.dynamic_slice_in_dim(vp, i * chunk, chunk, axis=1))
+
+    want = np.asarray(jattn.chunked_attention(jnp.asarray(q), kv_fn, n, chunk,
+                                              causal=True, q_offset=off))
+    got = tattn.chunked_attention(_t(q), _t(k), _t(v), chunk, True,
+                                  q_offset=off).numpy()
+    _close(got, want)
+
+
+@pytest.mark.parametrize("group", [1, 4])
+def test_flash_plain_offset_is_the_whole_prompts_tail(group):
+    """The plain flash_attention with Sk > Sq aligns the queries
+    bottom-right: its rows are the last Sq rows of the whole prompt's
+    attention (the suffix prefill's contract), to float32 rounding."""
+    g = torch.Generator().manual_seed(6)
+    q = torch.randn((1, 2 * group, 40, 16), generator=g)
+    k, v = (torch.randn((1, 2, 40, 16), generator=g) for _ in range(2))
+    whole = tops.flash_attention(q, k, v, causal=True, impl="ref")
+    tail = tops.flash_attention(q[:, :, 24:], k, v, causal=True, impl="ref")
+    torch.testing.assert_close(tail, whole[:, :, 24:], rtol=0, atol=1e-6)
+
+
 # ---------------------------------------------------- CUDA kernel vs plain
 @pytest.fixture
 def card():
@@ -526,6 +571,52 @@ def test_cuda_flash(card, s, d, group, causal, layout):
     assert (row <= 1e-2 * torch.linalg.vector_norm(want, dim=-1)).all()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["bhsd", "model"])
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("off", [16, 256, 496])
+@pytest.mark.parametrize("s", [1, 16, 37, 200])
+def test_cuda_flash_offset(card, s, off, d, group, layout):
+    """Keys longer than the queries (Sk = off + Sq, the suffix prefill):
+    ragged Sq, page-aligned offsets, both head dims, GQA groups and the
+    model's transposed views, against the plain version in float32 with
+    the flash tolerance (max-abs and per row); and each row bit for bit
+    the same row of the whole prompt's call (a row's result does not
+    depend on which q tile holds it)."""
+    from repro_torch.kernels import cuda
+    g = torch.Generator(card).manual_seed(2)
+    b, hkv, s_k = 1, 2, off + s
+
+    def make(heads, n):
+        if layout == "model":
+            x = torch.randn((b, n, heads, d), generator=g, device=card)
+            return x.bfloat16().transpose(1, 2)
+        return torch.randn((b, heads, n, d), generator=g,
+                           device=card).bfloat16()
+
+    q_all, k, v = make(hkv * group, s_k), make(hkv, s_k), make(hkv, s_k)
+    q = q_all[:, :, off:]
+    got = cuda.flash_attention(q, k, v, causal=True)
+    want = tops.flash_attention(q.float(), k.float(), v.float(), causal=True,
+                                impl="ref")
+    err = got.float() - want
+    assert err.abs().max() <= 1e-2 * want.abs().max()
+    row = torch.linalg.vector_norm(err, dim=-1)
+    assert (row <= 1e-2 * torch.linalg.vector_norm(want, dim=-1)).all()
+    whole = cuda.flash_attention(q_all, k, v, causal=True)
+    assert torch.equal(got, whole[:, :, off:])
+
+
+@pytest.mark.cuda
+def test_cuda_flash_refuses_short_keys(card):
+    """Sk < Sq has no bottom-right alignment: the wrapper refuses it."""
+    from repro_torch.kernels import cuda
+    q = torch.zeros((1, 2, 32, 64), device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="Sk >= Sq"):
+        cuda.flash_attention(q, q[:, :, :16], q[:, :, :16])
+
+
 def _selector_probe(dev, h, hkv, s, causal=True):
     import chip_smoke
     return chip_smoke.flash_selector_probe(dev, 1, h, hkv, s, causal=causal)
@@ -550,6 +641,21 @@ def test_cuda_flash_selector_probe(card, h, hkv, s):
     from repro_torch.kernels import cuda
     q, k, v, want = _selector_probe(card, h, hkv, s)
     assert torch.equal(cuda.flash_attention(q, k, v, causal=True), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,hkv", [(16, 16), (16, 4)])
+@pytest.mark.parametrize("s,off", [(16, 256), (37, 16), (200, 496),
+                                   (1, 512)])
+def test_cuda_flash_selector_probe_offset(card, h, hkv, s, off):
+    """The causal selector probe with the queries cut to the last Sq rows:
+    query row i sits at position off + i, so it must select
+    V[pos(pi(off + i))] bit for bit; a wrong q_off in the mask, the
+    kv-tile count or the edge test selects another row or none."""
+    from repro_torch.kernels import cuda
+    q, k, v, want = _selector_probe(card, h, hkv, off + s)
+    got = cuda.flash_attention(q[:, :, off:], k, v, causal=True)
+    assert torch.equal(got, want[:, :, off:])
 
 
 @pytest.mark.parametrize("h,hkv", [(4, 4), (4, 1)])

@@ -190,8 +190,10 @@ def test_splice_prefill_maps_slots_sequentially():
 
 
 def test_unported_paged_paths_raise():
-    """Prefill over a paged cache (prefix sharing), the chunked-prefill
-    role staging and S > 1 decode name their ROADMAP items."""
+    """A prefill over a paged cache is the suffix prefill of a prefix hit
+    (ported with the scheduler): it needs the host-side prefix length and
+    returns only the suffix rows.  The chunked-prefill role staging and
+    S > 1 decode name their ROADMAP item."""
     from repro_torch.configs import olmo_1b
     from repro_torch.models import attention as attn
     cfg = olmo_1b.config().smoke()
@@ -201,9 +203,13 @@ def test_unported_paged_paths_raise():
     cache = dict(attn.init_gqa_paged_cache(cfg, 4, 16, torch.float32, "cpu"),
                  tbl=torch.zeros((1, 4), dtype=torch.int32))
     x1, x2 = torch.zeros((1, 1, cfg.d_model)), torch.zeros((1, 2, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="prefill_suffix"):
         attn.gqa_apply(p, x2, bits, cfg, "prefill", cache,
                        torch.arange(2)[None])
+    _, rows = attn.gqa_apply(p, x2, bits, cfg, "prefill",
+                             dict(cache, prefix_len=16),
+                             16 + torch.arange(2)[None])
+    assert rows["k"].shape == (1, 2, cfg.n_kv_heads, cfg.head_dim)
     with pytest.raises(NotImplementedError, match="item 10"):
         attn.gqa_apply(p, x2, bits, cfg, "decode", cache,
                        torch.arange(2)[None])
