@@ -198,17 +198,15 @@ class ServeEngine:
         step = paging.advance if paged else kv_cache.advance
         return step(cache, 1, active), logits[:, -1]
 
-    def decode_chunk_step(self, cache, tok: torch.Tensor, key=None, *,
-                          nonces=None, step0=None,
+    def decode_chunk_step(self, cache, tok: torch.Tensor, *,
                           active: Optional[torch.Tensor] = None,
                           n_steps: Optional[int] = None
                           ) -> Tuple[Any, torch.Tensor, torch.Tensor]:
         """Advance every slot by ``n_steps`` (default ``decode_chunk``)
         greedy steps.  Returns (cache, next feed token (B, 1), emitted
-        tokens (B, n_steps)).  ``key``, ``nonces`` and ``step0`` are the
-        reference's sampling-key state: greedy decoding reads none of them,
-        and ``EngineSpec`` refuses every other sampler (ROADMAP Queue 1
-        item 11)."""
+        tokens (B, n_steps)).  The reference's sampling-key arguments come
+        with sampled decoding (ROADMAP Queue 1 item 11); ``EngineSpec``
+        refuses every sampler but greedy."""
         n_steps = self.decode_chunk if n_steps is None else int(n_steps)
         params = self.decode_params()
         toks = []

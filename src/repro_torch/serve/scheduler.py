@@ -37,8 +37,9 @@ the same workload.
 
 Not ported: chunked prefill and speculative rounds (ROADMAP Queue 1 item
 10; ``EngineSpec`` refuses ``prefill_chunk`` and ``draft``), sampled
-decoding (item 11; greedy only, so ``key`` is accepted and unused) and
-``dispatch_audit`` (XLA's jit caches; item 15).
+decoding with its per-request sampling keys and admission nonces (item
+11; a ``key`` is refused) and ``dispatch_audit`` (XLA's jit caches; item
+15).
 """
 from __future__ import annotations
 
@@ -74,8 +75,6 @@ class Completion:
 class _Slot:
     req: Request
     emitted: List[int]
-    nonce: int                     # admission nonce (the reference folds it
-                                   # into every sampling key of the request)
 
 
 class ContinuousBatchingScheduler:
@@ -87,7 +86,10 @@ class ContinuousBatchingScheduler:
         self.engine = engine
         self.n_slots = n_slots
         self.prompt_bucket = prompt_bucket
-        self.key = key                 # greedy decoding reads no key
+        if key is not None:
+            raise NotImplementedError(
+                "sampled scheduling (a sampling key and per-admission "
+                "nonces) is ROADMAP Queue 1 item 11; decoding is greedy")
         self.cache = engine.new_cache(n_slots)
         self._paged = engine.cache_layout == "paged"
         if self._paged:
@@ -102,7 +104,6 @@ class ContinuousBatchingScheduler:
         self.queue: collections.deque = collections.deque()
         self.slots: List[Optional[_Slot]] = [None] * n_slots
         self._tok = np.zeros((n_slots, 1), np.int32)
-        self._admit_idx = 0
         self.completed: Dict[str, Completion] = {}
         # deterministic sim clock (model-step units) + per-request emission
         # times: latency_report() derives TTFT / inter-token percentiles
@@ -146,13 +147,6 @@ class ContinuousBatchingScheduler:
             "counterpart is ROADMAP Queue 1 item 15")
 
     # ------------------------------------------------------------ internals
-    def _next_nonce(self) -> int:
-        """Each admission gets its own nonce, in FIFO admission order (the
-        reference's sampling keys fold it; greedy decoding ignores it)."""
-        nonce = self._admit_idx
-        self._admit_idx += 1
-        return nonce
-
     def _record_emit(self, uid: str, clock: Optional[int] = None) -> None:
         self._emit_clocks.setdefault(uid, []).append(
             self.clock if clock is None else clock)
@@ -183,11 +177,9 @@ class ContinuousBatchingScheduler:
                     return
             else:
                 last = self._admit_contiguous(j, req)
-            nonce = self._next_nonce()
             # the admission's one device-to-host copy
             first = int(sampling.sample(last, self.engine.sampler)[0])
-            self._begin_decode(j, _Slot(req=req, emitted=[], nonce=nonce),
-                               first)
+            self._begin_decode(j, _Slot(req=req, emitted=[]), first)
 
     def _bucket_pad(self, n: int, cap: int) -> int:
         """Bucket a prompt or suffix length, never past ``cap`` (the

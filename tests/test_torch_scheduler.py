@@ -478,6 +478,10 @@ def test_unported_scheduling_refuses(setup):
         with pytest.raises(NotImplementedError, match=item):
             ServeEngine(setup["cfg"], setup["tpacked"], setup["ta"], 64,
                         EngineSpec(**kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        ContinuousBatchingScheduler(te, n_slots=1, key=0)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        serve_all(te, [], n_slots=1, key=0)
     with pytest.raises(NotImplementedError, match="item 15"):
         ContinuousBatchingScheduler(te, n_slots=1).dispatch_audit()
     with pytest.raises(ValueError, match="paged full-dtype"):
