@@ -7,13 +7,16 @@ Phases, in order; any failure exits non-zero:
   1. device  - the card's name and power limit (nvidia-smi); no card fails.
   2. build   - nvcc builds the kernels from src/repro_torch/csrc into
                build/kernels/ (parallel, one process per source).
-  3. kernels - each of the six kernels against its plain PyTorch version at
+  3. kernels - each of the seven kernels against its plain PyTorch version at
                the main path's shapes, with its tolerance, kernel / plain /
                library times (CUDA events, warm-up excluded, L2 flushed) and
                bound; the decode GEMV's shapes also in device time alone
                (torch.profiler) beside cuBLAS's, both decode attentions
                beside SDPA's, lsq_fakequant (one step and q/k/v's three)
-               beside fake_quantize_per_tensor_affine and the histogram
+               beside fake_quantize_per_tensor_affine, its backward (the
+               train step's shapes; gx bit for bit, the step gradients
+               within 1e-5 of their terms' scale) beside PyTorch's
+               learnable LSQ, and the histogram
                beside torch.bincount; the paged decode also bit for bit
                against the contiguous kernel on the gathered cache, and the
                probes of quant_matmul (identity, and the GEMV's selector and
@@ -44,6 +47,14 @@ Phases, in order; any failure exits non-zero:
                weights, teacher-forced with the kernel path's tokens over
                the prefill and 16 decode steps, beside a control: the plain
                path with its prefill attention in float64 (see phase_check).
+  train      - 4-bit LSQ QAT of olmo-1b at full width and depth (seed 0,
+               bf16), AdamW, 16 steps of 8 x 512 synthetic tokens: every
+               fake-quant through the lsq_fakequant forward and backward
+               kernels; step 1's loss and gradients against impl="ref",
+               the loss falling, the launches a step, no forward-only
+               kernel (see phase_train).
+  alps       - ALPS over the 64 selectable units from the trained state,
+               EAGL on the same weights, both knapsack takes (phase_alps).
 The second-to-last line is the kernels JSON, the last the device JSON.
 Details go to chiprun_out/chip_smoke.json and chiprun_out/build_log.txt.
 """
@@ -78,6 +89,8 @@ TPU_SOURCES = {
     "lsq_fakequant": "src/repro/kernels/lsq_fakequant.py:31",
     "histogram": "src/repro/kernels/entropy_hist.py:37",
     "paged_kv_decode_attention": "src/repro/kernels/flash_attention.py:237",
+    # no Pallas kernel: the reference's custom VJP, which XLA fuses
+    "lsq_fakequant_bwd": "src/repro/core/quant.py:77",
 }
 PAGE = 16                        # the paged serve runs' page size
 
@@ -933,6 +946,139 @@ def check_lsq(timer, dev, gen):
     return cases[1], cases
 
 
+LSQ_BWD_TOL = 1e-5    # gs: times gscale * sum|g * ds| (the sum's order)
+
+
+def lsq_bwd_gs_scale(x, g, step, bits) -> float:
+    """gscale * sum|g * ds|: the size of the terms a step gradient sums,
+    which bounds what a change of summation order can move it by."""
+    from repro_torch.core import quant
+    qmin, qmax = quant.qrange(bits)
+    s = max(abs(float(step)), 1e-9)
+    xs = x.float() / torch.tensor(s, device=x.device)
+    inr = (xs >= qmin) & (xs <= qmax)
+    ds = torch.where(inr, torch.round(xs) - xs, torch.clamp(xs, qmin, qmax))
+    return float((g.double() * ds.double()).abs().nansum()) * \
+        quant.lsq_step_grad_scale(x.numel(), bits)
+
+
+def lsq_bwd_compare(x, grads, steps, bits):
+    """The backward kernel against its plain version on one input: gx bit
+    for bit; each gs within LSQ_BWD_TOL * gscale * sum|g * ds| (NaN where
+    the plain version gives NaN).  Returns (gx equal, worst gs error over
+    its bound, max |gs difference|)."""
+    from repro_torch.kernels import cuda, ref
+    gx, gs = cuda.lsq_fakequant_bwd(x, grads, steps, bits)
+    wx, ws = ref.lsq_fakequant_bwd(x, grads, steps, bits)
+    torch.cuda.synchronize()
+    worst, diff = 0.0, 0.0
+    for a, b, g, s in zip(gs, ws, grads, steps):
+        a, b = float(a), float(b)
+        if math.isnan(b) or math.isnan(a):
+            worst = max(worst, 0.0 if math.isnan(a) == math.isnan(b)
+                        else math.inf)
+            continue
+        d = abs(a - b)
+        diff = max(diff, d)
+        scale = lsq_bwd_gs_scale(x, g, s, bits)
+        worst = max(worst, d / (LSQ_BWD_TOL * scale) if scale else
+                    (0.0 if d == 0 else math.inf))
+    return same_bits(gx, wx), worst, diff
+
+
+def check_lsq_bwd(timer, dev, gen):
+    """The LSQ backward kernel at the train step's shapes (B = 8, S = 512):
+    q/k/v's shared input (4096 x 2048 bf16, 3 steps), the down
+    projection's input (4096 x 8192, 1 step), a gate/up weight (2048 x
+    8192, its LSQ step), all at 4 bits; then a ragged length and the
+    forward probe's values (NaN, +-inf, ties, clamp edges) at 2, 4 and 8
+    bits, bf16 and float32, 1-3 steps.  gx bit for bit against the plain
+    version, gs within its bound (``lsq_bwd_compare``); timed beside the
+    plain version and beside PyTorch's learnable per-tensor LSQ
+    (``torch._fake_quantize_learnable_per_tensor_affine``, forward and
+    backward, zero point 0, once a step: it recomputes the forward's codes
+    in its backward and takes no shared input), and in device time alone
+    against the byte bound."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import cuda, ref
+    w = torch.randn((2048, 8192), generator=gen, device=dev) * 0.02
+    shapes = [("qkv input", (8 * 512, 2048), [torch.tensor(v, device=dev)
+                                               for v in LSQ_STEPS]),
+              ("down input", (8 * 512, 8192), [torch.tensor(0.31,
+                                                            device=dev)]),
+              ("gate weight", (2048, 8192), [quant.init_step_from_tensor(
+                  w, 4.0)])]
+    cases = []
+    for what, shape, steps in shapes:
+        x = (w.bfloat16() if what == "gate weight" else torch.randn(
+            shape, generator=gen, device=dev).bfloat16())
+        grads = [torch.randn(shape, generator=gen, device=dev).bfloat16()
+                 * 1e-3 for _ in steps]
+        bits = 4
+        half = 2 ** (bits - 1)
+
+        def kernel():
+            return cuda.lsq_fakequant_bwd(x, grads, steps, bits)
+
+        def plain():
+            return ref.lsq_fakequant_bwd(x, grads, steps, bits)
+
+        xr = x.float().requires_grad_(True)
+        zp = torch.zeros((1,), device=dev)
+        lib_steps = [s.reshape(1).clone().requires_grad_(True) for s in steps]
+        gscale = quant.lsq_step_grad_scale(x.numel(), bits)
+
+        def library():
+            for s, g in zip(lib_steps, grads):
+                out = torch._fake_quantize_learnable_per_tensor_affine(
+                    xr, s, zp, -half, half - 1, gscale)
+                out.backward(g.float())
+
+        equal, worst, diff = lsq_bwd_compare(x, grads, steps, bits)
+        n, ns = x.numel(), len(steps)
+        rec = {"what": what, "shape": list(shape), "steps": ns,
+               "bits": bits, "gx_bit_equal": equal,
+               "gs_err_over_bound": worst, "max_abs_err": diff,
+               "tol": f"gx exact; gs {LSQ_BWD_TOL} x gscale sum|g ds|",
+               "ok": equal and worst <= 1.0, "ms": timer(kernel),
+               "plain_ms": timer(plain), "library_ms": timer(library)}
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            2.0 * n * (2 + ns), 10.0 * n * ns, F32_OPS_PER_S)
+        alone_device(timer, rec, kernel, library)
+        log(f"  lsq_fakequant_bwd {what} {tuple(shape)} bf16, {ns} step(s):"
+            f" gx bit for bit {equal}, gs |diff| {diff:.3g} "
+            f"({worst:.3g} of its bound); {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f}, learnable LSQ fwd+bwd x{ns} "
+            f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} "
+            f"({rec['bound_by']})")
+        log_alone(rec, f"learnable LSQ fwd+bwd x{ns}")
+        cases.append(rec)
+    bad, calls = [], 0
+    for dtype in (torch.bfloat16, torch.float32):
+        vals = lsq_probe_values(dtype, LSQ_PROBE_STEPS, dev)
+        for n in (8 * 1000 + 3, vals.numel()):
+            x = vals.repeat(-(-n // vals.numel()))[:n].contiguous()
+            g = torch.Generator(dev).manual_seed(7)
+            grads = [torch.randn(x.shape, generator=g, device=dev).to(dtype)
+                     for _ in range(3)]
+            for bits in (2, 4, 8):
+                for ns in (1, 2, 3):
+                    steps = [torch.tensor(v, device=dev) if k % 2 else v
+                             for k, v in enumerate(LSQ_PROBE_STEPS[:ns])]
+                    equal, worst, _ = lsq_bwd_compare(x, grads[:ns], steps,
+                                                      bits)
+                    calls += 1
+                    if not (equal and worst <= 1.0):
+                        bad.append((str(dtype), n, bits, ns, equal, worst))
+    cases.append({"lsq_bwd_probe": True, "calls": calls, "failures": bad,
+                  "ok": not bad})
+    log(f"    probe (NaN, +-inf, ties, clamp edges; lengths 8003 and "
+        f"{vals.numel()}; bf16, f32; bits 2/4/8; 1-3 steps): {calls} calls,"
+        f" gx bit for bit and gs within bound in all but {len(bad)}: "
+        f"{bad[:4]}")
+    return cases[0], cases
+
+
 def check_histogram(timer, dev, gen):
     """EAGL's histogram at the largest olmo-1b tensor (2048 x 8192 codes of
     normal weights quantized at 4 and 2 bits), and ragged lengths with
@@ -1154,6 +1300,8 @@ def device_rows(fn) -> dict:
 def device_table(prof) -> dict:
     rows = {}
     for e in prof.key_averages():
+        if getattr(e, "is_user_annotation", False):
+            continue   # a span over kernels (Optimizer.step), not one
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
@@ -1189,6 +1337,8 @@ def device_breakdown(fn, top: int = 20) -> dict:
                                        if "kv_decode" in k) / 1e3,
             "lsq_fakequant_ms": sum(us for k, us, _ in rows
                                     if "lsq_kernel" in k) / 1e3,
+            "lsq_fakequant_bwd_ms": sum(us for k, us, _ in rows
+                                        if "lsq_bwd_kernel" in k) / 1e3,
             "top": [{"kernel": k[:90], "ms": us / 1e3, "count": n}
                     for k, us, n in rows[:top]]}
 
@@ -2050,6 +2200,269 @@ def phase_check(cfg, packed, pa, dev, tokens, lengths, n_decode=16):
     return res
 
 
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 512, 16   # the train phase's batches
+ALPS_B, ALPS_S, ALPS_STEPS = 4, 256, 2      # an ALPS probe's
+ALPS_REF_UNITS = 4                          # units probed by impl="ref" too
+# AdamW as examples/quickstart.py builds it, at OLMo-1B's published peak
+# learning rate: quickstart's 2e-3 suits its smoke model (d_model 128); at
+# full width 2e-3 and 1e-3 raised the loss over 16 steps on the H100
+# (PERF.md §6), 4e-4 and 1e-4 lowered it
+LR, GRAD_CLIP = 4e-4, 1.0
+STEP_GRAD_TOL = 1e-5                        # LSQ step gradients, relative
+ALPS_REF_TOL = 1e-2                         # gains, kernel vs plain path
+
+
+def lsq_sites(cfg) -> dict:
+    """Fake-quant sites of a train step (one launch each way, steps that
+    share an input grouped): the activations of q/k/v, o, gate/up and down
+    in each layer and the head's; the 7 weights of each layer and the
+    embedding table twice (the gather's and the tied head's).  The
+    backward recomputes each layer (checkpointing), so its activation
+    sites launch the forward a second time."""
+    layers = cfg.n_repeats * len(cfg.pattern)
+    return {"activations": 4 * layers + 1, "weights": 7 * layers + 2,
+            "recomputed": 4 * layers}
+
+
+def grads_of(state, cfg, batch, impl):
+    """Step 1's loss and every leaf's gradient, with no update."""
+    from repro_torch import tree
+    from repro_torch.models import transformer as tf
+    loss, _ = tf.loss_fn(state.params, state.policy, batch, cfg, impl)
+    grads = torch.autograd.grad(loss, tree.leaves(state.params))
+    return loss.detach(), [g.detach() for g in grads]
+
+
+def compare_grads(state, g_kernel, g_again, g_ref) -> dict:
+    """T2: each gradient finite and not all zero; each weight gradient of
+    the kernel path bit for bit with impl="ref", or else equal to a second
+    kernel-path run's (a difference the run itself makes); each step's
+    within STEP_GRAD_TOL relative."""
+    from repro_torch import tree
+    rec = {"leaves": 0, "w_equal": 0, "w_differ": [], "w_unexplained": [],
+           "step_max_rel": 0.0, "bad": []}
+    for (path, _), a, b, c in zip(tree.flatten(state.params), g_kernel,
+                                  g_again, g_ref):
+        name = ".".join(str(x) for x in path)
+        rec["leaves"] += 1
+        if not (bool(torch.isfinite(a).all()) and bool((a != 0).any())):
+            rec["bad"].append(f"{name}: not finite or all zero")
+        if path[-1] == "w":
+            if torch.equal(a, c):
+                rec["w_equal"] += 1
+            else:
+                d = float((a.float() - c.float()).abs().max())
+                rec["w_differ"].append((name, d))
+                if torch.equal(a, b):
+                    rec["w_unexplained"].append((name, d))
+        else:
+            rel = abs(float(a) - float(c)) / max(abs(float(c)), 1e-30)
+            rec["step_max_rel"] = max(rec["step_max_rel"], rel)
+            if not rel <= STEP_GRAD_TOL:
+                rec["bad"].append(f"{name}: step gradient {float(a)} vs "
+                                  f"{float(c)} ({rel:.3g} relative)")
+    rec["bad"] += [f"{n}: w gradient differs from impl='ref' by {d}, and "
+                   f"two kernel-path runs agree" for n, d in
+                   rec["w_unexplained"]]
+    return rec
+
+
+def phase_train(cfg, dev, smi_line):
+    """QAT of olmo-1b at full width and depth (weights from seed 0, bf16),
+    uniform 4-bit, AdamW (lr LR, clip 1.0, float32 moments), the port's
+    synthetic batches of 8 x 512 tokens, TRAIN_STEPS steps.  Gates: (T1)
+    step 1's loss on the kernel path equals impl="ref"'s bit for bit; (T2)
+    ``compare_grads``; (T3) the mean loss of the last 4 steps below step
+    1's; (T4) each step launches the LSQ forward once a site and once more
+    a recomputed site, and the backward once a site; (T5) no
+    flash_attention, quant_matmul or decode attention launch.  Readings:
+    ms/step on the host clock (synchronized), tokens/s, MFU, peak memory,
+    and a profiled step (device ms, idle share, top 20, LSQ ms).  Returns
+    the final state and the record."""
+    import functools
+    from repro_torch import tree
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels import cuda
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.step import init_train_state, make_train_step
+    policy = tf.build_policy(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, functools.partial(
+        AdamW, learning_rate=LR, grad_clip=GRAD_CLIP), 0, policy, device=dev)
+    n_params = sum(p.numel() for p in tree.leaves(state.params))
+    batches = [make_batch(0, i, TRAIN_B, TRAIN_S, cfg.vocab, device=dev)
+               for i in range(TRAIN_STEPS + 1)]
+    sites = lsq_sites(cfg)
+    n_sites = sites["activations"] + sites["weights"]
+
+    # T1, T2: step 1 before any update, the kernel path twice and the plain
+    t0 = time.perf_counter()
+    cuda.reset_launches()
+    loss_k, g_k = grads_of(state, cfg, batches[0], "auto")
+    once = dict(cuda.LAUNCHES)
+    _, g_again = grads_of(state, cfg, batches[0], "auto")
+    loss_r, g_r = grads_of(state, cfg, batches[0], "ref")
+    torch.cuda.synchronize()
+    grads = compare_grads(state, g_k, g_again, g_r)
+    t1_equal = torch.equal(loss_k, loss_r)
+    del g_k, g_again, g_r
+    torch.cuda.empty_cache()
+    check_s = time.perf_counter() - t0
+    log(f"  step 1, kernel path vs impl='ref': loss {float(loss_k):.6f} vs "
+        f"{float(loss_r):.6f} (bit for bit: {t1_equal}); {grads['leaves']} "
+        f"leaves, w gradients bit for bit {grads['w_equal']}, differing "
+        f"{grads['w_differ'][:4]}, step gradients within "
+        f"{grads['step_max_rel']:.3g} relative ({check_s:.1f} s)")
+
+    step = make_train_step(cfg, impl="auto")
+    losses, wall = [], []
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batches[i])
+        losses.append(float(m["loss"]))        # a sync
+        wall.append(time.perf_counter() - t0)
+    launches = dict(cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    prof = device_breakdown(lambda: step(state, batches[TRAIN_STEPS]))
+    ms = float(np.median(wall[1:])) * 1e3
+    tokens = TRAIN_B * TRAIN_S
+    rec = {"config": f"{cfg.name} d_model={cfg.d_model} layers="
+                     f"{cfg.n_repeats} heads={cfg.n_heads} d_ff={cfg.d_ff} "
+                     f"vocab={cfg.vocab} {cfg.param_dtype}",
+           "device": smi_line, "batch": [TRAIN_B, TRAIN_S],
+           "steps": TRAIN_STEPS, "n_params": n_params, "losses": losses,
+           "step_ms": [w * 1e3 for w in wall], "ms_per_step": ms,
+           "first_step_ms": wall[0] * 1e3,
+           "tokens_per_s": tokens / (ms / 1e3),
+           "mfu": 6.0 * n_params * tokens / ((ms / 1e3) * BF16_OPS_PER_S),
+           "peak_gib": peak / 2 ** 30, "launches": launches,
+           "launches_step1_grads": once, "sites": sites, "grads": grads,
+           "t1_loss_equal": t1_equal, "profile": prof,
+           "last4_mean": float(np.mean(losses[-4:]))}
+    rec["t3_margin"] = losses[0] - rec["last4_mean"]
+    log(f"  {rec['config']}: {TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_S}; "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (last 4 mean "
+        f"{rec['last4_mean']:.4f}, margin {rec['t3_margin']:.4f})")
+    log(f"  {ms:.1f} ms/step (host clock, median of steps 2-{TRAIN_STEPS}; "
+        f"step 1 {wall[0] * 1e3:.1f}), {rec['tokens_per_s']:.0f} tokens/s, "
+        f"MFU {rec['mfu']:.4f} (6 N tokens, N = {n_params}, at 989 TFLOP/s);"
+        f" peak {rec['peak_gib']:.2f} GiB; launches {launches}")
+    log_breakdown("one train step", prof)
+    log(f"    lsq_fakequant_bwd {prof['lsq_fakequant_bwd_ms']:.3f} ms; top "
+        f"20: " + "; ".join(f"{r['kernel'][:48]} {r['ms']:.2f} x{r['count']}"
+                            for r in prof["top"]))
+    bad = list(grads["bad"])
+    if not t1_equal:
+        bad.append(f"T1: loss {float(loss_k)} vs impl='ref' {float(loss_r)}")
+    if not rec["last4_mean"] < losses[0]:
+        bad.append(f"T3: last 4 steps' mean {rec['last4_mean']} not below "
+                   f"step 1's {losses[0]}")
+    want = {"lsq_fakequant": TRAIN_STEPS * (n_sites + sites["recomputed"]),
+            "lsq_fakequant_bwd": TRAIN_STEPS * n_sites}
+    for name, n in want.items():
+        if launches[name] != n:
+            bad.append(f"T4: {name} launched {launches[name]} times, "
+                       f"{n} expected ({sites}, {TRAIN_STEPS} steps)")
+    for name in ("flash_attention", "quant_matmul", "kv_decode_attention",
+                 "paged_kv_decode_attention"):
+        if launches[name]:
+            bad.append(f"T5: {name} launched {launches[name]} times")
+    if bad:
+        raise RuntimeError(f"train phase: {bad}")
+    return state, rec
+
+
+def phase_alps(cfg, dev, state, smi_line):
+    """ALPS over every selectable unit from the train phase's final state
+    (ALPS_STEPS steps a probe at ALPS_B x ALPS_S on make_batch(11, i)),
+    then EAGL through the histogram kernel on the same weights; the
+    knapsack take at budget 0.7 from each, their overlap, and their wall
+    seconds.  Gates: (A1) after ALPS the params equal the b_hi state bit
+    for bit; (A2) the first unit's probe, run again at the end, gives its
+    gain bit for bit; (A3) on ALPS_REF_UNITS units the kernel path's gains
+    within ALPS_REF_TOL relative of impl="ref"'s."""
+    from repro_torch import tree
+    from repro_torch.core import knapsack
+    from repro_torch.core.metrics import (AlpsConfig, alps_gains,
+                                          eagl_gains, make_probe)
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels import cuda
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.step import make_train_step
+    policy = tf.build_policy(cfg)
+    units = policy.selectable_units()
+    batches = [make_batch(11, i, ALPS_B, ALPS_S, cfg.vocab, device=dev)
+               for i in range(ALPS_STEPS)]
+    b_hi = [p.detach().clone() for p in tree.leaves(state.params)]
+    probe = make_probe(state, make_train_step(cfg, impl="auto"),
+                       lambda i: batches[i])
+    acfg = AlpsConfig(steps_per_probe=ALPS_STEPS)
+    sync(dev)
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    gains = alps_gains(policy, probe_finetune=probe, cfg=acfg)
+    sync(dev)
+    alps_s = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+    a1 = all(torch.equal(p.detach(), q) for p, q in
+             zip(tree.leaves(state.params), b_hi))
+    first = units[0]
+    again = probe(policy=policy.apply_selection({first.name: False}),
+                  steps=ALPS_STEPS)["loss"]
+    a2 = again == gains[first.name]
+    ref_probe = make_probe(state, make_train_step(cfg, impl="ref"),
+                           lambda i: batches[i])
+    a3 = {}
+    for u in units[:ALPS_REF_UNITS]:
+        g = ref_probe(policy=policy.apply_selection({u.name: False}),
+                      steps=ALPS_STEPS)["loss"]
+        a3[u.name] = abs(gains[u.name] - g) / abs(g)
+    del b_hi
+    with torch.no_grad():
+        sync(dev)
+        t0 = time.perf_counter()
+        eagl = eagl_gains(policy, lambda u, t: tf.fetch_unit_tensor(
+            state.params, u, t), impl="auto")
+        sync(dev)
+        eagl_s = time.perf_counter() - t0
+    take_a = knapsack.select_for_budget(policy, gains, budget_frac=0.7).take
+    take_e = knapsack.select_for_budget(policy, eagl, budget_frac=0.7).take
+    overlap = sum(take_a[u.name] == take_e[u.name] for u in units)
+    rec = {"device": smi_line, "units": len(units), "batch": [ALPS_B, ALPS_S],
+           "steps_per_probe": ALPS_STEPS, "alps_s": alps_s,
+           "eagl_s": eagl_s, "alps_over_eagl": alps_s / eagl_s,
+           "launches": launches, "gains": gains, "eagl": eagl,
+           "a1_params_equal": a1, "a2_again": again, "a2_equal": a2,
+           "a3_rel": a3, "take_alps": take_a, "take_eagl": take_e,
+           "n4_alps": sum(take_a.values()), "n4_eagl": sum(take_e.values()),
+           "overlap": overlap}
+    log(f"  ALPS over {len(units)} units ({ALPS_STEPS} steps a probe at "
+        f"{ALPS_B} x {ALPS_S}): {alps_s:.1f} s; EAGL through the histogram "
+        f"kernel {eagl_s:.3f} s: ALPS / EAGL = {rec['alps_over_eagl']:.0f}")
+    log(f"  gains (mean probe loss) {min(gains.values()):.4f} to "
+        f"{max(gains.values()):.4f}; knapsack at 0.7: ALPS keeps "
+        f"{rec['n4_alps']} units at 4 bits, EAGL {rec['n4_eagl']}; the "
+        f"takes agree on {overlap} of {len(units)}")
+    log(f"  A1 params equal b_hi: {a1}; A2 {first.name} again "
+        f"{again!r} vs {gains[first.name]!r}: {a2}; A3 kernel vs ref "
+        f"relative {', '.join(f'{v:.3g}' for v in a3.values())}; launches "
+        f"{launches}")
+    bad = []
+    if not a1:
+        bad.append("A1: the params after ALPS differ from the b_hi state")
+    if not a2:
+        bad.append(f"A2: {first.name}'s probe gave {again}, ALPS "
+                   f"{gains[first.name]}")
+    if not all(v <= ALPS_REF_TOL for v in a3.values()):
+        bad.append(f"A3: kernel vs impl='ref' gains {a3}")
+    if bad:
+        raise RuntimeError(f"alps phase: {bad}")
+    return rec
+
+
 def main():
     smi_line = phase_device()
     from repro_torch.configs import olmo_1b
@@ -2066,6 +2479,7 @@ def main():
               "kv_decode_attention": check_kv_decode(timer, dev, gen),
               "flash_attention": check_flash(timer, dev, gen),
               "lsq_fakequant": check_lsq(timer, dev, gen),
+              "lsq_fakequant_bwd": check_lsq_bwd(timer, dev, gen),
               "histogram": check_histogram(timer, dev, gen),
               "paged_kv_decode_attention": check_paged_kv_decode(timer, dev,
                                                                  gen)}
@@ -2099,12 +2513,25 @@ def main():
     schedule = phase_schedule(cfg, packed, pa, dev, smi_line)
     log("check (kernel path vs plain path):")
     check = phase_check(cfg, packed, pa, dev, tokens, lengths)
+    del packed       # the serve state: the train phase starts from none
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log("train (4-bit LSQ QAT):")
+    t0 = time.perf_counter()
+    state, train = phase_train(cfg, dev, smi_line)
+    log(f"  train phase {time.perf_counter() - t0:.1f} s")
+    log("alps (from the trained state):")
+    t0 = time.perf_counter()
+    alps = phase_alps(cfg, dev, state, smi_line)
+    log(f"  alps phase {time.perf_counter() - t0:.1f} s")
+    del state
 
     # each kernel's launches on the path that runs it
     launches = dict(runs["contiguous-int8"]["launches"])
     launches["paged_kv_decode_attention"] = \
         runs["paged-int8"]["launches"]["paged_kv_decode_attention"]
     launches["histogram"] = select["launches"]["histogram"]
+    launches["lsq_fakequant_bwd"] = train["launches"]["lsq_fakequant_bwd"]
     kernels = []
     for name, (head, _) in checks.items():
         kernels.append({
@@ -2127,6 +2554,7 @@ def main():
                    "kernels": {k: cases for k, (_, cases) in checks.items()},
                    "select": select, "serve": runs,
                    "schedule": schedule, "check": check,
+                   "train": train, "alps": alps,
                    "launch_counts_after": dict(cuda.LAUNCHES)}, f, indent=1)
     log(smi_line)
     log(json.dumps({"kernels": kernels}))

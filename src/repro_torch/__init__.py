@@ -1,13 +1,16 @@
-"""PyTorch + CUDA port of the ``repro`` serving path, for NVIDIA Hopper.
+"""PyTorch + CUDA port of ``repro``, for NVIDIA Hopper.
 
-The JAX package ``repro`` is the reference; this package serves the same
-knapsack-mixed 4/2-bit packed checkpoint with hand-written CUDA kernels
-(``csrc/``) on an H100.  It imports neither ``jax`` nor ``repro``.
+The JAX package ``repro`` is the reference; this package trains olmo-1b
+with 4-bit LSQ QAT (``train/``), selects a 4/2-bit mix with EAGL or ALPS
+(``core/metrics``) and the knapsack, and serves the packed checkpoint,
+with hand-written CUDA kernels (``csrc/``) on an H100.  It imports neither
+``jax`` nor ``repro``.
 
-Entry points (``init_params``, ``pack_params``, ``ServeEngine``) take an
-explicit ``device=`` that defaults to ``"cuda"`` and raise when no CUDA
-device is present; the tests pass ``device="cpu"``, where every kernel
-wrapper runs its plain PyTorch version instead.
+Entry points (``init_params``, ``init_train_state``, ``make_batch``,
+``pack_params``, ``ServeEngine``) take an explicit ``device=`` that
+defaults to ``"cuda"`` and raise when no CUDA device is present; the tests
+pass ``device="cpu"``, where every kernel wrapper runs its plain PyTorch
+version instead.
 """
 from __future__ import annotations
 

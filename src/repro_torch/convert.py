@@ -1,11 +1,14 @@
-"""Load the JAX package's raw QAT param tree, or a serving cache, into the
-port's layout.
+"""Move trees between the JAX package's layout and the port's: raw QAT
+params, optimizer moments, serving caches.
 
 The JAX model stacks the repeat pattern on a leading ``n_repeats`` axis
-under ``"pat"``; the port keeps a per-layer list.  Both functions take the
-tree as numpy arrays (``jax.tree.map(np.asarray, tree)``, so this module
-never needs JAX) and return torch tensors on ``device``;
-``serve.packing.pack_params`` then packs the params in the port.
+under ``"pat"``; the port keeps a per-layer list.  ``from_jax_params``
+takes a tree of that layout as numpy arrays (``jax.tree.map(np.asarray,
+tree)``, so this module never needs JAX) and returns torch tensors on
+``device``; it takes any tree shaped like the params, so the optimizer's
+moments load through it too.  ``to_jax_tree`` is the way back: numpy
+leaves, the layers stacked.  ``serve.packing.pack_params`` packs the
+params in the port.
 """
 from __future__ import annotations
 
@@ -44,6 +47,33 @@ def from_jax_params(tree: dict, device="cuda") -> dict:
         else:
             out[key] = _map(node, lambda a: _tensor(a, dev))
     return out
+
+
+def _numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return np.asarray(leaf)
+
+
+def to_jax_tree(tree: dict) -> dict:
+    """A port tree (params, or a tree shaped like them) -> the JAX
+    layout with numpy leaves: each leaf of the per-layer ``"pat"`` list
+    stacked over the layers; bf16 becomes float32 (exact)."""
+    out = {}
+    for key, node in tree.items():
+        if key == "pat":
+            out[key] = _stack([_map(layer, _numpy) for layer in node])
+        else:
+            out[key] = _map(node, _numpy)
+    return out
+
+
+def _stack(layers: list):
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stack([layer[k] for layer in layers]) for k in first}
+    return np.stack(layers)
 
 
 def from_jax_cache(layers: dict, lengths, block_tbl=None, device="cuda"):

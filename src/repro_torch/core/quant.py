@@ -1,10 +1,16 @@
-"""Quantization primitives (forward only): LSQ fake-quant, integer codes,
-K-major packing — the port of ``repro/core/quant.py``.
+"""Quantization primitives: LSQ fake-quant with its custom gradient, integer
+codes, K-major packing — the port of ``repro/core/quant.py``.
 
 Arithmetic matches the reference bit for bit on the CPU: the quantizer is
 ``clamp(round(x / s), qmin, qmax)`` in float32 with a true IEEE division and
-round-half-to-even (``torch.round``, like ``jnp.round``).  The LSQ custom
-gradient is not ported yet (ROADMAP Queue 1 item 12).
+round-half-to-even (``torch.round``, like ``jnp.round``).  ``LsqFakeQuant``
+is the reference's ``jax.custom_vjp`` (``repro/core/quant.py:46-126``): the
+straight-through estimator for x and the LSQ step gradient scaled by
+``rsqrt(n * qmax)``, forward and backward each through
+``kernels/ops.py`` (the hand-written CUDA kernels on the card, the plain
+versions in ``kernels/ref.py`` elsewhere).  ``fake_quant`` and
+``fake_quant_group`` are the entry points: without a gradient to record
+they call the forward alone.
 """
 from __future__ import annotations
 
@@ -37,11 +43,91 @@ def quantize_int(x: torch.Tensor, step, bits, signed: bool = True
 def lsq_fake_quant(x: torch.Tensor, step, bits,
                    signed: bool = True) -> torch.Tensor:
     """LSQ quantize-dequantize forward; arithmetic in float32, result in
-    ``x``'s dtype (``repro/core/quant.py:47-58``)."""
+    ``x``'s dtype (``repro/core/quant.py:47-58``).  ``torch.round`` has no
+    gradient, so this plain forward refuses to record one: ``fake_quant``
+    carries the LSQ gradient."""
+    if _needs_grad(x, [step]):
+        raise RuntimeError("lsq_fake_quant is the plain forward and has no "
+                           "gradient: use quant.fake_quant (LsqFakeQuant)")
     qmin, qmax = qrange(bits, signed)
     s = torch.clamp(torch.abs(_step_tensor(step, x)), min=1e-9)
     q = torch.clamp(torch.round(x.float() / s), qmin, qmax)
     return (q * s).to(x.dtype)
+
+
+def lsq_step_grad_scale(n: int, bits) -> float:
+    """The LSQ step gradient's scale rsqrt(max(n * qmax, 1)) in float32,
+    for n elements of x per step element (``_lsq_bwd``'s ``gscale``)."""
+    qmax = torch.tensor(qrange(bits)[1], dtype=torch.float32)
+    prod = torch.tensor(float(max(1, n)), dtype=torch.float32) * qmax
+    return float(torch.rsqrt(torch.clamp(prod, min=1.0)))
+
+
+def _needs_grad(x: torch.Tensor, steps) -> bool:
+    return torch.is_grad_enabled() and (x.requires_grad or any(
+        isinstance(s, torch.Tensor) and s.requires_grad for s in steps))
+
+
+class LsqFakeQuant(torch.autograd.Function):
+    """LSQ fake-quant of one input at 1 to 3 steps (the projections that
+    share an input: q/k/v, gate/up), one bit-width.
+
+    forward: one output per step, bit for bit ``lsq_fake_quant``.
+    backward: gx = sum_k where(in_range_k, g_k, 0), summed in float32 in k
+    order and rounded once to x's dtype (one step: exactly the reference's
+    ``where(in_range, g, 0)``); each tensor step gets
+    gscale * sum(g_k * ds_k), ds = round(xs) - xs in range and
+    clip(xs, qmin, qmax) outside, reduced to the step's shape; bits and
+    float steps get none.  Arguments: ``apply(x, bits, impl, *steps)``.
+    """
+
+    @staticmethod
+    def forward(ctx, x, bits, impl, *steps):
+        from repro_torch.kernels import ops as kops
+        outs = kops.lsq_fakequant(x, list(steps), bits, impl=impl)
+        ctx.bits, ctx.impl = bits, impl
+        ctx.floats = [None if isinstance(s, torch.Tensor) else s
+                      for s in steps]
+        ctx.save_for_backward(x, *[s for s in steps
+                                   if isinstance(s, torch.Tensor)])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from repro_torch.kernels import ops as kops
+        x, *tensor_steps = ctx.saved_tensors
+        it = iter(tensor_steps)
+        steps = [next(it) if f is None else f for f in ctx.floats]
+        gx, gsteps = kops.lsq_fakequant_bwd(x, list(grads), steps, ctx.bits,
+                                            impl=ctx.impl)
+        return (gx, None, None, *[
+            g if f is None and need else None
+            for g, f, need in zip(gsteps, ctx.floats,
+                                  ctx.needs_input_grad[3:])])
+
+
+def fake_quant_group(x: torch.Tensor, steps, bits, impl: str = "auto"
+                     ) -> list:
+    """``lsq_fake_quant`` of one input at each of 1 to 3 steps (a list of
+    outputs), differentiable through ``LsqFakeQuant`` when a gradient is
+    to be recorded; otherwise the forward alone (serving)."""
+    if _needs_grad(x, steps):
+        return list(LsqFakeQuant.apply(x, bits, impl, *steps))
+    from repro_torch.kernels import ops as kops
+    return kops.lsq_fakequant(x, list(steps), bits, impl=impl)
+
+
+def fake_quant(x: torch.Tensor, step, bits, impl: str = "auto"
+               ) -> torch.Tensor:
+    """``fake_quant_group`` at one step."""
+    return fake_quant_group(x, [step], bits, impl)[0]
+
+
+def rescale_step_for_bits(step, old_bits: float, new_bits: float):
+    """Paper §3.4.3: dropping 4-bit -> 2-bit starts the new step at 4x the
+    old one; in general 2**(old_bits - new_bits), which keeps the
+    representable range step * 2^(b-1)."""
+    return step * (2.0 ** (old_bits - new_bits))
 
 
 def init_step_from_tensor(w: torch.Tensor, bits: float) -> torch.Tensor:

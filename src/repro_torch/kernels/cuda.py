@@ -1,9 +1,11 @@
 """ctypes wrappers of the CUDA kernels, with their launch counters.
 
 Each wrapper checks device, dtype, shape, contiguity and alignment and
-raises on anything its kernel does not take; allocates the output with
-``torch.empty``; launches on ``torch.cuda.current_stream()``; raises if the
-C launcher reports a CUDA error; and adds one to its counter in
+raises on anything its kernel does not take, and on an operand that
+requires grad while grad mode is on (a launch records no gradient);
+allocates the output with ``torch.empty``; launches on
+``torch.cuda.current_stream()``; raises if the C launcher reports a CUDA
+error; and adds one to its counter in
 ``LAUNCHES``.  Nothing else touches the counters, so a caller that zeroes
 them (``reset_launches``) before a run reads afterwards how often the run
 went through each kernel.  The libraries build on first use
@@ -16,13 +18,17 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.core.quant import lsq_step_grad_scale
 from repro_torch.kernels import build
 
 LAUNCHES: Dict[str, int] = {"quant_matmul": 0, "kv_decode_attention": 0,
                             "flash_attention": 0, "lsq_fakequant": 0,
-                            "histogram": 0, "paged_kv_decode_attention": 0}
+                            "histogram": 0, "paged_kv_decode_attention": 0,
+                            "lsq_fakequant_bwd": 0}
 HIST_MAX_BINS = 4096            # the kernel's shared-memory counters
 LSQ_MAX_STEPS = 3               # steps (outputs) of one lsq_fakequant launch
+LSQ_BWD_THREADS = 256           # the backward's block
+LSQ_BWD_MAX_BLOCKS = 4 * 132    # four blocks on each of an H100's 132 SMs
 GEMV_MAX_M = 16                 # quant_matmul rows of the GEMV; above, tiles
 GEMV_CHANNELS = 128             # output channels a GEMV block: 8 x 16 bytes
 GEMV_STEP_ROWS = 8              # packed rows a GEMV K step
@@ -56,6 +62,9 @@ _SIGNATURES = {
     "lsq_fakequant": ("lsq_fakequant_launch",
                       [_P, _P, _P, _P, _LL, _P, _P, _P, _F, _F, _F, _I, _I,
                        _I, _P]),
+    "lsq_fakequant_bwd": ("lsq_fakequant_bwd_launch",
+                          [_P, _P, _P, _P, _P, _LL, _P, _P, _P, _F, _F, _F,
+                           _I, _I, _I, _F, _P, _I, _P, _P, _P]),
     "histogram": ("histogram_launch", [_P, _LL, _I, _P, _P, _P]),
     "paged_kv_decode_attention": ("paged_kv_decode_attention_launch",
                                   [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -63,7 +72,8 @@ _SIGNATURES = {
                                    _I, _F, _P]),
 }
 _SHARED_SOURCE = {"histogram": "entropy_hist",
-                  "paged_kv_decode_attention": "kv_decode_attention"}
+                  "paged_kv_decode_attention": "kv_decode_attention",
+                  "lsq_fakequant_bwd": "lsq_fakequant"}
 
 
 def source_of(name: str) -> str:
@@ -112,7 +122,24 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+def _refuse_grad(name: str, tensors) -> None:
+    """A kernel launch writes into a tensor it allocated and records no
+    gradient: with grad mode on, an operand that requires grad would lose
+    its gradient without an error, so the call raises instead.  The LSQ
+    kernels are differentiated through ``core.quant.LsqFakeQuant``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no gradient, and an operand requires "
+            f"grad with grad mode on (train mode runs chunked_attention and "
+            f"the dict layout; fake-quant goes through quant.fake_quant)")
+
+
 def _on_card(name: str, *tensors: torch.Tensor) -> torch.device:
+    _refuse_grad(name, tensors)
+    return _same_card(name, tensors)
+
+
+def _same_card(name: str, tensors) -> torch.device:
     dev = tensors[0].device
     if not all(t.is_cuda and t.device == dev for t in tensors):
         raise ValueError(f"{name}: every operand must lie on one CUDA device, "
@@ -132,14 +159,27 @@ def lsq_fakequant(x: torch.Tensor, step, bits):
     _on_card(name, x)
     many = isinstance(step, (list, tuple))
     steps = list(step) if many else [step]
-    _require(1 <= len(steps) <= LSQ_MAX_STEPS, f"{name}: 1 to "
-             f"{LSQ_MAX_STEPS} steps, got {len(steps)}")
     _require(x.dtype in _DTYPE_CODE, f"{name}: x must be float32 or "
              f"bfloat16, got {x.dtype}")
     _require(x.is_contiguous(), f"{name}: x must be contiguous")
-    b = int(round(float(bits)))
-    _require(b == float(bits) and 1 <= b <= 16,
-             f"{name}: bits must be an integer in [1, 16], got {bits}")
+    b = _lsq_bits(name, bits)
+    ptrs, vals = _lsq_steps(name, x, steps)
+    outs = [torch.empty_like(x) for _ in steps]
+    _require(all(t.data_ptr() % 16 == 0 for t in [x] + outs),
+             f"{name}: x and the outputs must be 16-byte aligned")
+    optrs = [t.data_ptr() for t in outs] + [None] * (LSQ_MAX_STEPS
+                                                      - len(outs))
+    _launch(name, x.data_ptr(), *optrs, x.numel(), *ptrs, *vals, len(steps),
+            b, _DTYPE_CODE[x.dtype], _stream())
+    return outs if many else outs[0]
+
+
+def _lsq_steps(name, x, steps):
+    """(pointers, values) of 1 to LSQ_MAX_STEPS steps padded to
+    LSQ_MAX_STEPS: a tensor step (one float32 value on x's card) by
+    pointer, a float by value."""
+    _require(1 <= len(steps) <= LSQ_MAX_STEPS, f"{name}: 1 to "
+             f"{LSQ_MAX_STEPS} steps, got {len(steps)}")
     ptrs, vals = [None] * LSQ_MAX_STEPS, [0.0] * LSQ_MAX_STEPS
     for k, s in enumerate(steps):
         if isinstance(s, torch.Tensor):
@@ -149,14 +189,63 @@ def lsq_fakequant(x: torch.Tensor, step, bits):
             ptrs[k] = s.data_ptr()
         else:
             vals[k] = float(s)
-    outs = [torch.empty_like(x) for _ in steps]
-    _require(all(t.data_ptr() % 16 == 0 for t in [x] + outs),
-             f"{name}: x and the outputs must be 16-byte aligned")
-    optrs = [t.data_ptr() for t in outs] + [None] * (LSQ_MAX_STEPS
-                                                      - len(outs))
-    _launch(name, x.data_ptr(), *optrs, x.numel(), *ptrs, *vals, len(steps),
-            b, _DTYPE_CODE[x.dtype], _stream())
-    return outs if many else outs[0]
+    return ptrs, vals
+
+
+def _lsq_bits(name, bits) -> int:
+    b = int(round(float(bits)))
+    _require(b == float(bits) and 1 <= b <= 16,
+             f"{name}: bits must be an integer in [1, 16], got {bits}")
+    return b
+
+
+def lsq_bwd_blocks(n: int, dtype) -> int:
+    """The backward's grid: one 16-byte vector a thread, at most
+    LSQ_BWD_MAX_BLOCKS blocks (each thread then walks several vectors).  A
+    function of n and the dtype alone, so a sum's order is the same for
+    equal shapes."""
+    vec = 16 // (2 if dtype == torch.bfloat16 else 4)
+    return max(1, min(-(-(n // vec) // LSQ_BWD_THREADS), LSQ_BWD_MAX_BLOCKS))
+
+
+def lsq_fakequant_bwd(x: torch.Tensor, grads, steps, bits):
+    """The backward of ``lsq_fakequant(x, steps, bits)`` for one cotangent
+    a step, in one launch: (gx in x's dtype, [gs_k]) as
+    ``ref.lsq_fakequant_bwd`` defines them, each gs_k a 0-d float32 view of
+    one output.  x and the grads: contiguous, 16-byte aligned, of one
+    shape and dtype; steps as ``lsq_fakequant`` takes them (scalar).  The
+    blocks' partial sums go to a float64 workspace made here, and the last
+    block, found by the stream's counter, adds them in block order."""
+    name = "lsq_fakequant_bwd"
+    grads, steps = list(grads), list(steps)
+    _on_card(name, x, *grads)
+    _require(len(grads) == len(steps), f"{name}: one cotangent a step, got "
+             f"{len(grads)} for {len(steps)}")
+    _require(x.dtype in _DTYPE_CODE, f"{name}: x must be float32 or "
+             f"bfloat16, got {x.dtype}")
+    _require(all(g.dtype == x.dtype and g.shape == x.shape for g in grads),
+             f"{name}: every cotangent must have x's shape and dtype")
+    ts = [x] + grads
+    _require(all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ts),
+             f"{name}: x and the cotangents must be contiguous and 16-byte "
+             f"aligned")
+    b = _lsq_bits(name, bits)
+    ptrs, vals = _lsq_steps(name, x, steps)
+    n = x.numel()
+    gscale = lsq_step_grad_scale(n, b)
+    blocks = lsq_bwd_blocks(n, x.dtype)
+    stream = _stream()
+    counter = _split_counters(x.device, stream, 1)
+    partials = torch.empty((len(steps) * blocks,), dtype=torch.float64,
+                           device=x.device)
+    gx = torch.empty_like(x)
+    gs = torch.empty((len(steps),), dtype=torch.float32, device=x.device)
+    gptrs = [g.data_ptr() for g in grads] + [None] * (LSQ_MAX_STEPS
+                                                      - len(grads))
+    _launch(name, x.data_ptr(), *gptrs, gx.data_ptr(), n, *ptrs, *vals,
+            len(steps), b, _DTYPE_CODE[x.dtype], gscale, partials.data_ptr(),
+            blocks, counter.data_ptr(), gs.data_ptr(), stream)
+    return gx, [gs[k] for k in range(len(steps))]
 
 
 def quant_matmul(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,

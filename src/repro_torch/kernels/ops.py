@@ -43,19 +43,38 @@ def entropy_bits(codes: torch.Tensor, n_bins: int, impl: str = "auto"
     return ref.entropy_from_counts(histogram(codes, n_bins, impl=impl))
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous on a 16-byte boundary (the LSQ kernels move 16-byte
+    vectors): a view off the boundary is copied."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def lsq_fakequant(x: torch.Tensor, step, bits, impl: str = "auto"):
-    """Forward-only LSQ fake-quant of an activation tensor.  ``step`` is
-    one step, or a list or tuple of 1 to 3 steps for projections that share
-    ``x`` (one launch on the card, x read once), which gives a list of
-    outputs.  A view off a 16-byte boundary is copied for the kernel."""
+    """LSQ fake-quant forward of x (an activation or a weight).  ``step``
+    is one step, or a list or tuple of 1 to 3 steps for projections that
+    share ``x`` (one launch on the card, x read once), which gives a list
+    of outputs.  This is the forward alone: ``core.quant.fake_quant``
+    (``LsqFakeQuant``) pairs it with ``lsq_fakequant_bwd`` for training,
+    and the kernel wrapper refuses an operand that requires grad."""
     if use_kernel(x, impl):
-        x = x.contiguous()
-        if x.data_ptr() % 16:
-            x = x.clone()
-        return cuda.lsq_fakequant(x, step, bits)
+        return cuda.lsq_fakequant(_aligned(x), step, bits)
     if isinstance(step, (list, tuple)):
         return ref.lsq_fakequant_grouped(x, step, bits)
     return ref.lsq_fakequant(x, step, bits)
+
+
+def lsq_fakequant_bwd(x: torch.Tensor, grads, steps, bits,
+                      impl: str = "auto"):
+    """The LSQ backward of ``lsq_fakequant(x, steps, bits)`` for the
+    cotangents ``grads`` (one per step): (gx, [gs_k]) as
+    ``ref.lsq_fakequant_bwd`` defines them.  On the card one launch of the
+    backward kernel, which takes scalar steps only."""
+    if use_kernel(x, impl):
+        return cuda.lsq_fakequant_bwd(
+            _aligned(x), [_aligned(g.to(x.dtype)) for g in grads], steps,
+            bits)
+    return ref.lsq_fakequant_bwd(x, grads, steps, bits)
 
 
 def packed_matmul(x: torch.Tensor, p: PackedLinear, impl: str = "auto"

@@ -51,6 +51,49 @@ def lsq_fakequant_grouped(x: torch.Tensor, steps, bits) -> list:
     return [lsq_fakequant(x, s, bits) for s in steps]
 
 
+def _reduce_to_shape(t: torch.Tensor, shape) -> torch.Tensor:
+    """Sum ``t`` down to a step's (broadcast) shape."""
+    if len(shape) == 0:
+        return t.sum()
+    while t.ndim > len(shape):
+        t = t.sum(dim=0)
+    for i, (td, sd) in enumerate(zip(t.shape, shape)):
+        if sd == 1 and td != 1:
+            t = t.sum(dim=i, keepdim=True)
+    return t
+
+
+def lsq_fakequant_bwd(x: torch.Tensor, grads, steps, bits):
+    """The LSQ backward of ``lsq_fakequant_grouped`` (the reference's
+    ``_lsq_bwd`` for each step): (gx, [gs_k]).
+
+    gx = sum_k where(in_range_k, g_k, 0): the first term as it is, the
+    others added in float32 in k order, rounded once to x's dtype.  gs_k =
+    gscale_k * sum(g_k * ds_k) with ds = round(xs) - xs in range and
+    clip(xs, qmin, qmax) outside; the products are exact in float64 and
+    summed there, times gscale, rounded once to float32 (so the sum's order
+    moves it by about float64's rounding, not float32's), reduced to the
+    step's shape.  A step is a tensor (any shape broadcasting against x)
+    or a float; gs_k is float32 of the step's shape (0-d for a float)."""
+    qmin, qmax = quant.qrange(bits)
+    xf = x.float()
+    gx, gsteps = None, []
+    for g, step in zip(grads, steps):
+        st = torch.as_tensor(step, dtype=torch.float32, device=x.device)
+        s = torch.clamp(torch.abs(st), min=1e-9)
+        xs = xf / s
+        in_range = (xs >= qmin) & (xs <= qmax)
+        term = torch.where(in_range, g.float(), 0.0)
+        gx = term if gx is None else gx + term
+        ds = torch.where(in_range, torch.round(xs) - xs,
+                         torch.clamp(xs, qmin, qmax))
+        gscale = quant.lsq_step_grad_scale(x.numel() // max(st.numel(), 1),
+                                           bits)
+        total = _reduce_to_shape(g.double() * ds.double(), st.shape)
+        gsteps.append((total * gscale).float())
+    return gx.to(x.dtype), gsteps
+
+
 # ------------------------------------------------------------- quant_matmul
 def unpack_w4(w_packed: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     """(K//2, N) uint8 -> (K, N) sign-extended codes."""

@@ -2,10 +2,13 @@
 (train/prefill; decode with one query per request over a full-dtype or
 quantized cache, contiguous or paged).
 
-Prefill attention runs the CUDA ``flash_attention`` kernel on the card.  On
-the CPU (or with ``impl="ref"``) it runs ``chunked_attention``, the math of
-the JAX model's XLA scan (q pre-scaled, 512-row chunks, causal mask), so
-the CPU tests match the reference.  Decode over a quantized cache runs the
+Train mode runs ``chunked_attention`` on every device, the math of the
+JAX model's XLA scan (q pre-scaled, 512-row chunks, causal mask), which is
+what the reference's train mode runs too; autograd differentiates it (the
+``flash_attention`` kernel has no backward, in either package).  Prefill
+attention runs the CUDA ``flash_attention`` kernel on the card, and
+``chunked_attention`` on the CPU (or with ``impl="ref"``), so the CPU
+tests match the reference.  Decode over a quantized cache runs the
 CUDA ``kv_decode_attention`` kernel on the card, over a paged quantized
 cache ``paged_kv_decode_attention``.  Caches are updated in place (the
 engine owns them); the JAX functions return new arrays.
@@ -261,7 +264,7 @@ def gqa_apply(p: dict, x: torch.Tensor, bits: dict, cfg, mode: str, cache,
         return qproj(out, p["wo"], bits["attn_wo"], impl), cache
 
     # train / prefill
-    if kops.use_kernel(q, impl):
+    if mode == "prefill" and kops.use_kernel(q, impl):
         out = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                    v.transpose(1, 2), causal=cfg.causal,
                                    impl=impl).transpose(1, 2)

@@ -3,17 +3,19 @@
 
 Every projection goes through ``qproj`` (``qproj_group`` for the
 projections that share an input): the input activation is
-LSQ-fake-quantized at the unit's policy bits (``kernels/ops.lsq_fakequant``)
-and multiplied by the packed low-bit codes (``kernels/ops.packed_matmul``),
-or by a dequantized view of them (``{'wpre', 'sa'}``, the CPU decode path),
-or by a fake-quantized float weight (``{'w', 'sw', 'sa'}``, the raw
-checkpoint).
+LSQ-fake-quantized at the unit's policy bits (``core.quant.fake_quant_group``:
+the ``lsq_fakequant`` kernel, with its backward kernel when a gradient is
+recorded) and multiplied by the packed low-bit codes
+(``kernels/ops.packed_matmul``), or by a weight fake-quantized once a step
+(``{'wpre', 'sa'}``, from ``prequantize_params``: train mode), or by a
+fake-quantized float weight (``{'w', 'sw', 'sa'}``, the raw checkpoint).
 """
 from __future__ import annotations
 
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import quant
@@ -105,13 +107,13 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     return torch.cat([a, b], dim=-1).to(x.dtype)
 
 
-def weight_of(p, bits) -> torch.Tensor:
+def weight_of(p, bits, impl: str = "auto") -> torch.Tensor:
     """The (de)quantized float weight of a param node."""
     if isinstance(p, PackedLinear):
         return quant.packed_weight_dense(p, torch.float32)
     if "wpre" in p:
         return p["wpre"]
-    return quant.lsq_fake_quant(p["w"], p["sw"], bits)
+    return quant.fake_quant(p["w"], p["sw"], bits, impl)
 
 
 def qproj(x: torch.Tensor, p, bits, impl: str = "auto") -> torch.Tensor:
@@ -123,13 +125,39 @@ def qproj(x: torch.Tensor, p, bits, impl: str = "auto") -> torch.Tensor:
 def qproj_group(x: torch.Tensor, ps, bits, impl: str = "auto") -> list:
     """``qproj`` of one input through 1 to 3 projections at one bit-width
     (q/k/v, gate/up): one grouped fake-quant of ``x``, each at its own
-    step, then each projection's matmul."""
+    step, then each projection's matmul.  Under a recorded gradient the
+    grouped backward sums the projections' straight-through cotangents
+    into one gx (one launch on the card)."""
     steps = [p.sa if isinstance(p, PackedLinear) else p["sa"] for p in ps]
-    xqs = kops.lsq_fakequant(x, steps, bits, impl=impl)
+    xqs = quant.fake_quant_group(x, steps, bits, impl)
     return [kops.packed_matmul(xq, p, impl=impl)
             if isinstance(p, PackedLinear)
-            else kref.matmul(xq, weight_of(p, bits).to(xq.dtype))
+            else kref.matmul(xq, weight_of(p, bits, impl).to(xq.dtype))
             for xq, p in zip(xqs, ps)]
+
+
+def prequantize_params(params, policy_arrays, slot_of, impl: str = "auto"):
+    """Fake-quantize every projection weight once, before the layers run
+    (``repro/models/transformer.py:380-412``): each ``{'w', 'sw', 'sa'}``
+    node becomes ``{'wpre': fake_quant(w, sw, bits), 'sa': sa}``; the
+    gradient reaches w and sw through ``LsqFakeQuant``.  ``params["pat"]``
+    is the per-layer list; ``slot_of`` maps a node's path to its (group,
+    slot) (``transformer.slot_index``), whose bits ``policy_arrays`` gives
+    per layer (a node with no unit gets 4, as in the reference)."""
+    def walk(node, path, layer):
+        if isinstance(node, dict) and {"w", "sw", "sa"} <= node.keys():
+            key = slot_of.get(path)
+            bits = (4.0 if key is None else
+                    float(np.asarray(policy_arrays[key[0]][key[1]])[layer]))
+            return {"wpre": quant.fake_quant(node["w"], node["sw"], bits,
+                                             impl),
+                    "sa": node["sa"]}
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,), layer) for k, v in node.items()}
+        return node
+
+    return dict(params, pat=[walk(layer, ("pat",), r)
+                             for r, layer in enumerate(params["pat"])])
 
 
 def init_qdense(gen: torch.Generator, d_in: int, d_out: int, dtype, device,

@@ -1,4 +1,5 @@
-"""Model stack for the olmo family — port of ``repro/models/transformer.py``.
+"""Model stack and LM loss for the olmo family — port of
+``repro/models/transformer.py``.
 
 The JAX model stacks the repeat pattern and runs it under ``lax.scan`` (or
 bucketed scans) to bound XLA compile time; eager PyTorch needs neither, so
@@ -14,12 +15,13 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from torch.utils.checkpoint import checkpoint
+
 from repro_torch import resolve_device
 from repro_torch.core import quant
 from repro_torch.core.policy import (PIN_EDGE_BITS, PIN_MIN_IN_FEATURES,
                                      PIN_NARROW_BITS, CacheUnit,
                                      PrecisionPolicy, QuantUnit)
-from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.models import attention as attn
 from repro_torch.models import common, mlp
@@ -52,7 +54,9 @@ def init_params(cfg, seed: int = 0, device="cuda") -> dict:
     """Random raw (QAT-layout) params with the reference's shapes and init
     formulas, drawn on ``device`` from ``torch.Generator(device)`` seeded
     with ``seed``.  (The numbers differ from JAX's: tests feed JAX params
-    through ``repro_torch.convert.from_jax_params`` instead.)"""
+    through ``repro_torch.convert.from_jax_params`` instead.)  For
+    training, ``train.step.init_train_state`` sets every leaf (weights and
+    LSQ steps) to require grad."""
     _check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(dev).manual_seed(seed)
@@ -104,27 +108,32 @@ def init_caches(cfg, batch: int, max_seq: int, cache_dtype, device,
                     for _ in range(cfg.n_repeats)]}
 
 
-def _embed(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
+def _embed(params: dict, cfg, tokens: torch.Tensor, impl: str = "auto"
+           ) -> torch.Tensor:
     p = params["embed"]
     if "wq" in p:               # serve layout: int8 codes, gather first
         rows = p["wq"][tokens]
         x = rows.to(cfg.compute_dtype) * p["scale"].to(cfg.compute_dtype)
     else:
-        table = quant.lsq_fake_quant(p["w"], p["sw"], PIN_EDGE_BITS)
-        x = table[tokens]
+        table = quant.fake_quant(p["w"], p["sw"], PIN_EDGE_BITS, impl)
+        # embedding's backward gave the same bits on every run on the
+        # card (chip_smoke's train and alps repeat gates)
+        x = torch.nn.functional.embedding(tokens, table)
     return x.to(cfg.compute_dtype)
 
 
 def _head(params: dict, cfg, x: torch.Tensor, impl: str = "auto"
           ) -> torch.Tensor:
     """Tied LM head, weights and input activations pinned 8-bit.  A plain
-    product (the JAX package leaves it to XLA), here ``torch.matmul``."""
+    product (the JAX package leaves it to XLA), here ``torch.matmul``.  As
+    in the reference, the table is fake-quantized here and in ``_embed``
+    (two fake-quant sites; their gradients add)."""
     p = params["embed"]
     if "wq" in p:
         w = (p["wq"].to(x.dtype) * p["scale"].to(x.dtype)).t()
     else:
-        w = quant.lsq_fake_quant(p["w"], p["sw"], PIN_EDGE_BITS).t()
-    xq = kops.lsq_fakequant(x, HEAD_ACT_STEP, PIN_EDGE_BITS, impl=impl)
+        w = quant.fake_quant(p["w"], p["sw"], PIN_EDGE_BITS, impl).t()
+    xq = quant.fake_quant(x, HEAD_ACT_STEP, PIN_EDGE_BITS, impl)
     return kref.matmul(xq, w.to(x.dtype))
 
 
@@ -145,26 +154,73 @@ def apply(params: dict, policy_arrays: dict, tokens: torch.Tensor, cfg,
     arange); ``logits_at`` (B,) picks one position per row before the LM
     head (prefill needs only each request's last valid logits).  Prefill
     returns the per-layer K/V; decode updates ``caches`` in place.
+
+    Train mode fake-quantizes every projection weight once
+    (``common.prequantize_params``) and, when a gradient is recorded,
+    checkpoints each layer (``torch.utils.checkpoint``, non-reentrant: the
+    backward recomputes the layer's forward), the counterpart of the
+    reference's ``jax.checkpoint(body)``.
     """
     _check_supported(cfg)
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, impl)
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
+    remat = mode == "train" and torch.is_grad_enabled()
+    if mode == "train":
+        params = common.prequantize_params(params, policy_arrays,
+                                           slot_index(cfg), impl)
     new_pat = []
     for r in range(cfg.n_repeats):
         bits = layer_bits(policy_arrays, cfg, r)
         out = {}
         for j, _ in enumerate(cfg.pattern):
             cache = None if caches is None else caches["pat"][r][f"p{j}"]
-            x, out[f"p{j}"] = block_apply(params["pat"][r][f"p{j}"], x,
-                                          bits[j], cfg, mode, cache,
-                                          positions, impl)
+            args = (params["pat"][r][f"p{j}"], x, bits[j], cfg, mode, cache,
+                    positions, impl)
+            x, out[f"p{j}"] = (checkpoint(block_apply, *args,
+                                          use_reentrant=False) if remat
+                               else block_apply(*args))
         new_pat.append(out)
     x = common.apply_norm(cfg.norm, x, params["final_norm"])
     if logits_at is not None:
         x = x[torch.arange(b, device=x.device), logits_at][:, None]
     return _head(params, cfg, x, impl), {"pat": new_pat}
+
+
+# ===================================================================== loss
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None,
+                  z_weight: float = 1e-4):
+    """Mean next-token cross entropy plus the z-loss z_weight * lse^2, over
+    the tokens ``mask`` keeps, and the argmax accuracy
+    (``repro/models/transformer.py:560-581``).  Returns (loss, accuracy),
+    0-d float32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    label_logit = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    per_tok = (lse - label_logit) + z_weight * lse ** 2
+    mask = torch.ones_like(lse) if mask is None else mask.float()
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = (per_tok * mask).sum() / denom
+    acc = ((logits.argmax(-1) == labels).float() * mask).sum() / denom
+    return loss, acc
+
+
+def loss_fn(params: dict, policy_arrays: dict, batch: dict, cfg,
+            impl: str = "auto"):
+    """Next-token LM loss of ``batch`` ({'tokens', 'labels'[, 'loss_mask']},
+    (B, S) tensors): (loss, metrics) with metrics {'loss', 'accuracy',
+    'aux_loss'} (0-d tensors, no host sync).  The olmo family has no
+    auxiliary loss and no multi-token head, so aux_loss is 0 and the loss
+    is the cross entropy, as in ``repro/models/transformer.py:584-612``."""
+    logits, _ = apply(params, policy_arrays, batch["tokens"], cfg,
+                      mode="train", impl=impl)
+    loss, acc = cross_entropy(logits, batch["labels"],
+                              batch.get("loss_mask"))
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss + aux, {"loss": loss.detach(), "accuracy": acc,
+                        "aux_loss": aux}
 
 
 # ============================================================ policy builder

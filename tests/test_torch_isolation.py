@@ -28,7 +28,10 @@ def test_no_jax_or_repro_import(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.serve, repro_torch.convert,"
-            " repro_torch.kernels.cuda, repro_torch.kernels.build;"
+            " repro_torch.kernels.cuda, repro_torch.kernels.build,"
+            " repro_torch.train.step, repro_torch.train.loop,"
+            " repro_torch.optim.lamb, repro_torch.data.synthetic,"
+            " repro_torch.core.metrics;"
             " bad = sorted(m for m in sys.modules"
             " if m == 'jax' or m.startswith(('jax.', 'repro.')) or m == 'repro');"
             " print(bad); sys.exit(1 if bad else 0)")

@@ -138,7 +138,9 @@ def test_lsq_grouped_dispatch_and_count(monkeypatch):
     real = tops.lsq_fakequant
 
     def counted(x, step, bits, impl="auto"):
-        calls.append(len(step) if isinstance(step, (list, tuple)) else 0)
+        if x.ndim == 3:     # activations; the 2-D weights have their own
+            calls.append(len(step) if isinstance(step, (list, tuple))
+                         else 0)
         return real(x, step, bits, impl=impl)
 
     bits = {"attn_qkv": 4.0, "attn_wo": 2.0, "mlp_gateup": 4.0,
@@ -701,6 +703,67 @@ def test_cuda_lsq_exact(card):
                                    rtol=0, atol=0)
     calls, bad = chip_smoke.lsq_probe(card)
     assert calls == 144 and not bad, bad
+
+
+LSQ_BWD_SHAPES = [((8 * 512, 2048), 3), ((8 * 512, 8192), 1),
+                  ((2048, 8192), 1), ((8 * 1000 + 3,), 3), ((5,), 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,n_steps", LSQ_BWD_SHAPES)
+def test_cuda_lsq_bwd_matches_plain(card, shape, n_steps, dtype):
+    """The backward kernel at chip_smoke's phase 3 shapes (q/k/v's and the
+    down projection's train inputs, a gate/up weight, a ragged length and
+    a length below one vector): gx bit for bit, each gs within 1e-5 *
+    gscale * sum|g * ds| of the plain version (the sums' orders differ; both
+    add in float64); two launches equal; one launch counted."""
+    import chip_smoke
+    from repro_torch.kernels import cuda
+    g = torch.Generator(card).manual_seed(3)
+    x = torch.randn(shape, generator=g, device=card).to(dtype)
+    grads = [torch.randn(shape, generator=g, device=card).to(dtype)
+             for _ in range(n_steps)]
+    steps = [torch.tensor(v, device=card) if k != 1 else v
+             for k, v in enumerate((0.31, 0.7, 1.7)[:n_steps])]
+    for bits in (2, 4, 8):
+        equal, worst, _ = chip_smoke.lsq_bwd_compare(x, grads, steps, bits)
+        assert equal and worst <= 1.0, (bits, equal, worst)
+    before = cuda.LAUNCHES["lsq_fakequant_bwd"]
+    a = cuda.lsq_fakequant_bwd(x, grads, steps, 4)
+    b = cuda.lsq_fakequant_bwd(x, grads, steps, 4)
+    assert cuda.LAUNCHES["lsq_fakequant_bwd"] == before + 2
+    assert torch.equal(a[0], b[0]) and all(torch.equal(p, q) for p, q in
+                                           zip(a[1], b[1]))
+
+
+@pytest.mark.cuda
+def test_cuda_lsq_bwd_autograd_matches_ref(card):
+    """LsqFakeQuant on a CUDA tensor runs both kernels (the counters move)
+    and gives the gradients of impl="ref" (gx exactly, the steps within
+    1e-6 relative)."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import cuda
+    g = torch.Generator(card).manual_seed(4)
+    x0 = torch.randn((64, 512), generator=g, device=card).bfloat16()
+    cot = [torch.randn(x0.shape, generator=g, device=card).bfloat16()
+           for _ in range(3)]
+    out = {}
+    for impl in ("auto", "ref"):
+        x = x0.clone().requires_grad_(True)
+        steps = [torch.tensor(v, device=card, requires_grad=True)
+                 for v in (0.2, 0.3, 0.5)]
+        before = dict(cuda.LAUNCHES)
+        ys = quant.fake_quant_group(x, steps, 4, impl)
+        torch.autograd.backward(ys, cot)
+        moved = {k: cuda.LAUNCHES[k] - before[k] for k in before}
+        out[impl] = (x.grad, [s.grad for s in steps], moved)
+    assert out["auto"][2]["lsq_fakequant"] == 1
+    assert out["auto"][2]["lsq_fakequant_bwd"] == 1
+    assert not any(out["ref"][2].values())
+    assert torch.equal(out["auto"][0], out["ref"][0])
+    for a, b in zip(out["auto"][1], out["ref"][1]):
+        assert abs(float(a) - float(b)) <= 1e-6 * abs(float(b))
 
 
 @pytest.mark.cuda
