@@ -55,6 +55,14 @@ Phases, in order; any failure exits non-zero:
                kernel (see phase_train).
   alps       - ALPS over the 64 selectable units from the trained state,
                EAGL on the same weights, both knapsack takes (phase_alps).
+  hawq       - HAWQ-v3 over the same units from the same state: 8
+               Hutchinson probes, each a torch.func jvp of grad; its wall
+               seconds beside ALPS's and EAGL's (phase_hawq).
+  frontier   - the frontier sweep: EAGL, ALPS, HAWQ-v3, uniform and the
+               two greedy baselines at budgets 0.9, 0.75 and 0.6, each
+               point fine-tuned 4 steps from the b_hi state and evaluated
+               on 2 held-out batches; the joint weight-and-cache knapsack's
+               take (phase_frontier).
 The second-to-last line is the kernels JSON, the last the device JSON.
 Details go to chiprun_out/chip_smoke.json and chiprun_out/build_log.txt.
 """
@@ -2063,11 +2071,14 @@ def shadowed(block_apply, errs: list):
     """``block_apply`` that also runs the plain version of each block
     (impl="ref") on the same input and a copy of the same cache, and
     appends the relative RMS and max-abs errors of the block's output."""
-    def both(p, x, bits, cfg, mode, cache, positions, impl="auto"):
+    def both(p, x, bits, cfg, mode, cache, positions, impl="auto",
+             hvp=False):
         copy = None if cache is None else {k: v.clone()
                                            for k, v in cache.items()}
-        want, _ = block_apply(p, x, bits, cfg, mode, copy, positions, "ref")
-        got, new = block_apply(p, x, bits, cfg, mode, cache, positions, impl)
+        want, _ = block_apply(p, x, bits, cfg, mode, copy, positions, "ref",
+                              hvp)
+        got, new = block_apply(p, x, bits, cfg, mode, cache, positions, impl,
+                               hvp)
         errs.append((rel_rms_err(got, want), rel_err(got, want)))
         return got, new
     return both
@@ -2463,6 +2474,339 @@ def phase_alps(cfg, dev, state, smi_line):
     return rec
 
 
+HAWQ_SEED_BATCH = 5            # frontier_bench's HAWQ batch, make_batch(5, 0)
+HAWQ_REF_PROBES = 2            # probes of H3's kernel vs impl="ref" traces
+# H3: kernel route's traces against impl="ref"'s, relative to the largest
+# |trace|; measured 0 on the H100 (the products' forward kernel equals its
+# plain version bit for bit, as in T1, and their LSQ backward is the same
+# torch ops on both routes)
+HAWQ_REF_TOL = 1e-6
+FRONTIER_BUDGETS = (0.9, 0.75, 0.6)   # frontier_bench.run's defaults
+FRONTIER_STEPS = 4                    # fine-tune steps a point
+FRONTIER_EVAL = 2                     # held-out batches, make_batch(123, i)
+JOINT_BUDGET, JOINT_CONTEXT = 0.7, 1024   # the joint knapsack's log line
+
+
+def params_equal(state, saved) -> bool:
+    from repro_torch import tree
+    return all(torch.equal(p.detach(), q) for p, q in
+               zip(tree.leaves(state.params), saved))
+
+
+def hvp_memory(cfg, dev, sizes=((1, 256), (2, 256), (4, 256))) -> list:
+    """Peak device memory beyond the weights (fresh, from seed 0) and wall
+    seconds of one gradient of the train-mode loss without checkpointing
+    by ``torch.autograd.grad`` (the LSQ backward kernel), of the same by
+    ``torch.func.grad`` of ``hawq.hvp_loss``, and of one HAWQ product, at
+    each (batch, tokens).  Not a phase: run it alone after phase_build,
+    ``c.hvp_memory(olmo_1b.config(), torch.device('cuda'))``."""
+    from repro_torch import tree
+    from repro_torch.core.metrics import hawq
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models import transformer as tf
+    params = tf.init_params(cfg, 0, dev)
+    pa = tf.build_policy(cfg).as_arrays()
+    leaves = tree.leaves(params)
+    base = torch.cuda.memory_allocated()
+
+    def grad(b):
+        for p in leaves:
+            p.requires_grad_(True)
+        loss, _ = tf.loss_fn(params, pa, b, cfg, "auto", remat=False)
+        torch.autograd.grad(loss, leaves)
+        for p in leaves:
+            p.requires_grad_(False)
+
+    def product(b):
+        v = next(hawq.rademacher_probes(params, hawq.HawqConfig(n_probes=1)))
+        torch.func.jvp(torch.func.grad(
+            lambda p: hawq.hvp_loss(cfg, pa)(p, b)), (params,), (v,))
+
+    rows = []
+    for bsz, s in sizes:
+        b = make_batch(HAWQ_SEED_BATCH, 0, bsz, s, cfg.vocab, device=dev)
+        for name, fn in (("autograd.grad", grad),
+                         ("func.grad", lambda b: torch.func.grad(
+                             hawq.hvp_loss(cfg, pa))(params, b)),
+                         ("hvp", product)):
+            sync(dev)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            fn(b)
+            sync(dev)
+            rows.append({"batch": [bsz, s], "what": name,
+                         "s": time.perf_counter() - t0,
+                         "peak_gib": (torch.cuda.max_memory_allocated()
+                                      - base) / 2 ** 30})
+            log(f"  {bsz} x {s} {name}: {rows[-1]['peak_gib']:.2f} GiB "
+                f"beyond the weights, {rows[-1]['s']:.2f} s")
+    return rows
+
+
+def phase_hawq(cfg, dev, state, alps, smi_line):
+    """HAWQ-v3 over every selectable unit from the trained state:
+    ``HawqConfig()`` (8 Rademacher probes from the port's generator), one
+    batch make_batch(5, 0) at ALPS_B x ALPS_S, per-layer paths, each probe
+    one ``torch.func.jvp`` of ``torch.func.grad`` of ``hawq.hvp_loss``
+    (train mode without checkpointing, the LSQ backward in torch ops).
+    Readings: wall seconds beside the alps phase's ALPS and EAGL seconds,
+    peak memory, the LSQ forward's route (its launches), the knapsack take
+    at 0.7 and its overlap with ALPS's and EAGL's.  Gates: (H1) every gain
+    finite; (H2) the params after HAWQ equal the b_hi state bit for bit;
+    (H3) on ALPS_REF_UNITS units, with the same HAWQ_REF_PROBES injected
+    probes, the kernel route's traces within HAWQ_REF_TOL of impl="ref"'s
+    (relative to the largest); (H4) no lsq_fakequant_bwd launch during the
+    products."""
+    from repro_torch import tree
+    from repro_torch.core import knapsack
+    from repro_torch.core.metrics import hawq
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels import cuda
+    from repro_torch.models import transformer as tf
+    policy = tf.build_policy(cfg)
+    units = policy.selectable_units()
+    pa = policy.as_arrays()
+    batch = make_batch(HAWQ_SEED_BATCH, 0, ALPS_B, ALPS_S, cfg.vocab,
+                       device=dev)
+    b_hi = [p.detach().clone() for p in tree.leaves(state.params)]
+    hcfg = hawq.HawqConfig()
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    gains = hawq.hawq_gains(policy, hawq.hvp_loss(cfg, pa, "auto"),
+                            state.params, None, hcfg, batch)
+    sync(dev)
+    hawq_s = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    h1 = all(math.isfinite(g) for g in gains.values())
+    h2 = params_equal(state, b_hi)
+    del b_hi
+
+    paths = hawq.unit_tensor_paths(policy)
+    some = {k: v for k, v in paths.items()
+            if k.split("/")[0] in {u.name for u in units[:ALPS_REF_UNITS]}}
+    probes = list(hawq.rademacher_probes(
+        state.params, hawq.HawqConfig(n_probes=HAWQ_REF_PROBES, seed=1)))
+    traces = {impl: hawq.hutchinson_traces(hawq.hvp_loss(cfg, pa, impl),
+                                           state.params, some, hcfg, batch,
+                                           probes=probes)
+              for impl in ("auto", "ref")}
+    del probes
+    top = max(abs(v) for v in traces["ref"].values())
+    h3 = max(abs(traces["auto"][k] - traces["ref"][k]) for k in some) / top
+
+    take_h = knapsack.select_for_budget(policy, gains, budget_frac=0.7).take
+    rec = {"device": smi_line, "units": len(units), "probes": hcfg.n_probes,
+           "batch": [ALPS_B, ALPS_S], "hawq_s": hawq_s,
+           "alps_s": alps["alps_s"], "eagl_s": alps["eagl_s"],
+           "hawq_over_eagl": hawq_s / alps["eagl_s"],
+           "alps_over_hawq": alps["alps_s"] / hawq_s,
+           "peak_gib": peak / 2 ** 30, "launches": launches,
+           "forward_route": ("lsq_fakequant kernel"
+                             if launches["lsq_fakequant"] else "plain"),
+           "gains": gains, "h1_finite": h1, "h2_params_equal": h2,
+           "h3_rel": h3, "h3_traces": traces, "take_hawq": take_h,
+           "n4_hawq": sum(take_h.values()),
+           "overlap_alps": sum(take_h[u.name] == alps["take_alps"][u.name]
+                               for u in units),
+           "overlap_eagl": sum(take_h[u.name] == alps["take_eagl"][u.name]
+                               for u in units)}
+    log(f"  HAWQ-v3 over {len(units)} units ({hcfg.n_probes} probes, "
+        f"{ALPS_B} x {ALPS_S} tokens): {hawq_s:.2f} s; ALPS "
+        f"{alps['alps_s']:.1f} s, EAGL {alps['eagl_s']:.3f} s: ALPS / HAWQ "
+        f"= {rec['alps_over_hawq']:.2f}, HAWQ / EAGL = "
+        f"{rec['hawq_over_eagl']:.0f}; peak {rec['peak_gib']:.2f} GiB; the "
+        f"products' LSQ forward: {rec['forward_route']} "
+        f"({launches['lsq_fakequant']} launches), backward launches "
+        f"{launches['lsq_fakequant_bwd']}")
+    log(f"  gains {min(gains.values()):.4g} to {max(gains.values()):.4g}; "
+        f"knapsack at 0.7 keeps {rec['n4_hawq']} units at 4 bits; agrees "
+        f"with ALPS's take on {rec['overlap_alps']}, EAGL's on "
+        f"{rec['overlap_eagl']} of {len(units)}")
+    log(f"  H1 finite: {h1}; H2 params equal b_hi: {h2}; H3 kernel vs ref "
+        f"traces {h3:.3g} of the largest ({len(some)} tensors, "
+        f"{HAWQ_REF_PROBES} probes); H4 backward launches "
+        f"{launches['lsq_fakequant_bwd']}")
+    bad = []
+    if not h1:
+        bad.append("H1: a HAWQ gain is not finite")
+    if not h2:
+        bad.append("H2: the params after HAWQ differ from the b_hi state")
+    if not h3 <= HAWQ_REF_TOL:
+        bad.append(f"H3: kernel vs impl='ref' traces {h3} of the largest")
+    if launches["lsq_fakequant_bwd"]:
+        bad.append(f"H4: lsq_fakequant_bwd launched "
+                   f"{launches['lsq_fakequant_bwd']} times in the products")
+    if bad:
+        raise RuntimeError(f"hawq phase: {bad}")
+    return rec
+
+
+def point_costs(policy, mixed, budget_frac) -> dict:
+    """A frontier point's cost on the paper's other axes (core/costs.py):
+    bit-ops (MACs x b_w x b_a, Table 1), the weight bytes a decode step
+    streams (the H100's decode cost) and the budget's BMAC bookkeeping."""
+    from repro_torch.core import costs
+    return {"bit_ops": costs.bops(mixed),
+            "weight_bytes_per_token": costs.hbm_bytes_per_token(mixed),
+            **costs.frontier_axis(policy, budget_frac)}
+
+
+def phase_frontier(cfg, dev, state, gains, smi_line):
+    """``frontier.sweep`` over eagl, alps, hawq_v3, uniform, first_to_last
+    and last_to_first (``gains``: method -> gains, None for the greedy
+    ones) at FRONTIER_BUDGETS.  Each point restores the b_hi state,
+    fine-tunes FRONTIER_STEPS steps (make_batch(7, i), frontier_bench's
+    fine-tune seed, at ALPS_B x ALPS_S, the train phase's AdamW) and
+    evaluates the mean loss on FRONTIER_EVAL held-out batches
+    (make_batch(123, i), benchmarks/common.eval_loss); the b_hi state
+    under uniform 4 and 2 bits is evaluated the same way, and the joint
+    weight-and-cache take of EAGL's gains with synthetic cache gains is
+    logged.  Gates: (F1) each point's achieved cost at or under its
+    budget, to the knapsack's weight_resolution for each unit it keeps;
+    (F2) its n_dropped the number of b_lo units of its policy, its loss
+    finite; (F3) the params after the sweep equal the b_hi state bit for
+    bit; (F4) the fine-tunes' LSQ launches the points x steps x a train
+    step's (lsq_sites).  The losses are reported, not gated."""
+    from repro_torch.core import costs, frontier, knapsack
+    from repro_torch.core.metrics.alps import StateCopy
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels import cuda
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.step import make_train_step
+    policy = tf.build_policy(cfg)
+    ft = [make_batch(7, i, ALPS_B, ALPS_S, cfg.vocab, device=dev)
+          for i in range(FRONTIER_STEPS)]
+    held = [make_batch(123, i, ALPS_B, ALPS_S, cfg.vocab, device=dev)
+            for i in range(FRONTIER_EVAL)]
+    saved = StateCopy(state)
+    step = make_train_step(cfg, impl="auto")
+    ft_launches = Counter()
+
+    @torch.no_grad()
+    def evaluate(pa):
+        out = [tf.loss_fn(state.params, pa, b, cfg, "auto")
+               for b in held]
+        return {"loss": float(torch.stack([o[0] for o in out]).mean()),
+                "accuracy": float(torch.stack(
+                    [o[1]["accuracy"] for o in out]).mean())}
+
+    def finetune_eval(policy=None):
+        saved.restore(state)
+        state.policy = policy.as_arrays()
+        try:
+            before = dict(cuda.LAUNCHES)
+            train = [step(state, b)[1]["loss"] for b in ft]
+            ft_launches.update({k: cuda.LAUNCHES[k] - before[k]
+                                for k in before})
+            return dict(evaluate(state.policy),
+                        train_loss=[float(x) for x in train])
+        finally:
+            saved.restore(state)
+
+    sync(dev)
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    points = frontier.sweep(policy, gains, finetune_eval,
+                            list(FRONTIER_BUDGETS))
+    sync(dev)
+    sweep_s = time.perf_counter() - t0
+    uniform = {b: evaluate(policy.uniform(b).as_arrays())
+               for b in (policy.b_hi, policy.b_lo)}
+    f3 = params_equal(state, saved.params)
+    del saved
+
+    bmacs_hi = costs.bmacs(policy.uniform(policy.b_hi))
+    rows, bad = [], []
+    for pt in points:
+        mixed = frontier.select_policy(policy, pt.method, gains[pt.method],
+                                       pt.budget_frac)
+        n_lo = sum(mixed.bits_of(u.name) == policy.b_lo
+                   for u in policy.selectable_units())
+        slack = 0.0
+        if gains[pt.method] is not None:
+            res = knapsack.select_for_budget(policy, gains[pt.method],
+                                             pt.budget_frac)
+            slack = sum(res.take.values()) * res.weight_resolution / bmacs_hi
+        row = {"method": pt.method, "budget": pt.budget_frac,
+               "achieved": pt.achieved_cost_frac, "slack": slack,
+               "n_dropped": pt.n_dropped, "n_lo": n_lo,
+               "compression": pt.compression_ratio, **pt.task_metrics,
+               **point_costs(policy, mixed, pt.budget_frac)}
+        rows.append(row)
+        if not pt.achieved_cost_frac <= pt.budget_frac + slack + 1e-12:
+            bad.append(f"F1: {pt.method} at {pt.budget_frac}: achieved "
+                       f"{pt.achieved_cost_frac} (slack {slack})")
+        if pt.n_dropped != n_lo or not math.isfinite(row["loss"]):
+            bad.append(f"F2: {pt.method} at {pt.budget_frac}: n_dropped "
+                       f"{pt.n_dropped}, b_lo units {n_lo}, loss "
+                       f"{row['loss']}")
+    sites = lsq_sites(cfg)
+    n_sites = sites["activations"] + sites["weights"]
+    steps = len(points) * FRONTIER_STEPS
+    want = {"lsq_fakequant": steps * (n_sites + sites["recomputed"]),
+            "lsq_fakequant_bwd": steps * n_sites}
+    for name, n in want.items():
+        if ft_launches[name] != n:
+            bad.append(f"F4: the fine-tunes launched {name} "
+                       f"{ft_launches[name]} times, {n} expected")
+    if not f3:
+        bad.append("F3: the params after the sweep differ from the b_hi "
+                   "state")
+
+    cache_gains = knapsack.synthetic_cache_gains(policy)
+    joint = knapsack.select_weights_and_cache(
+        policy, gains["eagl"], cache_gains, JOINT_BUDGET, JOINT_CONTEXT)
+    n_cache8 = sum(joint.take[c.name]
+                   for c in policy.selectable_cache_units())
+    n_w4 = sum(joint.take[u.name] for u in policy.selectable_units())
+    rec = {"device": smi_line, "budgets": list(FRONTIER_BUDGETS),
+           "steps_per_point": FRONTIER_STEPS, "eval_batches": FRONTIER_EVAL,
+           "batch": [ALPS_B, ALPS_S], "sweep_s": sweep_s, "points": rows,
+           "uniform_4bit": uniform[policy.b_hi],
+           "uniform_2bit": uniform[policy.b_lo],
+           "finetune_launches": dict(ft_launches),
+           "launches_after": dict(cuda.LAUNCHES), "f3_params_equal": f3,
+           "joint": {"budget": JOINT_BUDGET, "context": JOINT_CONTEXT,
+                     "cache_int8": n_cache8,
+                     "cache_units": len(policy.selectable_cache_units()),
+                     "weights_4bit": n_w4,
+                     "kv_bytes_per_token": policy.apply_cache_selection(
+                         joint.take).kv_bytes_per_token()}}
+    log(f"  {len(points)} points ({len(gains)} methods x "
+        f"{len(FRONTIER_BUDGETS)} budgets), {FRONTIER_STEPS} fine-tune "
+        f"steps each at {ALPS_B} x {ALPS_S}: {sweep_s:.1f} s; eval loss "
+        f"uniform 4-bit {uniform[policy.b_hi]['loss']:.4f}, uniform 2-bit "
+        f"{uniform[policy.b_lo]['loss']:.4f}")
+    for r in rows:
+        log(f"    {r['method']:14s} budget {r['budget']:.2f} achieved "
+            f"{r['achieved']:.4f} dropped {r['n_dropped']:2d} comp "
+            f"{r['compression']:.2f}x weight bytes a token "
+            f"{r['weight_bytes_per_token']:.0f} loss {r['loss']:.4f} acc "
+            f"{r['accuracy']:.4f}")
+    log(f"  joint weight-and-cache knapsack (EAGL gains, synthetic cache "
+        f"gains, budget {JOINT_BUDGET}, context {JOINT_CONTEXT}): "
+        f"{n_cache8} of {rec['joint']['cache_units']} cache layers stay "
+        f"int8, {n_w4} weight units stay 4-bit")
+    log(f"  F3 params equal b_hi: {f3}; fine-tune launches "
+        f"{dict(ft_launches)} (expected {want})")
+    if bad:
+        raise RuntimeError(f"frontier phase: {bad}")
+    return rec
+
+
+def selection_methods(policy, alps, hawq) -> dict:
+    """The frontier's methods, as benchmarks/frontier_bench.py names them:
+    method -> gains (None for the greedy baselines)."""
+    from repro_torch.core.metrics import uniform_gains
+    return {"eagl": alps["eagl"], "alps": alps["gains"],
+            "hawq_v3": hawq["gains"], "uniform": uniform_gains(policy),
+            "first_to_last": None, "last_to_first": None}
+
+
 def main():
     smi_line = phase_device()
     from repro_torch.configs import olmo_1b
@@ -2524,6 +2868,16 @@ def main():
     t0 = time.perf_counter()
     alps = phase_alps(cfg, dev, state, smi_line)
     log(f"  alps phase {time.perf_counter() - t0:.1f} s")
+    log("hawq (HAWQ-v3 from the trained state):")
+    t0 = time.perf_counter()
+    hawq = phase_hawq(cfg, dev, state, alps, smi_line)
+    log(f"  hawq phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    log("frontier (six methods, three budgets):")
+    t0 = time.perf_counter()
+    front = phase_frontier(cfg, dev, state, selection_methods(
+        tf.build_policy(cfg), alps, hawq), smi_line)
+    log(f"  frontier phase {time.perf_counter() - t0:.1f} s")
     del state
 
     # each kernel's launches on the path that runs it
@@ -2554,7 +2908,8 @@ def main():
                    "kernels": {k: cases for k, (_, cases) in checks.items()},
                    "select": select, "serve": runs,
                    "schedule": schedule, "check": check,
-                   "train": train, "alps": alps,
+                   "train": train, "alps": alps, "hawq": hawq,
+                   "frontier": front,
                    "launch_counts_after": dict(cuda.LAUNCHES)}, f, indent=1)
     log(smi_line)
     log(json.dumps({"kernels": kernels}))

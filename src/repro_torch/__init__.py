@@ -1,9 +1,10 @@
 """PyTorch + CUDA port of ``repro``, for NVIDIA Hopper.
 
 The JAX package ``repro`` is the reference; this package trains olmo-1b
-with 4-bit LSQ QAT (``train/``), selects a 4/2-bit mix with EAGL or ALPS
-(``core/metrics``) and the knapsack, and serves the packed checkpoint,
-with hand-written CUDA kernels (``csrc/``) on an H100.  It imports neither
+with 4-bit LSQ QAT (``train/``), selects a 4/2-bit mix with EAGL, ALPS,
+HAWQ-v3 or a baseline (``core/metrics``) and the knapsack, sweeps the
+paper's frontier (``core/frontier.py``), and serves the packed
+checkpoint, with hand-written CUDA kernels (``csrc/``) on an H100.  It imports neither
 ``jax`` nor ``repro``.
 
 Entry points (``init_params``, ``init_train_state``, ``make_batch``,

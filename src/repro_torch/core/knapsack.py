@@ -108,6 +108,44 @@ def synthetic_gains(policy) -> Dict[str, float]:
             for i, u in enumerate(policy.selectable_units())}
 
 
+def synthetic_cache_gains(policy) -> Dict[str, float]:
+    """Deterministic pseudo-gains over a policy's selectable cache units
+    (the reference's definition, as ``synthetic_gains`` for weights)."""
+    return {c.name: float((i * 6271) % 11 + 1)
+            for i, c in enumerate(policy.selectable_cache_units())}
+
+
+def select_weights_and_cache(policy, gains: Dict[str, float],
+                             cache_gains: Dict[str, float],
+                             budget_frac: float, context_tokens: int
+                             ) -> KnapsackResult:
+    """One byte budget over the weight units and the per-layer KV-cache
+    bits.  A layer's resident bytes in serving are its weight bytes plus
+    its cache bytes, and the cache's grow with the context, so keeping a
+    unit's weights at b_hi competes with keeping a sensitive layer's cache
+    at int8.  Item weight: the extra bytes of keeping the item high,
+    (b_hi - b_lo) / 8 x n_params for a weight unit, (cache_b_hi -
+    cache_b_lo) / 8 x kv_elems_per_token x context_tokens for a cache
+    unit; capacity: budget_frac x the all-high bytes minus the all-low
+    floor (pinned units are constants on both sides).  ``take`` covers
+    both families: ``policy.apply_selection`` reads the weight names,
+    ``policy.apply_cache_selection`` the cache names."""
+    wu = policy.selectable_units()
+    cu = policy.selectable_cache_units()
+    keys = [u.name for u in wu] + [c.name for c in cu]
+    values = [gains[u.name] for u in wu] + [cache_gains[c.name] for c in cu]
+    w_bytes = [u.n_params / 8.0 for u in wu]
+    c_bytes = [c.kv_elems_per_token * context_tokens / 8.0 for c in cu]
+    weights = ([(policy.b_hi - policy.b_lo) * w for w in w_bytes]
+               + [(policy.cache_b_hi - policy.cache_b_lo) * w
+                  for w in c_bytes])
+    total_hi = (sum(policy.b_hi * w for w in w_bytes)
+                + sum(policy.cache_b_hi * w for w in c_bytes))
+    floor_lo = (sum(policy.b_lo * w for w in w_bytes)
+                + sum(policy.cache_b_lo * w for w in c_bytes))
+    return solve(keys, values, weights, budget_frac * total_hi - floor_lo)
+
+
 def select_for_budget(policy, gains: Dict[str, float],
                       budget_frac: float) -> KnapsackResult:
     """Paper's selection step: keep units at b_hi within ``budget_frac`` of

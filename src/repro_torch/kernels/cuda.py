@@ -17,6 +17,7 @@ import ctypes
 from typing import Dict, Tuple
 
 import torch
+from torch.autograd import forward_ad
 
 from repro_torch.core.quant import lsq_step_grad_scale
 from repro_torch.kernels import build
@@ -122,11 +123,25 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+def _transformed(t: torch.Tensor) -> bool:
+    """A ``torch.func`` (functorch) wrapper or a forward-mode dual tensor:
+    its tangent or its transform would not see the launch."""
+    return (torch._C._functorch.is_functorch_wrapped_tensor(t)
+            or forward_ad.unpack_dual(t).tangent is not None)
+
+
 def _refuse_grad(name: str, tensors) -> None:
     """A kernel launch writes into a tensor it allocated and records no
     gradient: with grad mode on, an operand that requires grad would lose
-    its gradient without an error, so the call raises instead.  The LSQ
-    kernels are differentiated through ``core.quant.LsqFakeQuant``."""
+    its gradient without an error, and a functorch-wrapped or dual operand
+    its tangent, so the call raises instead.  The LSQ kernels are
+    differentiated through ``core.quant.LsqFakeQuant``."""
+    if any(_transformed(t) for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no forward-mode rule and is not a "
+            f"torch.func transform's operation, and an operand is a "
+            f"functorch-wrapped or dual tensor (HAWQ's products take "
+            f"quant.fake_quant(..., hvp=True))")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name}: the kernel has no gradient, and an operand requires "

@@ -183,15 +183,16 @@ def init_gqa(gen: torch.Generator, cfg, device) -> dict:
 
 
 def gqa_apply(p: dict, x: torch.Tensor, bits: dict, cfg, mode: str, cache,
-              positions: torch.Tensor, impl: str = "auto"):
+              positions: torch.Tensor, impl: str = "auto", hvp: bool = False):
     """x (B, S, d); bits {'attn_qkv', 'attn_wo'}; positions (B, S).
     Returns (y, cache): the prefill K/V in prefill mode, the (in place)
-    updated cache in decode mode, None in train mode."""
+    updated cache in decode mode, None in train mode.  ``hvp`` (train
+    mode): the LSQ backward in torch ops (``quant.LsqFakeQuant``)."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     group = h // hkv
     q, k, v = qproj_group(x, (p["wq"], p["wk"], p["wv"]), bits["attn_qkv"],
-                          impl)
+                          impl, hvp)
     q = q.reshape(b, s, h, dh)
     k = k.reshape(b, s, hkv, dh)
     v = v.reshape(b, s, hkv, dh)
@@ -271,7 +272,8 @@ def gqa_apply(p: dict, x: torch.Tensor, bits: dict, cfg, mode: str, cache,
     else:
         out = chunked_attention(q, _repeat_kv(k, group), _repeat_kv(v, group),
                                 min(DEFAULT_CHUNK, s), cfg.causal)
-    y = qproj(out.reshape(b, s, h * dh), p["wo"], bits["attn_wo"], impl)
+    y = qproj(out.reshape(b, s, h * dh), p["wo"], bits["attn_wo"], impl,
+              hvp)
     new_cache = None
     if mode == "prefill":
         new_cache = {"k": k.to(cfg.cache_dtype), "v": v.to(cfg.cache_dtype)}

@@ -107,36 +107,42 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     return torch.cat([a, b], dim=-1).to(x.dtype)
 
 
-def weight_of(p, bits, impl: str = "auto") -> torch.Tensor:
+def weight_of(p, bits, impl: str = "auto", hvp: bool = False
+              ) -> torch.Tensor:
     """The (de)quantized float weight of a param node."""
     if isinstance(p, PackedLinear):
         return quant.packed_weight_dense(p, torch.float32)
     if "wpre" in p:
         return p["wpre"]
-    return quant.fake_quant(p["w"], p["sw"], bits, impl)
+    return quant.fake_quant(p["w"], p["sw"], bits, impl, hvp)
 
 
-def qproj(x: torch.Tensor, p, bits, impl: str = "auto") -> torch.Tensor:
+def qproj(x: torch.Tensor, p, bits, impl: str = "auto", hvp: bool = False
+          ) -> torch.Tensor:
     """Quantized projection: activation fake-quant at ``bits``, then the
-    packed matmul (PackedLinear) or a float matmul (dict layouts)."""
-    return qproj_group(x, (p,), bits, impl)[0]
+    packed matmul (PackedLinear) or a float matmul (dict layouts).  ``hvp``
+    picks the LSQ backward that a Hessian-vector product can differentiate
+    (``quant.LsqFakeQuant``)."""
+    return qproj_group(x, (p,), bits, impl, hvp)[0]
 
 
-def qproj_group(x: torch.Tensor, ps, bits, impl: str = "auto") -> list:
+def qproj_group(x: torch.Tensor, ps, bits, impl: str = "auto",
+                hvp: bool = False) -> list:
     """``qproj`` of one input through 1 to 3 projections at one bit-width
     (q/k/v, gate/up): one grouped fake-quant of ``x``, each at its own
     step, then each projection's matmul.  Under a recorded gradient the
     grouped backward sums the projections' straight-through cotangents
     into one gx (one launch on the card)."""
     steps = [p.sa if isinstance(p, PackedLinear) else p["sa"] for p in ps]
-    xqs = quant.fake_quant_group(x, steps, bits, impl)
+    xqs = quant.fake_quant_group(x, steps, bits, impl, hvp)
     return [kops.packed_matmul(xq, p, impl=impl)
             if isinstance(p, PackedLinear)
-            else kref.matmul(xq, weight_of(p, bits, impl).to(xq.dtype))
+            else kref.matmul(xq, weight_of(p, bits, impl, hvp).to(xq.dtype))
             for xq, p in zip(xqs, ps)]
 
 
-def prequantize_params(params, policy_arrays, slot_of, impl: str = "auto"):
+def prequantize_params(params, policy_arrays, slot_of, impl: str = "auto",
+                       hvp: bool = False):
     """Fake-quantize every projection weight once, before the layers run
     (``repro/models/transformer.py:380-412``): each ``{'w', 'sw', 'sa'}``
     node becomes ``{'wpre': fake_quant(w, sw, bits), 'sa': sa}``; the
@@ -150,7 +156,7 @@ def prequantize_params(params, policy_arrays, slot_of, impl: str = "auto"):
             bits = (4.0 if key is None else
                     float(np.asarray(policy_arrays[key[0]][key[1]])[layer]))
             return {"wpre": quant.fake_quant(node["w"], node["sw"], bits,
-                                             impl),
+                                             impl, hvp),
                     "sa": node["sa"]}
         if isinstance(node, dict):
             return {k: walk(v, path + (k,), layer) for k, v in node.items()}

@@ -18,8 +18,9 @@ def init_dense_mlp(gen: torch.Generator, cfg, device, d_ff=None) -> dict:
 
 
 def dense_mlp_apply(p: dict, x: torch.Tensor, bits: dict,
-                    impl: str = "auto") -> torch.Tensor:
+                    impl: str = "auto", hvp: bool = False) -> torch.Tensor:
     """SwiGLU; bits: {'mlp_gateup', 'mlp_down'}."""
-    g, u = qproj_group(x, (p["gate"], p["up"]), bits["mlp_gateup"], impl)
+    g, u = qproj_group(x, (p["gate"], p["up"]), bits["mlp_gateup"], impl,
+                       hvp)
     return qproj(torch.nn.functional.silu(g) * u, p["down"],
-                 bits["mlp_down"], impl)
+                 bits["mlp_down"], impl, hvp)

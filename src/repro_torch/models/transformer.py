@@ -73,14 +73,15 @@ def init_params(cfg, seed: int = 0, device="cuda") -> dict:
 
 
 def block_apply(p: dict, x: torch.Tensor, bits: dict, cfg, mode: str, cache,
-                positions: torch.Tensor, impl: str = "auto"):
+                positions: torch.Tensor, impl: str = "auto",
+                hvp: bool = False):
     """One GQA + SwiGLU block.  Returns (x, new_cache)."""
     h = common.apply_norm(cfg.norm, x, p["norm1"])
     y, new_cache = attn.gqa_apply(p["attn"], h, bits, cfg, mode, cache,
-                                  positions, impl)
+                                  positions, impl, hvp)
     x = x + y
     h = common.apply_norm(cfg.norm, x, p["norm2"])
-    return x + mlp.dense_mlp_apply(p["mlp"], h, bits, impl), new_cache
+    return x + mlp.dense_mlp_apply(p["mlp"], h, bits, impl, hvp), new_cache
 
 
 def init_caches(cfg, batch: int, max_seq: int, cache_dtype, device,
@@ -108,22 +109,22 @@ def init_caches(cfg, batch: int, max_seq: int, cache_dtype, device,
                     for _ in range(cfg.n_repeats)]}
 
 
-def _embed(params: dict, cfg, tokens: torch.Tensor, impl: str = "auto"
-           ) -> torch.Tensor:
+def _embed(params: dict, cfg, tokens: torch.Tensor, impl: str = "auto",
+           hvp: bool = False) -> torch.Tensor:
     p = params["embed"]
     if "wq" in p:               # serve layout: int8 codes, gather first
         rows = p["wq"][tokens]
         x = rows.to(cfg.compute_dtype) * p["scale"].to(cfg.compute_dtype)
     else:
-        table = quant.fake_quant(p["w"], p["sw"], PIN_EDGE_BITS, impl)
+        table = quant.fake_quant(p["w"], p["sw"], PIN_EDGE_BITS, impl, hvp)
         # embedding's backward gave the same bits on every run on the
         # card (chip_smoke's train and alps repeat gates)
         x = torch.nn.functional.embedding(tokens, table)
     return x.to(cfg.compute_dtype)
 
 
-def _head(params: dict, cfg, x: torch.Tensor, impl: str = "auto"
-          ) -> torch.Tensor:
+def _head(params: dict, cfg, x: torch.Tensor, impl: str = "auto",
+          hvp: bool = False) -> torch.Tensor:
     """Tied LM head, weights and input activations pinned 8-bit.  A plain
     product (the JAX package leaves it to XLA), here ``torch.matmul``.  As
     in the reference, the table is fake-quantized here and in ``_embed``
@@ -132,8 +133,8 @@ def _head(params: dict, cfg, x: torch.Tensor, impl: str = "auto"
     if "wq" in p:
         w = (p["wq"].to(x.dtype) * p["scale"].to(x.dtype)).t()
     else:
-        w = quant.fake_quant(p["w"], p["sw"], PIN_EDGE_BITS, impl).t()
-    xq = quant.fake_quant(x, HEAD_ACT_STEP, PIN_EDGE_BITS, impl)
+        w = quant.fake_quant(p["w"], p["sw"], PIN_EDGE_BITS, impl, hvp).t()
+    xq = quant.fake_quant(x, HEAD_ACT_STEP, PIN_EDGE_BITS, impl, hvp)
     return kref.matmul(xq, w.to(x.dtype))
 
 
@@ -147,7 +148,8 @@ def layer_bits(policy_arrays: dict, cfg, r: int) -> List[Dict[str, float]]:
 def apply(params: dict, policy_arrays: dict, tokens: torch.Tensor, cfg,
           mode: str = "train", caches: Optional[dict] = None,
           positions: Optional[torch.Tensor] = None, impl: str = "auto",
-          logits_at: Optional[torch.Tensor] = None):
+          logits_at: Optional[torch.Tensor] = None, remat: bool = True,
+          hvp: bool = False):
     """Returns (logits, new_caches).
 
     tokens (B, S) int; positions (B, S) absolute positions (default
@@ -159,17 +161,23 @@ def apply(params: dict, policy_arrays: dict, tokens: torch.Tensor, cfg,
     (``common.prequantize_params``) and, when a gradient is recorded,
     checkpoints each layer (``torch.utils.checkpoint``, non-reentrant: the
     backward recomputes the layer's forward), the counterpart of the
-    reference's ``jax.checkpoint(body)``.
+    reference's ``jax.checkpoint(body)``.  ``remat=False`` runs the layers
+    as they are: ``torch.func.grad`` refuses checkpointing's saved-tensor
+    hooks.  ``hvp=True`` gives every LSQ fake-quant the backward in torch
+    ops that forward mode can differentiate (``quant.LsqFakeQuant``), for
+    ``torch.func.jvp`` of ``torch.func.grad`` (HAWQ's Hessian-vector
+    products, ``core/metrics/hawq.py``); the default keeps the backward
+    kernel.
     """
     _check_supported(cfg)
-    x = _embed(params, cfg, tokens, impl)
+    x = _embed(params, cfg, tokens, impl, hvp)
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
-    remat = mode == "train" and torch.is_grad_enabled()
+    remat = remat and mode == "train" and torch.is_grad_enabled()
     if mode == "train":
         params = common.prequantize_params(params, policy_arrays,
-                                           slot_index(cfg), impl)
+                                           slot_index(cfg), impl, hvp)
     new_pat = []
     for r in range(cfg.n_repeats):
         bits = layer_bits(policy_arrays, cfg, r)
@@ -177,7 +185,7 @@ def apply(params: dict, policy_arrays: dict, tokens: torch.Tensor, cfg,
         for j, _ in enumerate(cfg.pattern):
             cache = None if caches is None else caches["pat"][r][f"p{j}"]
             args = (params["pat"][r][f"p{j}"], x, bits[j], cfg, mode, cache,
-                    positions, impl)
+                    positions, impl, hvp)
             x, out[f"p{j}"] = (checkpoint(block_apply, *args,
                                           use_reentrant=False) if remat
                                else block_apply(*args))
@@ -185,7 +193,7 @@ def apply(params: dict, policy_arrays: dict, tokens: torch.Tensor, cfg,
     x = common.apply_norm(cfg.norm, x, params["final_norm"])
     if logits_at is not None:
         x = x[torch.arange(b, device=x.device), logits_at][:, None]
-    return _head(params, cfg, x, impl), {"pat": new_pat}
+    return _head(params, cfg, x, impl, hvp), {"pat": new_pat}
 
 
 # ===================================================================== loss
@@ -208,14 +216,15 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def loss_fn(params: dict, policy_arrays: dict, batch: dict, cfg,
-            impl: str = "auto"):
+            impl: str = "auto", remat: bool = True, hvp: bool = False):
     """Next-token LM loss of ``batch`` ({'tokens', 'labels'[, 'loss_mask']},
     (B, S) tensors): (loss, metrics) with metrics {'loss', 'accuracy',
     'aux_loss'} (0-d tensors, no host sync).  The olmo family has no
     auxiliary loss and no multi-token head, so aux_loss is 0 and the loss
-    is the cross entropy, as in ``repro/models/transformer.py:584-612``."""
+    is the cross entropy, as in ``repro/models/transformer.py:584-612``.
+    ``remat`` and ``hvp`` as in ``apply``."""
     logits, _ = apply(params, policy_arrays, batch["tokens"], cfg,
-                      mode="train", impl=impl)
+                      mode="train", impl=impl, remat=remat, hvp=hvp)
     loss, acc = cross_entropy(logits, batch["labels"],
                               batch.get("loss_mask"))
     aux = torch.zeros((), dtype=torch.float32, device=loss.device)

@@ -11,9 +11,13 @@ Parameters are updated in place; the moments are the optimizer's state.
 int8 storage (the paper's quantization applied to the optimizer): m as
 int8 codes with one float32 scale per last-dim row, v in sqrt space as
 uint8 codes, ``{'q', 's'}`` per leaf.  The reference stacks the layers of
-the pattern on one leaf, so its per-layer scalars (the LSQ steps) share one
-int8 scale across layers; the port keeps the layers apart and gives each
-scalar its own (exact) scale.  Float32 and bf16 moments do not differ.
+the pattern on one leaf, so the layers' scalars at one path (the LSQ steps
+``sw``, ``sa``) are one 1-D leaf with one scale, the largest over the
+layers.  The port keeps the layers apart; ``share_scales`` names each such
+set of 0-d leaves (``train.step.stacked_scalars``), and a step encodes the
+set's moments stacked, as the reference does, so codes and scales are the
+reference's.  Each leaf of a set keeps its own 0-d code and the shared 0-d
+scale.
 """
 from __future__ import annotations
 
@@ -107,6 +111,7 @@ class AdamW(torch.optim.Optimizer):
         self.state_dtype = state_dtype
         self.grad_clip = grad_clip
         self.count = 0
+        self.shared: list = []
         for p in self.leaves():
             z = torch.zeros_like(p, dtype=torch.float32)
             self.state[p] = {"m": encode(z, state_dtype, signed=True),
@@ -114,6 +119,17 @@ class AdamW(torch.optim.Optimizer):
 
     def leaves(self) -> list:
         return [p for g in self.param_groups for p in g["params"]]
+
+    def share_scales(self, sets: Sequence[Sequence[int]]) -> None:
+        """Each set (indices into ``leaves()``, all 0-d) is one stacked 1-D
+        leaf of the reference: its int8 moments share one scale.  Float32
+        and bf16 moments are the same either way."""
+        params = self.leaves()
+        for idx in sets:
+            if any(params[i].ndim != 0 for i in idx):
+                raise ValueError(f"share_scales takes 0-d leaves, got "
+                                 f"{[tuple(params[i].shape) for i in idx]}")
+        self.shared = [list(idx) for idx in sets]
 
     @torch.no_grad()
     def step(self, closure=None, grads: Optional[Sequence] = None):
@@ -134,7 +150,9 @@ class AdamW(torch.optim.Optimizer):
         bc1, bc2 = bias_corrections(self.b1, self.b2, self.count)
         q8 = self.state_dtype == "int8"
         mdt = torch.bfloat16 if q8 else torch.float32
-        for p, g in zip(params, grads):
+        stacked = {i for idx in self.shared for i in idx} if q8 else set()
+        new = {}
+        for i, (p, g) in enumerate(zip(params, grads)):
             st = self.state[p]
             gf = g.float()
             m = (self.b1 * decode(st["m"], self.state_dtype)
@@ -146,6 +164,15 @@ class AdamW(torch.optim.Optimizer):
             if self.weight_decay and p.ndim >= 2:
                 upd = upd + self.weight_decay * p.float()
             p.copy_((p.float() - lr * upd).to(p.dtype))
-            st["m"] = encode(m, self.state_dtype, signed=True)
-            st["v"] = encode(v, self.state_dtype, signed=False)
+            if i in stacked:
+                new[i] = (m, v)
+            else:
+                st["m"] = encode(m, self.state_dtype, signed=True)
+                st["v"] = encode(v, self.state_dtype, signed=False)
+        for idx in (self.shared if q8 else ()):
+            for name, k, signed in (("m", 0, True), ("v", 1, False)):
+                e = _q8_encode(torch.stack([new[i][k] for i in idx]), signed)
+                for r, i in enumerate(idx):
+                    self.state[params[i]][name] = {"q": e["q"][r],
+                                                   "s": e["s"][0]}
         return loss

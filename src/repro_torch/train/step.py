@@ -23,7 +23,7 @@ import torch
 
 from repro_torch import convert, tree
 from repro_torch.models import transformer as tf
-from repro_torch.optim.adamw import global_norm
+from repro_torch.optim.adamw import AdamW, global_norm
 
 
 @dataclasses.dataclass
@@ -45,12 +45,16 @@ class TrainState:
     def to_tree(self) -> dict:
         """The state as the reference's ``TrainState`` pytree (numpy
         leaves, layers stacked): step, params, opt_state {count, m, v},
-        policy — the keys its checkpoints use."""
+        policy — the keys its checkpoints use.  An int8 moment of the
+        layers' 0-d leaves is the reference's stacked one: codes (L,) and
+        the one shared scale (1,)."""
         return {"step": np.int32(self.step),
                 "params": convert.to_jax_tree(self.params),
                 "opt_state": {"count": np.int32(self.optimizer.count),
-                              "m": convert.to_jax_tree(self.moments("m")),
-                              "v": convert.to_jax_tree(self.moments("v"))},
+                              "m": _shared_scales(convert.to_jax_tree(
+                                  self.moments("m"))),
+                              "v": _shared_scales(convert.to_jax_tree(
+                                  self.moments("v")))},
                 "policy": {g: {k: np.asarray(v, np.float32)
                                for k, v in slots.items()}
                            for g, slots in self.policy.items()}}
@@ -65,7 +69,8 @@ class TrainState:
                                                               dev))):
             p.copy_(new)
         for name in ("m", "v"):
-            loaded = convert.from_jax_params(t["opt_state"][name], dev)
+            loaded = convert.from_jax_params(
+                _per_layer_scales(t["opt_state"][name]), dev)
             for p, new in zip(tree.leaves(self.params),
                               _per_leaf(loaded, self.params)):
                 st = self.optimizer.state[p]
@@ -77,6 +82,45 @@ class TrainState:
         self.policy = {g: {k: np.asarray(v, np.float32)
                            for k, v in slots.items()}
                        for g, slots in t["policy"].items()}
+
+
+def _q8_nodes(node, fn):
+    """``node`` with ``fn`` applied to each int8 moment ``{'q', 's'}``
+    under ``"pat"`` whose codes are one per layer (a stacked 0-d leaf)."""
+    if isinstance(node, dict):
+        if set(node) == {"q", "s"} and np.ndim(node["q"]) == 1:
+            return fn(node)
+        return {k: _q8_nodes(v, fn) for k, v in node.items()}
+    return node
+
+
+def _shared_scales(t: dict) -> dict:
+    def one(e):
+        s = np.asarray(e["s"])
+        if np.any(s != s[0]):
+            raise ValueError("the layers' scales of a stacked int8 moment "
+                             "differ: the optimizer was not given "
+                             "share_scales(stacked_scalars(params))")
+        return {"q": e["q"], "s": s[:1]}
+    return dict(t, pat=_q8_nodes(t["pat"], one)) if "pat" in t else t
+
+
+def _per_layer_scales(t: dict) -> dict:
+    def one(e):
+        return {"q": e["q"], "s": np.broadcast_to(np.asarray(e["s"]),
+                                                  np.shape(e["q"]))}
+    return dict(t, pat=_q8_nodes(t["pat"], one)) if "pat" in t else t
+
+
+def stacked_scalars(params: dict) -> list:
+    """Index sets into ``tree.leaves(params)``: for each path inside the
+    pattern's layers whose leaf is 0-d (the LSQ steps), that leaf in every
+    layer.  The reference stacks each set on one 1-D leaf."""
+    at = {}
+    for i, (path, leaf) in enumerate(tree.flatten(params)):
+        if path[:1] == ("pat",) and leaf.ndim == 0:
+            at.setdefault(path[2:], []).append(i)
+    return list(at.values())
 
 
 def _per_leaf(moments, params) -> list:
@@ -95,13 +139,16 @@ def train_state_from_params(params: dict, optimizer: Callable, policy,
                             step: int = 0) -> TrainState:
     """A state over existing params (e.g. ``convert.from_jax_params``):
     every leaf is set to require grad and ``optimizer(leaves)`` builds the
-    optimizer (``functools.partial(AdamW, learning_rate=...)``)."""
+    optimizer (``functools.partial(AdamW, learning_rate=...)``); an AdamW
+    shares its int8 scales over ``stacked_scalars(params)``."""
     leaves = tree.leaves(params)
     for leaf in leaves:
         leaf.requires_grad_(True)
     pa = policy.as_arrays() if hasattr(policy, "as_arrays") else policy
-    return TrainState(step=step, params=params, optimizer=optimizer(leaves),
-                      policy=pa)
+    opt = optimizer(leaves)
+    if isinstance(opt, AdamW):
+        opt.share_scales(stacked_scalars(params))
+    return TrainState(step=step, params=params, optimizer=opt, policy=pa)
 
 
 def init_train_state(cfg, optimizer: Callable, seed: int, policy,

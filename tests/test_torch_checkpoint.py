@@ -48,9 +48,10 @@ def _tree(seed=0):
                        {"x": torch.ones((2, 2), dtype=torch.bfloat16)}]}
 
 
-def _state(seed=0):
-    return init_train_state(CFG, OPT, seed, tf.build_policy(CFG),
-                            device="cpu")
+def _state(seed=0, state_dtype="f32"):
+    return init_train_state(CFG, functools.partial(OPT,
+                                                   state_dtype=state_dtype),
+                            seed, tf.build_policy(CFG), device="cpu")
 
 
 def _equal_trees(a, b):
@@ -116,7 +117,7 @@ def test_metadata(tmp_path):
     assert meta["step"] == 3 and meta["data"]["step"] == 3
 
 
-def _jax_state():
+def _jax_state(state_dtype="f32"):
     """The reference's TrainState after one step of its own train step."""
     jax = pytest.importorskip("jax")
     from repro import configs
@@ -127,7 +128,7 @@ def _jax_state():
     from repro.train.step import init_train_state as jinit
     from repro.train.step import make_train_step as jmake
     cfg = configs.get_config("olmo-1b").smoke()
-    opt = JAdamW(learning_rate=2e-3, grad_clip=1.0)
+    opt = JAdamW(learning_rate=2e-3, grad_clip=1.0, state_dtype=state_dtype)
     state = jinit(cfg, opt, jax.random.PRNGKey(3), jtf.build_policy(cfg))
     step = jax.jit(jmake(cfg, local_context(), opt))
     state, _ = step(state, jbatch(0, 0, 2, 32, cfg.vocab))
@@ -139,14 +140,25 @@ def test_port_restores_a_jax_checkpoint(tmp_path):
     into a state made from another seed: params, moments, count, step and
     policy equal JAX's bit for bit, and the port's tree of the state is
     JAX's tree."""
+    _port_restores_a_jax_checkpoint(tmp_path, "f32")
+
+
+def test_port_restores_a_jax_int8_checkpoint(tmp_path):
+    """The same with int8 moments: the layers' LSQ steps are one stacked
+    leaf in the reference, with one scale (1,) over the layers, and come
+    back in that layout."""
+    _port_restores_a_jax_checkpoint(tmp_path, "int8")
+
+
+def _port_restores_a_jax_checkpoint(tmp_path, state_dtype):
     import jax
     from repro.checkpoint.manager import CheckpointManager as JManager
-    jstate = _jax_state()
+    jstate = _jax_state(state_dtype)
     jpolicy = jstate.policy
     jstate = jstate._replace(policy=jax.tree.map(
         lambda a: a.at[0].set(2.0), jpolicy))    # a mixed policy
     JManager(str(tmp_path), async_save=False).save(1, jstate)
-    state = _state(seed=11)
+    state = _state(seed=11, state_dtype=state_dtype)
     step, restored = CheckpointManager(str(tmp_path)).restore_latest(
         state.to_tree())
     assert step == 1
@@ -164,15 +176,25 @@ def test_port_restores_a_jax_checkpoint(tmp_path):
 def test_jax_restores_a_port_checkpoint(tmp_path):
     """The port writes its state after one step; JAX's CheckpointManager
     restores it into its own TrainState, bit for bit."""
+    _jax_restores_a_port_checkpoint(tmp_path, "f32")
+
+
+def test_jax_restores_a_port_int8_checkpoint(tmp_path):
+    """The same with int8 moments, written in the reference's stacked
+    layout (each stacked LSQ step's scale (1,))."""
+    _jax_restores_a_port_checkpoint(tmp_path, "int8")
+
+
+def _jax_restores_a_port_checkpoint(tmp_path, state_dtype):
     import jax
     from repro.checkpoint.manager import CheckpointManager as JManager
-    state = _state(seed=2)
+    state = _state(seed=2, state_dtype=state_dtype)
     data = SyntheticLM(seed=0, batch=2, seq=32, vocab=CFG.vocab,
                        device="cpu")
     state, _ = make_train_step(CFG)(state, data.next())
     CheckpointManager(str(tmp_path), async_save=False).save(1,
                                                             state.to_tree())
-    like = _jax_state()
+    like = _jax_state(state_dtype)
     step, restored = JManager(str(tmp_path)).restore_latest(like)
     assert step == 1
     got = jax.tree.map(np.asarray, {

@@ -78,6 +78,36 @@ def test_train_and_alps_phases_rehearsed(cpu_card):
     assert 0 <= alps["overlap"] <= 8
 
 
+def test_hawq_and_frontier_phases_rehearsed(cpu_card, monkeypatch):
+    """The hawq and frontier phases after the train and alps phases: H1-H4
+    and F1-F4 hold, the products make no backward launch, and the
+    fine-tunes' launches are the points x steps x a train step's."""
+    monkeypatch.setattr(chip_smoke, "FRONTIER_STEPS", 2)
+    cfg = olmo_1b.config().smoke()
+    dev = torch.device("cpu")
+    state, _ = chip_smoke.phase_train(cfg, dev, "cpu rehearsal")
+    alps = chip_smoke.phase_alps(cfg, dev, state, "cpu rehearsal")
+    hawq = chip_smoke.phase_hawq(cfg, dev, state, alps, "cpu rehearsal")
+    sites = chip_smoke.lsq_sites(cfg)
+    n = sites["activations"] + sites["weights"]
+    assert hawq["launches"]["lsq_fakequant_bwd"] == 0
+    assert hawq["launches"]["lsq_fakequant"] > 0
+    assert hawq["h3_rel"] == 0.0 and hawq["h2_params_equal"]
+    assert len(hawq["gains"]) == 8
+    from repro_torch.models import transformer as tf
+    front = chip_smoke.phase_frontier(cfg, dev, state,
+                                      chip_smoke.selection_methods(
+                                          tf.build_policy(cfg), alps, hawq),
+                                      "cpu rehearsal")
+    points = len(front["points"])
+    assert points == 6 * len(chip_smoke.FRONTIER_BUDGETS)
+    assert front["finetune_launches"]["lsq_fakequant_bwd"] == points * 2 * n
+    assert front["finetune_launches"]["lsq_fakequant"] == points * 2 * (
+        n + sites["recomputed"])
+    assert front["f3_params_equal"]
+    assert 0 <= front["joint"]["cache_int8"] <= front["joint"]["cache_units"]
+
+
 def test_phases_refuse_a_forward_only_kernel_in_training(cpu_card,
                                                          monkeypatch):
     """T5: a train step that reached flash_attention would fail the
@@ -85,9 +115,9 @@ def test_phases_refuse_a_forward_only_kernel_in_training(cpu_card,
     from repro_torch.models import attention
     real = attention.gqa_apply
 
-    def leaky(p, x, bits, cfg, mode, cache, positions, impl="auto"):
+    def leaky(*args, **kwargs):
         cuda.LAUNCHES["flash_attention"] += 1
-        return real(p, x, bits, cfg, mode, cache, positions, impl)
+        return real(*args, **kwargs)
     monkeypatch.setattr(attention, "gqa_apply", leaky)
     monkeypatch.setattr(chip_smoke, "TRAIN_STEPS", 4)
     with pytest.raises(RuntimeError, match="T5: flash_attention"):
