@@ -2493,57 +2493,6 @@ def params_equal(state, saved) -> bool:
                zip(tree.leaves(state.params), saved))
 
 
-def hvp_memory(cfg, dev, sizes=((1, 256), (2, 256), (4, 256))) -> list:
-    """Peak device memory beyond the weights (fresh, from seed 0) and wall
-    seconds of one gradient of the train-mode loss without checkpointing
-    by ``torch.autograd.grad`` (the LSQ backward kernel), of the same by
-    ``torch.func.grad`` of ``hawq.hvp_loss``, and of one HAWQ product, at
-    each (batch, tokens).  Not a phase: run it alone after phase_build,
-    ``c.hvp_memory(olmo_1b.config(), torch.device('cuda'))``."""
-    from repro_torch import tree
-    from repro_torch.core.metrics import hawq
-    from repro_torch.data.synthetic import make_batch
-    from repro_torch.models import transformer as tf
-    params = tf.init_params(cfg, 0, dev)
-    pa = tf.build_policy(cfg).as_arrays()
-    leaves = tree.leaves(params)
-    base = torch.cuda.memory_allocated()
-
-    def grad(b):
-        for p in leaves:
-            p.requires_grad_(True)
-        loss, _ = tf.loss_fn(params, pa, b, cfg, "auto", remat=False)
-        torch.autograd.grad(loss, leaves)
-        for p in leaves:
-            p.requires_grad_(False)
-
-    def product(b):
-        v = next(hawq.rademacher_probes(params, hawq.HawqConfig(n_probes=1)))
-        torch.func.jvp(torch.func.grad(
-            lambda p: hawq.hvp_loss(cfg, pa)(p, b)), (params,), (v,))
-
-    rows = []
-    for bsz, s in sizes:
-        b = make_batch(HAWQ_SEED_BATCH, 0, bsz, s, cfg.vocab, device=dev)
-        for name, fn in (("autograd.grad", grad),
-                         ("func.grad", lambda b: torch.func.grad(
-                             hawq.hvp_loss(cfg, pa))(params, b)),
-                         ("hvp", product)):
-            sync(dev)
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            fn(b)
-            sync(dev)
-            rows.append({"batch": [bsz, s], "what": name,
-                         "s": time.perf_counter() - t0,
-                         "peak_gib": (torch.cuda.max_memory_allocated()
-                                      - base) / 2 ** 30})
-            log(f"  {bsz} x {s} {name}: {rows[-1]['peak_gib']:.2f} GiB "
-                f"beyond the weights, {rows[-1]['s']:.2f} s")
-    return rows
-
-
 def phase_hawq(cfg, dev, state, alps, smi_line):
     """HAWQ-v3 over every selectable unit from the trained state:
     ``HawqConfig()`` (8 Rademacher probes from the port's generator), one
@@ -2645,16 +2594,6 @@ def phase_hawq(cfg, dev, state, alps, smi_line):
     return rec
 
 
-def point_costs(policy, mixed, budget_frac) -> dict:
-    """A frontier point's cost on the paper's other axes (core/costs.py):
-    bit-ops (MACs x b_w x b_a, Table 1), the weight bytes a decode step
-    streams (the H100's decode cost) and the budget's BMAC bookkeeping."""
-    from repro_torch.core import costs
-    return {"bit_ops": costs.bops(mixed),
-            "weight_bytes_per_token": costs.hbm_bytes_per_token(mixed),
-            **costs.frontier_axis(policy, budget_frac)}
-
-
 def phase_frontier(cfg, dev, state, gains, smi_line):
     """``frontier.sweep`` over eagl, alps, hawq_v3, uniform, first_to_last
     and last_to_first (``gains``: method -> gains, None for the greedy
@@ -2734,8 +2673,7 @@ def phase_frontier(cfg, dev, state, gains, smi_line):
         row = {"method": pt.method, "budget": pt.budget_frac,
                "achieved": pt.achieved_cost_frac, "slack": slack,
                "n_dropped": pt.n_dropped, "n_lo": n_lo,
-               "compression": pt.compression_ratio, **pt.task_metrics,
-               **point_costs(policy, mixed, pt.budget_frac)}
+               "compression": pt.compression_ratio, **pt.task_metrics}
         rows.append(row)
         if not pt.achieved_cost_frac <= pt.budget_frac + slack + 1e-12:
             bad.append(f"F1: {pt.method} at {pt.budget_frac}: achieved "
@@ -2784,8 +2722,7 @@ def phase_frontier(cfg, dev, state, gains, smi_line):
     for r in rows:
         log(f"    {r['method']:14s} budget {r['budget']:.2f} achieved "
             f"{r['achieved']:.4f} dropped {r['n_dropped']:2d} comp "
-            f"{r['compression']:.2f}x weight bytes a token "
-            f"{r['weight_bytes_per_token']:.0f} loss {r['loss']:.4f} acc "
+            f"{r['compression']:.2f}x loss {r['loss']:.4f} acc "
             f"{r['accuracy']:.4f}")
     log(f"  joint weight-and-cache knapsack (EAGL gains, synthetic cache "
         f"gains, budget {JOINT_BUDGET}, context {JOINT_CONTEXT}): "

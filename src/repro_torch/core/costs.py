@@ -4,15 +4,16 @@
 The paper's unit is the BMAC, bits x MACs, linear in the bit-width; its
 budgets are fractions of the all-4-bit network's cost.  The paper's
 hardware (NorthPole) runs low-bit MACs natively.  The H100's tensor cores
-have no 4-bit or 2-bit MAC either, so two more models are exposed:
+have no 4-bit or 2-bit MAC, and its decode cost is the weight bytes a
+step streams (``policy.model_bits() / 8``, the packed ``quant_matmul``
+GEMV reading every weight once), where low-bit weights pay off as
+bandwidth.  Those bytes are linear in b as the BMAC is, so the knapsack
+picks the same units under either when activations are negligible
+(decode).
 
-  - BOPS = MACs x b_w x b_a (Yao et al., 2021), the quadratic model of the
-    paper's Table 1;
-  - HBM bytes per token = n_params x b / 8, the decode-time cost on the
-    H100, where a decode step streams every weight once (the packed
-    ``quant_matmul`` GEMV) and low-bit weights pay off as bandwidth.
-    Since it and the BMAC are both linear in b, the knapsack picks the same
-    units under either when activations are negligible (decode).
+The reference's other cost axes (``bops``, ``hbm_bytes_per_token``,
+``frontier_axis``) have no counterpart: nothing in the reference calls
+them (its dead-code allowlist says so).
 """
 from __future__ import annotations
 
@@ -28,33 +29,7 @@ def bmacs(policy, bits_override: Optional[Dict[str, float]] = None) -> float:
     return total
 
 
-def bops(policy) -> float:
-    """Sum of MACs x b_w x b_a; weights and activations share their bits,
-    as in the paper."""
-    total = 0.0
-    for u in policy.units:
-        b = policy.bits_of(u.name)
-        total += u.macs_per_token * b * b
-    return total
-
-
-def hbm_bytes_per_token(policy) -> float:
-    """Weight bytes streamed per decoded token."""
-    total = 0.0
-    for u in policy.units:
-        total += u.n_params * policy.bits_of(u.name) / 8.0
-    return total
-
-
 def budget_sweep(fracs: Optional[List[float]] = None) -> List[float]:
     """The paper's budgets: fractions of the all-4-bit network's cost."""
     return (list(fracs) if fracs
             else [0.95, 0.90, 0.85, 0.80, 0.75, 0.70, 0.65, 0.60])
-
-
-def frontier_axis(policy, budget_frac: float) -> Dict[str, float]:
-    """The x-axis of a frontier plot at one budget."""
-    hi = policy.uniform(policy.b_hi)
-    lo = policy.uniform(policy.b_lo)
-    return {"budget_frac": budget_frac, "bmacs_hi": bmacs(hi),
-            "bmacs_lo": bmacs(lo), "bmacs_budget": budget_frac * bmacs(hi)}

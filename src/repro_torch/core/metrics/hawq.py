@@ -8,9 +8,10 @@ and one Hessian-vector product of the whole model gives every block's
 estimate at once.  The products are forward over reverse, as the
 reference's ``jax.jvp`` of ``jax.grad``: ``torch.func.jvp`` of
 ``torch.func.grad``.  The model's loss for them is ``hvp_loss``: train
-mode with ``remat=False`` (``torch.func.grad`` refuses checkpointing's
-saved-tensor hooks) and ``hvp=True`` (the LSQ backward in torch ops, which
-the jvp differentiates; ``core.quant.LsqFakeQuant``).  Under that jvp the
+mode with ``hvp=True``, which runs the layers without checkpointing
+(``torch.func.grad`` refuses its saved-tensor hooks) and gives the LSQ
+fake-quant its backward in torch ops, which the jvp differentiates
+(``core.quant.LsqFakeQuantHvp``).  Under that jvp the
 LSQ forward's ``round`` passes no tangent from x, only from the steps,
 exactly as in the reference.
 
@@ -47,12 +48,12 @@ class HawqConfig:
 def hvp_loss(cfg, policy_arrays, impl: str = "auto") -> Callable:
     """loss(params, batch) -> the model's scalar LM loss, in the form the
     Hessian-vector products differentiate: ``transformer.loss_fn`` with
-    ``remat=False, hvp=True``."""
+    ``hvp=True``."""
     from repro_torch.models import transformer as tf
 
     def loss(params, batch):
         return tf.loss_fn(params, policy_arrays, batch, cfg, impl,
-                          remat=False, hvp=True)[0]
+                          hvp=True)[0]
     return loss
 
 

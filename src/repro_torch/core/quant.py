@@ -68,25 +68,74 @@ def _needs_grad(x: torch.Tensor, steps) -> bool:
         isinstance(s, torch.Tensor) and s.requires_grad for s in steps))
 
 
+def _save_lsq(ctx, x, bits, impl, steps) -> list:
+    """Keeps what the LSQ backward needs on ``ctx``; returns the tensor
+    steps."""
+    ctx.bits, ctx.impl = bits, impl
+    ctx.floats = [None if isinstance(s, torch.Tensor) else s for s in steps]
+    tensors = [s for s in steps if isinstance(s, torch.Tensor)]
+    ctx.save_for_backward(x, *tensors)
+    return tensors
+
+
+def _saved_lsq(ctx):
+    """(x, steps) as ``_save_lsq`` kept them, float steps in place."""
+    x, *tensor_steps = ctx.saved_tensors
+    it = iter(tensor_steps)
+    return x, [next(it) if f is None else f for f in ctx.floats]
+
+
+def _lsq_input_grads(ctx, gx, gsteps) -> tuple:
+    """The backward's result for ``apply(x, bits, impl, *steps)``."""
+    return (gx, None, None, *[
+        g if f is None and need else None
+        for g, f, need in zip(gsteps, ctx.floats, ctx.needs_input_grad[3:])])
+
+
 class LsqFakeQuant(torch.autograd.Function):
     """LSQ fake-quant of one input at 1 to 3 steps (the projections that
     share an input: q/k/v, gate/up), one bit-width.
 
-    forward: one output per step, bit for bit ``lsq_fake_quant``
-    (``kernels/ops.lsq_fakequant``: the CUDA kernel on the card; under
-    ``torch.func`` transforms it is handed plain tensors, so the kernel
-    runs there too).
+    forward: one output per step, bit for bit ``lsq_fake_quant``.
     backward: gx = sum_k where(in_range_k, g_k, 0), summed in float32 in k
     order and rounded once to x's dtype (one step: exactly the reference's
     ``where(in_range, g, 0)``); each tensor step gets
     gscale * sum(g_k * ds_k), ds = round(xs) - xs in range and
     clip(xs, qmin, qmax) outside, reduced to the step's shape; bits and
-    float steps get none.  With ``hvp=False`` it is
-    ``kernels/ops.lsq_fakequant_bwd`` (the backward kernel on the card);
-    with ``hvp=True`` it is ``kernels/ref.lsq_fakequant_bwd``, the same
-    formulas in torch ops, which an outer ``torch.func.jvp`` differentiates
-    (HAWQ's Hessian-vector products pass it; nothing switches to it on its
-    own).  That backward runs under ``torch.no_grad()``: forward mode still
+    float steps get none (``kernels/ops.lsq_fakequant_bwd``: the backward
+    kernel on the card).  Arguments: ``apply(x, bits, impl, *steps)``.
+    ``LsqFakeQuantHvp`` is the same function in the form ``torch.func``
+    transforms take.
+    """
+
+    @staticmethod
+    def forward(ctx, x, bits, impl, *steps):
+        from repro_torch.kernels import ops as kops
+        outs = kops.lsq_fakequant(x, list(steps), bits, impl=impl)
+        _save_lsq(ctx, x, bits, impl, steps)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from repro_torch.kernels import ops as kops
+        x, steps = _saved_lsq(ctx)
+        gx, gsteps = kops.lsq_fakequant_bwd(x, list(grads), steps, ctx.bits,
+                                            impl=ctx.impl)
+        return _lsq_input_grads(ctx, gx, gsteps)
+
+
+class LsqFakeQuantHvp(torch.autograd.Function):
+    """``LsqFakeQuant`` for ``torch.func.jvp`` of ``torch.func.grad``
+    (HAWQ's Hessian-vector products pass ``hvp=True`` to reach it; nothing
+    switches to it on its own).  ``torch.func`` needs the
+    ``setup_context`` form, whose ``apply`` binds the forward's signature
+    in Python on every call; the first-order class keeps the older form,
+    which does not.
+
+    forward: as ``LsqFakeQuant`` (``kernels/ops.lsq_fakequant``; the
+    transforms hand it plain tensors, so the CUDA kernel runs on the card).
+    backward: the same formulas in torch ops (``kernels/ref``), which the
+    outer jvp differentiates, under ``torch.no_grad()``: forward mode still
     carries the jvp's tangents through it, and ``torch.func.grad``, which
     records every backward for a possible outer reverse pass, keeps no
     graph of its float64 temporaries (at olmo-1b's full width they held
@@ -95,33 +144,25 @@ class LsqFakeQuant(torch.autograd.Function):
     tangent, so x's tangent gives 0 and a tensor step's tangent t gives
     clamp(round(x / s), qmin, qmax) * sign(step) * t (s = max(|step|,
     1e-9)), in x's dtype.
-    Arguments: ``apply(x, bits, impl, hvp, *steps)``.
     """
 
     @staticmethod
-    def forward(x, bits, impl, hvp, *steps):
+    def forward(x, bits, impl, *steps):
         from repro_torch.kernels import ops as kops
         return tuple(kops.lsq_fakequant(x, list(steps), bits, impl=impl))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        x, bits, impl, hvp, *steps = inputs
-        ctx.bits, ctx.impl, ctx.hvp = bits, impl, hvp
-        ctx.floats = [None if isinstance(s, torch.Tensor) else s
-                      for s in steps]
-        tensors = [s for s in steps if isinstance(s, torch.Tensor)]
-        ctx.save_for_backward(x, *tensors)
-        ctx.save_for_forward(x, *tensors)
+        x, bits, impl, *steps = inputs
+        ctx.save_for_forward(x, *_save_lsq(ctx, x, bits, impl, steps))
 
     @staticmethod
-    def jvp(ctx, x_t, bits_t, impl_t, hvp_t, *step_ts):
-        x, *tensor_steps = ctx.saved_tensors
-        it = iter(tensor_steps)
+    def jvp(ctx, x_t, bits_t, impl_t, *step_ts):
+        x, steps = _saved_lsq(ctx)
         qmin, qmax = qrange(ctx.bits)
         outs = []
-        for f, t in zip(ctx.floats, step_ts):
-            step = None if f is not None else next(it)
-            if step is None or t is None:
+        for step, t in zip(steps, step_ts):
+            if not isinstance(step, torch.Tensor) or t is None:
                 outs.append(torch.zeros_like(x))
                 continue
             s = torch.clamp(torch.abs(step.float()), min=1e-9)
@@ -132,32 +173,23 @@ class LsqFakeQuant(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        from repro_torch.kernels import ops as kops
         from repro_torch.kernels import ref as kref
-        x, *tensor_steps = ctx.saved_tensors
-        it = iter(tensor_steps)
-        steps = [next(it) if f is None else f for f in ctx.floats]
-        if ctx.hvp:
-            with torch.no_grad():
-                gx, gsteps = kref.lsq_fakequant_bwd(x, list(grads), steps,
-                                                    ctx.bits)
-        else:
-            gx, gsteps = kops.lsq_fakequant_bwd(x, list(grads), steps,
-                                                ctx.bits, impl=ctx.impl)
-        return (gx, None, None, None, *[
-            g if f is None and need else None
-            for g, f, need in zip(gsteps, ctx.floats,
-                                  ctx.needs_input_grad[4:])])
+        x, steps = _saved_lsq(ctx)
+        with torch.no_grad():
+            gx, gsteps = kref.lsq_fakequant_bwd(x, list(grads), steps,
+                                                ctx.bits)
+        return _lsq_input_grads(ctx, gx, gsteps)
 
 
 def fake_quant_group(x: torch.Tensor, steps, bits, impl: str = "auto",
                      hvp: bool = False) -> list:
     """``lsq_fake_quant`` of one input at each of 1 to 3 steps (a list of
     outputs), differentiable through ``LsqFakeQuant`` when a gradient is
-    to be recorded (``hvp`` picks its backward, see there); otherwise the
-    forward alone (serving)."""
+    to be recorded (through ``LsqFakeQuantHvp`` with ``hvp=True``);
+    otherwise the forward alone (serving)."""
     if _needs_grad(x, steps):
-        return list(LsqFakeQuant.apply(x, bits, impl, hvp, *steps))
+        fn = LsqFakeQuantHvp if hvp else LsqFakeQuant
+        return list(fn.apply(x, bits, impl, *steps))
     from repro_torch.kernels import ops as kops
     return kops.lsq_fakequant(x, list(steps), bits, impl=impl)
 

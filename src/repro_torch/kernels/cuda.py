@@ -123,11 +123,17 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def _transformed(t: torch.Tensor) -> bool:
-    """A ``torch.func`` (functorch) wrapper or a forward-mode dual tensor:
-    its tangent or its transform would not see the launch."""
-    return (torch._C._functorch.is_functorch_wrapped_tensor(t)
-            or forward_ad.unpack_dual(t).tangent is not None)
+def _transformed(tensors) -> bool:
+    """A ``torch.func`` (functorch) wrapper or a forward-mode dual tensor
+    among ``tensors``: its tangent or its transform would not see the
+    launch.  Neither exists outside a transform or a dual level, so each
+    tensor is looked at only inside one (a launch pays two flag reads)."""
+    if torch._C._are_functorch_transforms_active() and any(
+            torch._C._functorch.is_functorch_wrapped_tensor(t)
+            for t in tensors):
+        return True
+    return forward_ad._current_level >= 0 and any(
+        forward_ad.unpack_dual(t).tangent is not None for t in tensors)
 
 
 def _refuse_grad(name: str, tensors) -> None:
@@ -136,7 +142,7 @@ def _refuse_grad(name: str, tensors) -> None:
     its gradient without an error, and a functorch-wrapped or dual operand
     its tangent, so the call raises instead.  The LSQ kernels are
     differentiated through ``core.quant.LsqFakeQuant``."""
-    if any(_transformed(t) for t in tensors):
+    if _transformed(tensors):
         raise RuntimeError(
             f"{name}: the kernel has no forward-mode rule and is not a "
             f"torch.func transform's operation, and an operand is a "

@@ -187,7 +187,7 @@ def gqa_apply(p: dict, x: torch.Tensor, bits: dict, cfg, mode: str, cache,
     """x (B, S, d); bits {'attn_qkv', 'attn_wo'}; positions (B, S).
     Returns (y, cache): the prefill K/V in prefill mode, the (in place)
     updated cache in decode mode, None in train mode.  ``hvp`` (train
-    mode): the LSQ backward in torch ops (``quant.LsqFakeQuant``)."""
+    mode): the LSQ backward in torch ops (``quant.LsqFakeQuantHvp``)."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     group = h // hkv

@@ -122,7 +122,7 @@ def qproj(x: torch.Tensor, p, bits, impl: str = "auto", hvp: bool = False
     """Quantized projection: activation fake-quant at ``bits``, then the
     packed matmul (PackedLinear) or a float matmul (dict layouts).  ``hvp``
     picks the LSQ backward that a Hessian-vector product can differentiate
-    (``quant.LsqFakeQuant``)."""
+    (``quant.LsqFakeQuantHvp``)."""
     return qproj_group(x, (p,), bits, impl, hvp)[0]
 
 

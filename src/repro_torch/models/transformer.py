@@ -148,8 +148,7 @@ def layer_bits(policy_arrays: dict, cfg, r: int) -> List[Dict[str, float]]:
 def apply(params: dict, policy_arrays: dict, tokens: torch.Tensor, cfg,
           mode: str = "train", caches: Optional[dict] = None,
           positions: Optional[torch.Tensor] = None, impl: str = "auto",
-          logits_at: Optional[torch.Tensor] = None, remat: bool = True,
-          hvp: bool = False):
+          logits_at: Optional[torch.Tensor] = None, hvp: bool = False):
     """Returns (logits, new_caches).
 
     tokens (B, S) int; positions (B, S) absolute positions (default
@@ -161,20 +160,20 @@ def apply(params: dict, policy_arrays: dict, tokens: torch.Tensor, cfg,
     (``common.prequantize_params``) and, when a gradient is recorded,
     checkpoints each layer (``torch.utils.checkpoint``, non-reentrant: the
     backward recomputes the layer's forward), the counterpart of the
-    reference's ``jax.checkpoint(body)``.  ``remat=False`` runs the layers
-    as they are: ``torch.func.grad`` refuses checkpointing's saved-tensor
-    hooks.  ``hvp=True`` gives every LSQ fake-quant the backward in torch
-    ops that forward mode can differentiate (``quant.LsqFakeQuant``), for
-    ``torch.func.jvp`` of ``torch.func.grad`` (HAWQ's Hessian-vector
-    products, ``core/metrics/hawq.py``); the default keeps the backward
-    kernel.
+    reference's ``jax.checkpoint(body)``.  ``hvp=True`` is the form that
+    ``torch.func.jvp`` of ``torch.func.grad`` differentiates (HAWQ's
+    Hessian-vector products, ``core/metrics/hawq.py``): it runs the layers
+    without checkpointing, whose saved-tensor hooks ``torch.func.grad``
+    refuses, and gives every LSQ fake-quant the backward in torch ops that
+    forward mode can differentiate (``quant.LsqFakeQuantHvp``).  The default
+    checkpoints and keeps the backward kernel.
     """
     _check_supported(cfg)
     x = _embed(params, cfg, tokens, impl, hvp)
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
-    remat = remat and mode == "train" and torch.is_grad_enabled()
+    remat = not hvp and mode == "train" and torch.is_grad_enabled()
     if mode == "train":
         params = common.prequantize_params(params, policy_arrays,
                                            slot_index(cfg), impl, hvp)
@@ -216,15 +215,15 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def loss_fn(params: dict, policy_arrays: dict, batch: dict, cfg,
-            impl: str = "auto", remat: bool = True, hvp: bool = False):
+            impl: str = "auto", hvp: bool = False):
     """Next-token LM loss of ``batch`` ({'tokens', 'labels'[, 'loss_mask']},
     (B, S) tensors): (loss, metrics) with metrics {'loss', 'accuracy',
     'aux_loss'} (0-d tensors, no host sync).  The olmo family has no
     auxiliary loss and no multi-token head, so aux_loss is 0 and the loss
     is the cross entropy, as in ``repro/models/transformer.py:584-612``.
-    ``remat`` and ``hvp`` as in ``apply``."""
+    ``hvp`` as in ``apply``."""
     logits, _ = apply(params, policy_arrays, batch["tokens"], cfg,
-                      mode="train", impl=impl, remat=remat, hvp=hvp)
+                      mode="train", impl=impl, hvp=hvp)
     loss, acc = cross_entropy(logits, batch["labels"],
                               batch.get("loss_mask"))
     aux = torch.zeros((), dtype=torch.float32, device=loss.device)

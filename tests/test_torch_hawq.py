@@ -1,5 +1,5 @@
 """HAWQ-v3 in the port (repro_torch/core/metrics/hawq.py) and the forward
-mode of its LSQ fake-quant (core/quant.LsqFakeQuant.jvp) against the
+mode of its LSQ fake-quant (core/quant.LsqFakeQuantHvp.jvp) against the
 reference's, on olmo-1b's smoke config in float32 on the CPU, with the
 same numpy params, batch (JAX's ``make_batch(5, 0, 2, 32)``) and probes
 (the reference's own Rademacher draws, regenerated here with its key

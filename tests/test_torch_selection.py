@@ -6,17 +6,15 @@ the frontier sweep (core/frontier.py) and distillation
 (optim/distill.py), on olmo-1b's smoke config (and its full-size policy
 for the knapsack) in float32 on the CPU.
 
-Three cost functions and the distillation module are held against the
-reference's formulas, not its functions: the reference's dead-code check
+The distillation module is held against the reference's formulas, not
+its functions: the reference's dead-code check
 (tests/test_analysis.py::test_repo_deadcode_clean) lists
-``repro.core.costs``'s bit-ops, HBM-bytes and frontier-axis functions and
-its distillation module as unused, matches bare names over src/ and
+``repro.optim.distill`` as unused, matches bare names over src/ and
 tests/, and fails on an entry that a name makes look used; the reference
-is not edited.  So the reference's module is not imported here, its loss
-is written out below (``_jax_distill_loss``, its ten lines), and the
-port's three cost functions are reached through the one caller that
-uses them, ``chip_smoke.point_costs`` (the frontier phase's cost axes),
-whose values are checked against the reference policy's own sums.
+is not edited.  So the reference's module is not imported here and its
+loss is written out below (``_jax_distill_loss``, its ten lines).  The
+same check lists three of ``repro.core.costs``' functions as unused; the
+port has no counterpart of them (core/costs.py says which).
 
 Everything numpy-only is held equal: the same floats, takes and points.
 Tolerances, each with its reason:
@@ -45,7 +43,6 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-import chip_smoke  # noqa: E402
 from repro import configs  # noqa: E402
 from repro.core import costs as jcosts  # noqa: E402
 from repro.core import frontier as jfrontier  # noqa: E402
@@ -164,19 +161,6 @@ def test_costs_match_jax(policies, which):
         assert costs.bmacs(tm) == jcosts.bmacs(jm)
         over = {u.name: 2.0 for u in tm.selectable_units()[::2]}
         assert costs.bmacs(tm, over) == jcosts.bmacs(jm, over)
-        for frac in BUDGETS:
-            got = chip_smoke.point_costs(tp, tm, frac)
-            hi = jcosts.bmacs(jp.uniform(jp.b_hi))
-            assert got["bit_ops"] == sum(
-                u.macs_per_token * jm.bits_of(u.name) * jm.bits_of(u.name)
-                for u in jm.units)
-            # a sum of x / 8 is the sum of x, / 8, exactly
-            assert got["weight_bytes_per_token"] == jm.model_bits() / 8.0
-            assert {k: got[k] for k in ("budget_frac", "bmacs_hi",
-                                        "bmacs_lo", "bmacs_budget")} == {
-                "budget_frac": frac, "bmacs_hi": hi,
-                "bmacs_lo": jcosts.bmacs(jp.uniform(jp.b_lo)),
-                "bmacs_budget": frac * hi}
     assert costs.budget_sweep() == jcosts.budget_sweep()
     assert costs.budget_sweep([0.8, 0.5]) == jcosts.budget_sweep([0.8, 0.5])
 
