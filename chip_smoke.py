@@ -63,6 +63,11 @@ Phases, in order; any failure exits non-zero:
                point fine-tuned 4 steps from the b_hi state and evaluated
                on 2 held-out batches; the joint weight-and-cache knapsack's
                take (phase_frontier).
+  joint      - that take served: per-layer int8/int4 KV-cache bits and the
+               4/2 weights, packed over contiguous and paged mixed caches
+               and in the fake-quant layout, phase 4's traffic; gates J1-J5
+               (layouts and bytes, paged tokens, launches, codes, teacher-
+               forced logits; see phase_joint).
 The second-to-last line is the kernels JSON, the last the device JSON.
 Details go to chiprun_out/chip_smoke.json and chiprun_out/build_log.txt.
 """
@@ -1434,8 +1439,19 @@ SERVE_PATHS = {
 }
 
 
+def log_serve_run(what: str, rec: dict) -> None:
+    res = rec["residency"]
+    log(f"  {what}: generate 8x64 in {rec['generate_s']:.3f} s "
+        f"({rec['tokens_per_s']:.1f} tok/s), prefill "
+        f"{rec['prefill_ms']:.1f} ms, decode {rec['decode_ms_per_step']:.2f}"
+        f" ms/step, weights {res['resident_weight_bytes'] / 1e6:.1f} MB "
+        f"resident vs {rec['weight_bytes_bf16'] / 1e6:.1f} MB bf16, KV "
+        f"{res['resident_kv_bytes'] / 1e6:.1f} MB, peak "
+        f"{rec['max_memory_allocated'] / 1e9:.2f} GB")
+
+
 def phase_serve(cfg, packed, pa, dev, tokens, lengths):
-    from repro_torch.serve import EngineSpec, ServeEngine
+    from repro_torch.serve import EngineSpec, ServeEngine, packing
     runs = {}
     tok_t = torch.as_tensor(tokens, device=dev)
     len_t = torch.as_tensor(lengths, device=dev)
@@ -1479,16 +1495,8 @@ def phase_serve(cfg, packed, pa, dev, tokens, lengths):
                 if rec["tokens"] != base["tokens"]:
                     raise RuntimeError(f"{name}: tokens differ from the "
                                        f"contiguous run's")
-            wb = engine.weight_bytes()
-            rec.update(weight_bytes_packed=wb["packed"],
-                       weight_bytes_bf16=wb["bf16"])
-            log(f"  serve {name} cache: generate 8x64 in "
-                f"{rec['generate_s']:.3f} s ({rec['tokens_per_s']:.1f} "
-                f"tok/s), prefill {rec['prefill_ms']:.1f} ms, decode "
-                f"{rec['decode_ms_per_step']:.2f} ms/step, weights "
-                f"{wb['packed'] / 1e6:.1f} MB packed vs {wb['bf16'] / 1e6:.1f}"
-                f" MB bf16, KV {rec['kv_bytes'] / 1e6:.1f} MB, peak "
-                f"{rec['max_memory_allocated'] / 1e9:.2f} GB")
+            rec["weight_bytes_bf16"] = packing.bf16_weight_bytes(packed)
+            log_serve_run(f"serve {name} cache", rec)
             log(f"    launches in generate: {launches}")
             log(f"    per prefill: {rec['launches_per_prefill']}; per decode "
                 f"step: {step}")
@@ -1507,7 +1515,6 @@ def serve_run(engine, cfg, tok_t, len_t, lengths):
     """One engine: generate 8 x 64 with the launches counted, then one
     prefill and the decode steps timed apart, and their profiles."""
     from repro_torch.kernels import cuda
-    from repro_torch.serve import kv_cache
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda.reset_launches()
@@ -1549,7 +1556,7 @@ def serve_run(engine, cfg, tok_t, len_t, lengths):
             "decode_ms_per_step": decode_s * 1e3, "launches": launches,
             "launches_per_prefill": per_prefill,
             "launches_per_decode_step": per_step,
-            "kv_bytes": kv_cache.cache_bytes(cache),
+            "residency": engine.residency(cache),
             "max_memory_allocated": peak, "profile": prof,
             "tokens": out.tolist()}
 
@@ -1692,7 +1699,7 @@ def schedule_run(engine, reqs, dev, share=True, profile=False):
     run's record."""
     from torch.profiler import ProfilerActivity, profile as profiler
     from repro_torch.kernels import cuda
-    from repro_torch.serve import Request, kv_cache
+    from repro_torch.serve import Request, residency
     sched = audited(engine, share)
     for uid, prompt, n, eos in reqs:
         sched.submit(Request(uid=uid, prompt=prompt, max_new_tokens=n,
@@ -1713,7 +1720,7 @@ def schedule_run(engine, reqs, dev, share=True, profile=False):
            "admissions": len(sched.first_logits), "chunks": sched.chunks,
            "deferrals": sched.deferrals, "plans": sched.plans,
            "latency_report": sched.latency_report(),
-           "pool_bytes": kv_cache.cache_bytes(sched.cache),
+           "pool_bytes": residency.resident_kv_bytes(sched.cache),
            "max_memory_allocated": (torch.cuda.max_memory_allocated()
                                     if dev.type == "cuda" else None)}
     n_tok = sum(len(c.tokens) for c in sched.completed.values())
@@ -2053,18 +2060,30 @@ def patched(module, name: str, fn):
         setattr(module, name, old)
 
 
-def attention_f64(q, k, v, chunk, causal, scale=None):
+def plain_attention(dtype, probs_dtype):
     """The plain prefill attention (``chunked_attention``'s arguments: q, k,
-    v (B, S, H, D) at the query head count) in float64, in one piece: as
-    exact as the float32 plain version, and rounded otherwise."""
-    s, d = q.shape[1], q.shape[-1]
-    logits = torch.einsum("bshd,bthd->bhst", q.double(), k.double()) * (
-        d ** -0.5 if scale is None else scale)
-    if causal:
-        keep = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
-        logits = logits.masked_fill(~keep, float("-inf"))
-    p = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhst,bthd->bshd", p, v.double()).to(q.dtype)
+    v (B, S, H, D) at the query head count) in one piece, computed in
+    ``dtype`` with its probabilities rounded to ``probs_dtype`` before the
+    product with V: a control attention, exact in its own way and rounded
+    otherwise than the plain version."""
+    def attend(q, k, v, chunk, causal, scale=None):
+        s, d = q.shape[1], q.shape[-1]
+        logits = torch.einsum("bshd,bthd->bhst", q.to(dtype), k.to(dtype)) * (
+            d ** -0.5 if scale is None else scale)
+        if causal:
+            keep = torch.ones((s, s), dtype=torch.bool,
+                              device=q.device).tril()
+            logits = logits.masked_fill(~keep, float("-inf"))
+        p = torch.softmax(logits, dim=-1).to(probs_dtype).to(dtype)
+        return torch.einsum("bhst,bthd->bshd", p, v.to(dtype)).to(q.dtype)
+    return attend
+
+
+# as exact as the float32 plain version (phase_check's control)
+attention_f64 = plain_attention(torch.float64, torch.float64)
+# float32 with bf16 probabilities: the one rounding the flash kernel adds to
+# the plain version (its PV product takes bf16 probabilities)
+attention_bf16_probs = plain_attention(torch.float32, torch.bfloat16)
 
 
 def shadowed(block_apply, errs: list):
@@ -2084,12 +2103,17 @@ def shadowed(block_apply, errs: list):
     return both
 
 
-def teacher_forced(cfg, packed, pa, dev, tok_t, len_t, bits, n_decode):
-    """The kernel path, the plain path (impl="ref") and the control - the
-    plain path with its prefill attention in float64 - on the same weights
-    and cache kind, all fed the kernel path's greedy tokens over the prefill
-    and ``n_decode`` decode steps.  The kernel path runs through the
-    engine's own loop, each of its blocks shadowed by the plain block.
+def teacher_forced(cfg, packed, pa, dev, tok_t, len_t, bits, n_decode,
+                   fake_quant=None):
+    """The kernel path, the plain path (impl="ref") and two controls - the
+    plain path with its prefill attention in float64 ("control"), and in
+    float32 with bf16 probabilities ("control_bf16") - on the same weights
+    and cache kind (``bits``: an int or per-layer cache bits), all fed the
+    kernel path's greedy tokens over the prefill and ``n_decode`` decode
+    steps; with ``fake_quant`` (the same weights in the fake-quant layout)
+    also that layout's kernel and plain paths.  The kernel path runs
+    through the engine's own loop, each of its blocks shadowed by the plain
+    block.
     Returns each path's logits per step and the block errors, steps by
     blocks."""
     from repro_torch.models import attention as attn
@@ -2099,10 +2123,19 @@ def teacher_forced(cfg, packed, pa, dev, tok_t, len_t, bits, n_decode):
     engines = {name: ServeEngine(cfg, packed, pa, 1024, spec, device=dev,
                                  impl=impl)
                for name, impl in (("kernel", "auto"), ("plain", "ref"),
-                                  ("control", "ref"))}
+                                  ("control", "ref"), ("control_bf16", "ref"))}
+    if fake_quant is not None:
+        for name, impl in (("fake_quant", "auto"),
+                           ("fake_quant_plain", "ref")):
+            engines[name] = ServeEngine(
+                cfg, fake_quant, pa, 1024,
+                EngineSpec(weights="fake_quant", cache="quantized",
+                           cache_bits=bits), device=dev, impl=impl)
     errs, blocks = [], []
     swaps = {"kernel": (tf, "block_apply", shadowed(tf.block_apply, errs)),
-             "control": (attn, "chunked_attention", attention_f64)}
+             "control": (attn, "chunked_attention", attention_f64),
+             "control_bf16": (attn, "chunked_attention",
+                              attention_bf16_probs)}
 
     def run(name, fn, *args):
         swap = swaps.get(name)
@@ -2166,6 +2199,9 @@ def phase_check(cfg, packed, pa, dev, tokens, lengths, n_decode=16):
                                       for a, b in zip(ctl, plain)],
             "control_rel_rms_logit_err": [rel_rms_err(a, b)
                                           for a, b in zip(ctl, plain)],
+            "control_bf16_rel_logit_err": [
+                rel_err(a, b) for a, b in zip(logits["control_bf16"],
+                                              plain)],
             "kernel_vs_control_rel_logit_err": [rel_err(a, b)
                                                 for a, b in zip(ker, ctl)],
             "top1_agreement": float(np.mean(
@@ -2190,7 +2226,9 @@ def phase_check(cfg, packed, pa, dev, tokens, lengths, n_decode=16):
             f"{' '.join(f'{e:.2g}' for e in rec['rel_logit_err'])}")
         log(f"    control (float64 prefill attention vs plain): "
             f"{worst['control_rel_logit_err']:.4g}, RMS "
-            f"{worst['control_rel_rms_logit_err']:.4g}; kernel vs control "
+            f"{worst['control_rel_rms_logit_err']:.4g}; bf16-probability "
+            f"control {worst['control_bf16_rel_logit_err']:.4g}; kernel vs "
+            f"control "
             f"{worst['kernel_vs_control_rel_logit_err']:.4g}; per step "
             f"{' '.join(f'{e:.2g}' for e in rec['control_rel_logit_err'])}")
         log(f"    first block alone: {worst['one_block_rel_logit_err']:.4g}"
@@ -2713,7 +2751,8 @@ def phase_frontier(cfg, dev, state, gains, smi_line):
                      "cache_units": len(policy.selectable_cache_units()),
                      "weights_4bit": n_w4,
                      "kv_bytes_per_token": policy.apply_cache_selection(
-                         joint.take).kv_bytes_per_token()}}
+                         joint.take).kv_bytes_per_token(),
+                     "take": joint.take}}
     log(f"  {len(points)} points ({len(gains)} methods x "
         f"{len(FRONTIER_BUDGETS)} budgets), {FRONTIER_STEPS} fine-tune "
         f"steps each at {ALPS_B} x {ALPS_S}: {sweep_s:.1f} s; eval loss "
@@ -2732,6 +2771,237 @@ def phase_frontier(cfg, dev, state, gains, smi_line):
         f"{dict(ft_launches)} (expected {want})")
     if bad:
         raise RuntimeError(f"frontier phase: {bad}")
+    return rec
+
+
+def projection_pairs(a, b):
+    """(PackedLinear, fake-quant node) of each projection of two serve
+    trees of one model."""
+    from repro_torch.core.quant import PackedLinear
+    if isinstance(a, PackedLinear):
+        yield a, b
+    elif isinstance(a, dict):
+        for k in a:
+            yield from projection_pairs(a[k], b[k])
+    elif isinstance(a, list):
+        for x, y in zip(a, b):
+            yield from projection_pairs(x, y)
+
+
+def leaf_layout_ok(leaf: dict, bits: int, layout: str, cfg) -> bool:
+    """Does a cache leaf hold the layout its bits select: full-dtype K/V at
+    16, else codes of ``bits`` (int8 rows of head_dim, or uint8 rows of
+    head_dim / 2)?"""
+    from repro_torch.kernels import kv_quant as kvq
+    paged = "p" if layout == "paged" else ""
+    if bits == 16:
+        return f"{paged}k" in leaf and f"{paged}kq" not in leaf
+    codes = leaf.get(f"{paged}kq")
+    return (codes is not None and codes.dtype == kvq.code_dtype(bits)
+            and codes.shape[-1] == kvq.packed_dim(cfg.head_dim, bits))
+
+
+JOINT_DECODE = 16                # J5's teacher-forced decode steps
+
+
+def phase_joint(cfg, dev, raw, take, smi_line):
+    """Serve the joint weight-and-cache knapsack's ``take`` (the frontier
+    phase's, at JOINT_BUDGET and JOINT_CONTEXT) from the raw b_hi params
+    ``raw``: the weights packed at its 4/2 bits and, once more, in the
+    fake-quant layout (``quantize_for_serving``), each layer's KV cache at
+    its own bits (``policy.apply_cache_selection(take).cache_bits_arrays()``).
+    Phase 4's traffic (8 prompts of 128-512 tokens padded to 512, 64 new
+    tokens, max_seq 1024) runs packed over the contiguous and the paged
+    (page PAGE) mixed cache, then fake-quant over the contiguous one.
+    Gates:
+      J1 each layer's cache leaf has the layout its bits select, and the
+         mixed cache's resident KV bytes are the sum of its layers' bytes
+         in the uniform caches of those bits, strictly between the uniform
+         int4 and int8 totals (both layouts);
+      J2 paged tokens equal contiguous tokens, 8 x 64;
+      J3 per prefill flash_attention once a layer; per prefill and decode
+         step quant_matmul 7 a layer (packed) or never (fake-quant) and
+         lsq_fakequant 4 a layer and the head's; per decode step the
+         layout's decode attention once a quantized layer, the other
+         layout's never;
+      J4 the fake-quant codes equal the packed codes unpacked, bit for bit,
+         and their scales the packed scales, for every projection and the
+         embedding;
+      J5 teacher-forced over the prefill and JOINT_DECODE decode steps on
+         the mixed cache (phase_check's rule, each reading at most
+         CONTROL_FACTOR times its control, and each block's own output
+         within BLOCK_RMS_BOUND): the kernel path against impl="ref" in
+         each layout, over the larger of two controls, the plain path with
+         its prefill attention in float64 (phase_check's) and in float32
+         with bf16 probabilities (the rounding the flash kernel adds); the
+         fake-quant engine against the packed engine, over the larger of
+         those and the layout control, their two plain paths against each
+         other.  Two controls: on the b_hi state the drift over 16 blocks
+         is 0.03-0.04, far from the saturated 0.3 of phase_check's random
+         weights, and there it grows with the perturbation's size; the
+         float64 control perturbs by float32 roundings (2^-24), the
+         kernel by bf16 probabilities (2^-9), and read 0.0304 against the
+         kernel path's 0.0390 (an H100 80GB HBM3 at 700 W).  The layout
+         control: the fake-quant layout multiplies by its weights cast to
+         the compute dtype (bf16), as the reference and the training
+         forward do; the packed kernel keeps the codes exact and scales
+         after its float32 accumulator, so the layouts differ by a
+         rounding of every weight."""
+    from repro_torch.core import quant
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import (EngineSpec, ServeEngine, pack_params,
+                                   packing, quantize_for_serving, residency)
+    policy = tf.build_policy(cfg)
+    pa = policy.apply_selection(take).as_arrays()
+    cache_bits = policy.apply_cache_selection(take).cache_bits_arrays()
+    bits = [[int(cache_bits[f"pat{j}"][r]) for j in range(len(cfg.pattern))]
+            for r in range(cfg.n_repeats)]
+    n_layers = cfg.n_repeats * len(cfg.pattern)
+    n_quant = sum(b != 16 for row in bits for b in row)
+    packed = pack_params(raw, pa, cfg, device=dev)
+    fake = quantize_for_serving(raw, pa, cfg, device=dev)
+    bad = []
+
+    def engine(params, layout, cbits=cache_bits, weights="packed"):
+        return ServeEngine(cfg, params, pa, 1024,
+                           EngineSpec(weights=weights, cache="quantized",
+                                      cache_bits=cbits, cache_layout=layout,
+                                      page_size=PAGE), device=dev)
+
+    kv = {}
+    for layout in ("contiguous", "paged"):
+        mixed = engine(packed, layout).new_cache(8).layers["pat"]
+        per_layer = {b: [{k: residency.resident_kv_bytes(leaf)
+                          for k, leaf in layer.items()}
+                         for layer in engine(packed, layout, b).new_cache(
+                             8).layers["pat"]]
+                     for b in {4, 8} | {b for row in bits for b in row}}
+        total = {b: sum(sum(layer.values()) for layer in per_layer[b])
+                 for b in per_layer}
+        got = residency.resident_kv_bytes(mixed)
+        want = sum(per_layer[b][r][f"p{j}"] for r, row in enumerate(bits)
+                   for j, b in enumerate(row))
+        wrong = [(r, j) for r, row in enumerate(bits)
+                 for j, b in enumerate(row)
+                 if not leaf_layout_ok(mixed[r][f"p{j}"], b, layout, cfg)]
+        kv[layout] = {"mixed": got, "int8": total[8], "int4": total[4],
+                      "sum_of_layers": want, "wrong_layers": wrong}
+        if wrong or got != want or not total[4] < got < total[8]:
+            bad.append(f"J1: {layout}: {kv[layout]}")
+        log(f"  J1 {layout}: KV bytes {got} mixed = {want} summed over its "
+            f"layers, between int4's {total[4]} and int8's {total[8]}; "
+            f"layers of the wrong layout: {wrong}")
+        del mixed, per_layer
+    torch.cuda.empty_cache()
+
+    tokens, lengths = make_prompts(cfg, np.random.default_rng(0))
+    tok_t = torch.as_tensor(tokens, device=dev)
+    len_t = torch.as_tensor(lengths, device=dev)
+    runs = {}
+    for name, params, layout, weights in (
+            ("packed-contiguous", packed, "contiguous", "packed"),
+            ("packed-paged", packed, "paged", "packed"),
+            ("fake_quant-contiguous", fake, "contiguous", "fake_quant")):
+        eng = engine(params, layout, weights=weights)
+        rec = serve_run(eng, cfg, tok_t, len_t, lengths)
+        rec["weight_bytes_bf16"] = packing.bf16_weight_bytes(params)
+        qmm = 7 * n_layers if weights == "packed" else 0
+        lsq = 4 * n_layers + 1
+        decode, other = ("kv_decode_attention", "paged_kv_decode_attention")
+        if layout == "paged":
+            decode, other = other, decode
+        want = {"prefill": {"flash_attention": n_layers, "quant_matmul": qmm,
+                            "lsq_fakequant": lsq},
+                "decode step": {"quant_matmul": qmm, "lsq_fakequant": lsq,
+                                decode: n_quant, other: 0,
+                                "flash_attention": 0}}
+        got = {"prefill": rec["launches_per_prefill"],
+               "decode step": rec["launches_per_decode_step"]}
+        bad += [f"J3: {name}: {k} launched {got[what][k]} times per {what},"
+                f" {n} expected" for what in want
+                for k, n in want[what].items() if got[what][k] != n]
+        log_serve_run(f"joint {name}", rec)
+        log(f"    per prefill: {got['prefill']}; per decode step: "
+            f"{got['decode step']}")
+        for what, brk in rec["profile"].items():
+            log_breakdown(what, brk)
+        runs[name] = rec
+        del eng
+        torch.cuda.empty_cache()
+    same_tokens = runs["packed-paged"]["tokens"] == \
+        runs["packed-contiguous"]["tokens"]
+    if not same_tokens:
+        bad.append("J2: the paged tokens differ from the contiguous ones")
+
+    n_proj = 0
+    codes_equal = all(torch.equal(packed["embed"][k], fake["embed"][k])
+                      for k in ("wq", "scale"))
+    for p, f in projection_pairs(packed["pat"], fake["pat"]):
+        codes = (p.wp if p.bits == 8 else
+                 quant.unpack_codes_kmajor(p.wp, p.bits, torch.int8)[
+                     :p.k_dim])
+        codes_equal &= (torch.equal(codes, f["wq"])
+                        and torch.equal(p.scale, f["scale"].expand(p.n_dim)))
+        n_proj += 1
+    if not codes_equal or n_proj != 7 * n_layers:
+        bad.append(f"J4: codes or scales differ over {n_proj} projections")
+
+    logits, blocks = teacher_forced(cfg, packed, pa, dev, tok_t, len_t,
+                                    cache_bits, JOINT_DECODE,
+                                    fake_quant=fake)
+    def drift(a, b):
+        return [rel_err(x, y) for x, y in zip(logits[a], logits[b])]
+
+    j5 = {"kernel_vs_plain": drift("kernel", "plain"),
+          "fake_quant_vs_plain": drift("fake_quant", "fake_quant_plain"),
+          "fake_quant_vs_packed": drift("fake_quant", "kernel"),
+          "control": drift("control", "plain"),
+          "control_bf16": drift("control_bf16", "plain"),
+          "layout_control": drift("fake_quant_plain", "plain"),
+          "block_rel_rms_err": [max(e[0] for e in row) for row in blocks]}
+    worst = {k: max(v) for k, v in j5.items()}
+    kernel_bound = CONTROL_FACTOR * max(worst["control"],
+                                        worst["control_bf16"])
+    bound = {"kernel_vs_plain": kernel_bound,
+             "fake_quant_vs_plain": kernel_bound,
+             "fake_quant_vs_packed": max(kernel_bound, CONTROL_FACTOR
+                                         * worst["layout_control"]),
+             "block_rel_rms_err": BLOCK_RMS_BOUND}
+    bad += [f"J5: {k} {worst[k]} over {b}" for k, b in bound.items()
+            if not worst[k] <= b]
+    res = {w: runs[f"{w}-contiguous"]["residency"]
+           for w in ("packed", "fake_quant")}
+    rec = {"device": smi_line, "cache_bits": bits,
+           "cache_int8": sum(b == 8 for row in bits for b in row),
+           "cache_int4": sum(b == 4 for row in bits for b in row),
+           "weights_4bit": sum(policy.apply_selection(take).bits_of(u.name)
+                               == policy.b_hi
+                               for u in policy.selectable_units()),
+           "kv_bytes": kv, "runs": runs, "tokens_equal": same_tokens,
+           "j4_projections": n_proj, "j4_equal": codes_equal, "j5": j5,
+           "j5_bounds": bound,
+           "weight_bytes": {"packed": res["packed"]["resident_weight_bytes"],
+                            "fake_quant":
+                                res["fake_quant"]["resident_weight_bytes"],
+                            "bf16": packing.bf16_weight_bytes(packed)}}
+    log(f"  cache bits by layer {[row[0] for row in bits]}: "
+        f"{rec['cache_int8']} int8, {rec['cache_int4']} int4; "
+        f"{rec['weights_4bit']} weight units at 4 bits; weights "
+        f"{rec['weight_bytes']}")
+    log(f"  J2 paged tokens equal contiguous: {same_tokens}; J4 codes and "
+        f"scales equal over {n_proj} projections and the embedding: "
+        f"{codes_equal}")
+    log(f"  J5 teacher-forced, {JOINT_DECODE} decode steps: kernel vs plain "
+        f"{worst['kernel_vs_plain']:.4g} packed, "
+        f"{worst['fake_quant_vs_plain']:.4g} fake-quant (bound "
+        f"{kernel_bound:.4g}: controls {worst['control']:.4g} float64, "
+        f"{worst['control_bf16']:.4g} bf16 probabilities); fake-quant vs "
+        f"packed {worst['fake_quant_vs_packed']:.4g} (bound "
+        f"{bound['fake_quant_vs_packed']:.4g}: their plain paths "
+        f"{worst['layout_control']:.4g}); each block's own output at most "
+        f"{worst['block_rel_rms_err']:.4g} RMS (bound {BLOCK_RMS_BOUND})")
+    if bad:
+        raise RuntimeError(f"joint phase: {bad}")
     return rec
 
 
@@ -2815,6 +3085,11 @@ def main():
     front = phase_frontier(cfg, dev, state, selection_methods(
         tf.build_policy(cfg), alps, hawq), smi_line)
     log(f"  frontier phase {time.perf_counter() - t0:.1f} s")
+    log("joint (serve the joint weight-and-cache take):")
+    t0 = time.perf_counter()
+    joint = phase_joint(cfg, dev, state.params, front["joint"]["take"],
+                        smi_line)
+    log(f"  joint phase {time.perf_counter() - t0:.1f} s")
     del state
 
     # each kernel's launches on the path that runs it
@@ -2846,7 +3121,7 @@ def main():
                    "select": select, "serve": runs,
                    "schedule": schedule, "check": check,
                    "train": train, "alps": alps, "hawq": hawq,
-                   "frontier": front,
+                   "frontier": front, "joint": joint,
                    "launch_counts_after": dict(cuda.LAUNCHES)}, f, indent=1)
     log(smi_line)
     log(json.dumps({"kernels": kernels}))

@@ -6,9 +6,11 @@ under ``"pat"``; the port keeps a per-layer list.  ``from_jax_params``
 takes a tree of that layout as numpy arrays (``jax.tree.map(np.asarray,
 tree)``, so this module never needs JAX) and returns torch tensors on
 ``device``; it takes any tree shaped like the params, so the optimizer's
-moments load through it too.  ``to_jax_tree`` is the way back: numpy
-leaves, the layers stacked.  ``serve.packing.pack_params`` packs the
-params in the port.
+moments load through it too, and so does the reference's fake-quant serve
+layout (``quantize_for_serving``): its stacked (L,) scales become per-layer
+0-d tensors and its ``jnp.int4`` codes ``torch.int8``, the port's
+container.  ``to_jax_tree`` is the way back: numpy leaves, the layers
+stacked.  ``serve.packing.pack_params`` packs the params in the port.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ from repro_torch import resolve_device
 
 def _tensor(a, dev: torch.device) -> torch.Tensor:
     a = np.asarray(a)
+    if a.dtype.name == "int4":            # ml_dtypes int4 codes from JAX
+        a = a.astype(np.int8)             # the port keeps a code a byte
     if a.dtype.name == "bfloat16":        # ml_dtypes bfloat16 from JAX
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16))
         return t.view(torch.bfloat16).to(dev)

@@ -7,8 +7,11 @@ LSQ-fake-quantized at the unit's policy bits (``core.quant.fake_quant_group``:
 the ``lsq_fakequant`` kernel, with its backward kernel when a gradient is
 recorded) and multiplied by the packed low-bit codes
 (``kernels/ops.packed_matmul``), or by a weight fake-quantized once a step
-(``{'wpre', 'sa'}``, from ``prequantize_params``: train mode), or by a
-fake-quantized float weight (``{'w', 'sw', 'sa'}``, the raw checkpoint).
+(``{'wpre', 'sa'}``, from ``prequantize_params``: train mode), by int8
+codes times their scale (``{'wq', 'scale', 'sa'}``, the fake-quant serve
+layout of ``serve.engine.quantize_for_serving``: a plain matmul, as in the
+reference, where no Pallas kernel takes it), or by a fake-quantized float
+weight (``{'w', 'sw', 'sa'}``, the raw checkpoint).
 """
 from __future__ import annotations
 
@@ -109,11 +112,16 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 
 def weight_of(p, bits, impl: str = "auto", hvp: bool = False
               ) -> torch.Tensor:
-    """The (de)quantized float weight of a param node."""
+    """The (de)quantized float weight of a param node: a PackedLinear, a
+    prequantized ``wpre``, the fake-quant serve layout's int8 codes ``wq``
+    times their scale (float32, as ``repro/models/common.py:117-120``; the
+    caller casts to the input's dtype), or LSQ fake-quant of a raw ``w``."""
     if isinstance(p, PackedLinear):
         return quant.packed_weight_dense(p, torch.float32)
     if "wpre" in p:
         return p["wpre"]
+    if "wq" in p:
+        return p["wq"].float() * p["scale"].float()
     return quant.fake_quant(p["w"], p["sw"], bits, impl, hvp)
 
 

@@ -84,29 +84,57 @@ def block_apply(p: dict, x: torch.Tensor, bits: dict, cfg, mode: str, cache,
     return x + mlp.dense_mlp_apply(p["mlp"], h, bits, impl, hvp), new_cache
 
 
+def _cache_bits_for(cache_bits, group: str, layer: int) -> Optional[int]:
+    """One layer's cache bit-width (``repro/models/transformer.py:201-225``):
+    ``cache_bits`` is an int (every layer) or {group: per-layer array}
+    (``PrecisionPolicy.cache_bits_arrays()``).  Returns 4 or 8, or None for
+    a full-dtype layer (16, or a group the dict leaves out)."""
+    if cache_bits is None:
+        return None
+    if isinstance(cache_bits, (int, float)):
+        b = int(round(float(cache_bits)))
+    else:
+        arr = cache_bits.get(group)
+        if arr is None:
+            return None
+        a = np.asarray(arr, np.float32).reshape(-1)
+        if layer >= a.shape[0]:
+            raise ValueError(
+                f"cache_bits[{group!r}] has {a.shape[0]} entries but layer "
+                f"{layer} was requested: the array must cover every layer "
+                f"of the group (PrecisionPolicy.cache_bits_arrays() does)")
+        b = int(round(float(a[layer])))
+    if b not in (4, 8, 16):
+        raise ValueError(f"cache bits must be 4, 8 or 16(full), got {b}")
+    return None if b == 16 else b
+
+
 def init_caches(cfg, batch: int, max_seq: int, cache_dtype, device,
-                cache_bits: Optional[int] = None,
-                page_geom: Optional[tuple] = None) -> dict:
-    """Preallocated per-layer decode caches: {"pat": [{"p0": leaf}, ...]}
-    with full-dtype {'k','v'} leaves, or quantized code+scale leaves at
-    ``cache_bits`` (4 or 8) in every layer.  ``page_geom`` = (n_pages,
-    page_size) gives page pools in place of the (B, S_max) buffers."""
-    def leaf():
+                cache_bits=None, page_geom: Optional[tuple] = None) -> dict:
+    """Preallocated per-layer decode caches: {"pat": [{"p0": leaf}, ...]}.
+    Each layer's leaf is full-dtype {'k','v'}, or quantized codes and
+    scales at that layer's bits (``_cache_bits_for``: an int for every
+    layer, or {group: per-layer bits}, 16 or a missing group meaning full
+    dtype).
+    The list is the reference's ``plan="unrolled"`` layout, so layers of
+    different bits need no buckets.  ``page_geom`` = (n_pages, page_size)
+    gives page pools in place of the (B, S_max) buffers."""
+    def leaf(bits):
         if page_geom is not None:
             n_pages, page_size = page_geom
-            if cache_bits is None:
+            if bits is None:
                 return attn.init_gqa_paged_cache(cfg, n_pages, page_size,
                                                  cache_dtype, device)
             return attn.init_gqa_paged_quant_cache(cfg, batch, n_pages,
-                                                   page_size, cache_bits,
-                                                   device)
-        if cache_bits is None:
+                                                   page_size, bits, device)
+        if bits is None:
             return attn.init_gqa_cache(cfg, batch, max_seq, cache_dtype,
                                        device)
-        return attn.init_gqa_quant_cache(cfg, batch, max_seq, cache_bits,
-                                         device)
-    return {"pat": [{f"p{j}": leaf() for j, _ in enumerate(cfg.pattern)}
-                    for _ in range(cfg.n_repeats)]}
+        return attn.init_gqa_quant_cache(cfg, batch, max_seq, bits, device)
+    return {"pat": [{f"p{j}": leaf(_cache_bits_for(cache_bits, f"pat{j}",
+                                                   r))
+                     for j, _ in enumerate(cfg.pattern)}
+                    for r in range(cfg.n_repeats)]}
 
 
 def _embed(params: dict, cfg, tokens: torch.Tensor, impl: str = "auto",

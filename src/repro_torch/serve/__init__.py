@@ -1,7 +1,8 @@
-"""Serving: packed weights, KV cache (contiguous or paged, with prefix
-sharing), greedy engine and the continuous-batching scheduler."""
+"""Serving: packed or fake-quant weights, KV cache (contiguous or paged,
+full or quantized per layer, with prefix sharing), greedy engine, residency
+bytes and the continuous-batching scheduler."""
 from repro_torch.serve.config import EngineSpec
-from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.engine import ServeEngine, quantize_for_serving
 from repro_torch.serve.packing import pack_params
 from repro_torch.serve.paging import PageAllocator, PrefixRegistry
 from repro_torch.serve.sampling import GREEDY, SamplerConfig
@@ -11,4 +12,5 @@ from repro_torch.serve.scheduler import (Completion,
 
 __all__ = ["Completion", "ContinuousBatchingScheduler", "EngineSpec",
            "GREEDY", "PageAllocator", "PrefixRegistry", "Request",
-           "SamplerConfig", "ServeEngine", "pack_params", "serve_all"]
+           "SamplerConfig", "ServeEngine", "pack_params",
+           "quantize_for_serving", "serve_all"]

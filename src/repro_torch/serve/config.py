@@ -1,25 +1,28 @@
 """EngineSpec: every serving knob of ``ServeEngine`` in one validated spec
 (port of ``repro/serve/config.py``).
 
-The port serves packed weights over a contiguous or paged, full or
-quantized KV cache with greedy sampling.  Every other value the reference
-accepts is refused here with ``NotImplementedError`` naming the ROADMAP
-item that ports it, so a request the port cannot honour never runs as
-something else.
+The port serves packed (``pack_params``) or fake-quant
+(``quantize_for_serving``) weights over a contiguous or paged, full or
+quantized KV cache, its bits one int or chosen per layer, with greedy
+sampling.  Every other value the reference accepts is refused here with
+``NotImplementedError`` naming the ROADMAP item that ports it, so a request
+the port cannot honour never runs as something else.  The default layout
+is ``"packed"`` (the reference's is ``"fake_quant"``): every caller of the
+port serves packed params, and params of the other layout are refused.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Optional
 
-from repro_torch.serve import sampling
+from repro_torch.serve import packing, sampling
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineSpec:
-    weights: str = "packed"         # the port serves the packed layout
+    weights: str = "packed"         # "packed" | "fake_quant"
     cache: str = "full"             # "full" | "quantized"
-    cache_bits: int = 8             # 8 or 4 (quantized cache)
+    cache_bits: Any = 8             # 8 or 4, or {group: per-layer 4/8/16}
     cache_layout: str = "contiguous"  # "contiguous" | "paged"
     page_size: int = 16             # tokens per physical page (paged)
     n_pages: Optional[int] = None   # pool size; None -> B * max_pages
@@ -30,16 +33,12 @@ class EngineSpec:
     mesh: Any = None
     draft: Any = None
 
-    def validate(self, cfg=None) -> None:
-        """Every cross-field rule; ``cfg`` adds the checks that need the
-        model (the engine passes it)."""
-        if self.weights == "fake_quant":
-            raise NotImplementedError(
-                "weights='fake_quant' stores codes as jnp.int4 in the "
-                "reference and is not ported (ROADMAP Queue 1 item 5); serve "
-                "pack_params output with weights='packed'")
-        if self.weights != "packed":
-            raise ValueError(f"weights must be 'packed', got {self.weights!r}")
+    def validate(self, cfg=None, params=None) -> None:
+        """Every cross-field rule; ``cfg`` and ``params`` add the checks
+        that need the model and the weights (the engine passes both)."""
+        if self.weights not in ("fake_quant", "packed"):
+            raise ValueError(f"weights must be 'fake_quant' or 'packed', "
+                             f"got {self.weights!r}")
         if self.cache not in ("full", "quantized"):
             raise ValueError(f"cache must be 'full' or 'quantized', "
                              f"got {self.cache!r}")
@@ -72,3 +71,12 @@ class EngineSpec:
         if self.draft is not None:
             raise NotImplementedError("draft= (speculative decoding) is "
                                       "ROADMAP Queue 1 item 10")
+        if params is not None:
+            is_packed = packing.params_are_packed(params)
+            if is_packed != (self.weights == "packed"):
+                have = "packed" if is_packed else "fake_quant"
+                raise ValueError(
+                    f"EngineSpec(weights={self.weights!r}) but params are "
+                    f"in the {have!r} layout — build packed params with "
+                    f"serve.packing.pack_params(checkpoint, policy_arrays, "
+                    f"cfg)")

@@ -1,17 +1,28 @@
-"""Serving engine: packed low-bit weights, prefill + greedy decode over a
+"""Serving engine: low-bit weights, prefill + greedy decode over a
 contiguous or paged, full or quantized KV cache — port of
 ``repro/serve/engine.py``.
 
-On the card every projection streams its packed codes through the CUDA
-``quant_matmul`` (prefill and every decode step; nothing is dequantized per
-dispatch), each projection's input goes through the CUDA ``lsq_fakequant``
-(one launch for q/k/v and one for gate/up, which share their input),
-prefill attention through ``flash_attention`` and quantized-cache decode
-attention through ``kv_decode_attention`` (``paged_kv_decode_attention``
-over a paged cache).  On the CPU the engine runs the
-reference's CPU path: prefill through ``ref.dequant_matmul`` and decode
-over a per-dispatch dequantized view (``packing.decode_weight_view``), the
-op order that keeps it greedy-parity with the JAX engine.
+Two weight layouts, as in the reference:
+
+  * packed (``serve.packing.pack_params``, the port's default): K-major
+    uint8 codes.  On the card every projection streams them through the
+    CUDA ``quant_matmul`` (prefill and every decode step; nothing is
+    dequantized per dispatch).  On the CPU the engine runs the reference's
+    CPU path: prefill through ``ref.dequant_matmul`` and decode over a
+    per-dispatch dequantized view (``packing.decode_weight_view``), the op
+    order that keeps it greedy-parity with the JAX engine.
+  * fake_quant (``quantize_for_serving``): int8 codes and a scalar scale a
+    projection, dequantized at use (``models/common.weight_of``) and
+    multiplied by a plain matmul, as in the reference, whose Pallas kernels
+    never take this layout.  Codes equal the packed layout's, so both
+    layouts serve the same tokens on the CPU.
+
+Each projection's input goes through the CUDA ``lsq_fakequant`` (one launch
+for q/k/v and one for gate/up, which share their input), prefill attention
+through ``flash_attention`` and quantized-cache decode attention through
+``kv_decode_attention`` (``paged_kv_decode_attention`` over a paged
+cache), each layer at its own cache bits; a full-dtype layer decodes by
+plain attention.
 
 The reference's decode is one ``lax.scan`` per chunk of ``decode_chunk``
 steps; eager PyTorch needs no scan, so a chunk is a Python loop of
@@ -31,31 +42,43 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.quant import PackedLinear
+from repro_torch.core import quant
 from repro_torch.kernels import kv_quant as kvq
 from repro_torch.kernels import ops as kops
 from repro_torch.models import transformer as tf
-from repro_torch.serve import kv_cache, packing, paging, sampling
+from repro_torch.serve import kv_cache, packing, paging, residency, sampling
 from repro_torch.serve.config import EngineSpec
 from repro_torch.serve.paging import PagedServeCache
 
 
-def _has_packed(node) -> bool:
-    if isinstance(node, PackedLinear):
-        return True
-    if isinstance(node, dict):
-        return any(_has_packed(v) for v in node.values())
-    if isinstance(node, list):
-        return any(_has_packed(v) for v in node)
-    return False
+def _quantize_qdense(p: dict, bits: float) -> dict:
+    """{'w','sw','sa'} -> {'wq','scale','sa'}: codes clamped to ``bits``'
+    signed range, stored as int8 whatever the bits (PyTorch has no usable
+    int4 dtype; the reference's int4 container also counts a byte a code),
+    and the scalar step as the scale."""
+    step = torch.clamp(torch.abs(p["sw"]).float(), min=1e-9)
+    codes = quant.quantize_int(p["w"].float(), step, float(bits))
+    return {"wq": codes.to(torch.int8), "scale": step, "sa": p["sa"]}
+
+
+def quantize_for_serving(params: dict, policy_arrays: dict, cfg,
+                         device="cuda") -> dict:
+    """Raw QAT params -> the fake-quant serve layout on ``device``
+    (``repro/serve/engine.py:121-185``): each projection at its unit's
+    per-layer bits from ``policy_arrays`` (a node with no unit at 4), the
+    pinned 8-bit embedding through ``packing.quantize_edge``, as the
+    packed layout's."""
+    return packing.serving_layout(params, policy_arrays, cfg,
+                                  _quantize_qdense, device)
 
 
 class ServeEngine:
     """Batched greedy decoding with a prefilled, length-tracked KV cache.
 
-    ``params``: ``pack_params`` output on ``device``.  ``impl="ref"`` runs
-    every kernel's plain PyTorch version instead (on the card it is the
-    end-to-end yardstick of ``chip_smoke.py``).
+    ``params``: ``pack_params`` output on ``device`` (``spec.weights=
+    "packed"``), or ``quantize_for_serving`` output (``"fake_quant"``).
+    ``impl="ref"`` runs every kernel's plain PyTorch version instead (on
+    the card it is the end-to-end yardstick of ``chip_smoke.py``).
     """
 
     def __init__(self, cfg, params: dict, policy_arrays: dict, max_seq: int,
@@ -65,22 +88,22 @@ class ServeEngine:
         if not isinstance(self.spec, EngineSpec):
             raise ValueError(f"spec must be an EngineSpec, got "
                              f"{type(self.spec).__name__}")
-        self.spec.validate(cfg)
+        self.spec.validate(cfg, params)
         if impl not in kops.IMPLS:
             raise ValueError(f"impl must be one of {kops.IMPLS}, got {impl!r}")
         self.device = resolve_device(device)
-        if not _has_packed(params):
-            raise ValueError("params are not in the packed layout: build them "
-                             "with serve.packing.pack_params")
-        if params["embed"]["wq"].device != self.device:
-            raise ValueError(f"params live on {params['embed']['wq'].device}, "
-                             f"the engine on {self.device}: pack_params(..., "
-                             f"device=...) them there")
+        table = params["embed"].get("wq", params["embed"].get("w"))
+        if table.device != self.device:
+            raise ValueError(f"params live on {table.device}, the engine on "
+                             f"{self.device}: pack_params(..., device=...) "
+                             f"or quantize_for_serving(..., device=...) "
+                             f"them there")
         self.cfg = cfg
         self.params = params
         self.policy_arrays = policy_arrays
         self.max_seq = int(max_seq)
         self.impl = impl
+        self.weights = self.spec.weights
         self.cache = self.spec.cache
         self.cache_bits = self.spec.cache_bits
         self.cache_layout = self.spec.cache_layout
@@ -170,8 +193,9 @@ class ServeEngine:
     # -------------------------------------------------------------- decode
     def decode_params(self) -> dict:
         """The weights one decode dispatch runs on: the packed tree on the
-        card, a dequantized view on the CPU (once per dispatch)."""
-        if self.device.type == "cpu":
+        card, a dequantized view of it on the CPU (once per dispatch); the
+        fake-quant tree as it is on either."""
+        if self.weights == "packed" and self.device.type == "cpu":
             return packing.decode_weight_view(self.params)
         return self.params
 
@@ -248,8 +272,7 @@ class ServeEngine:
         return torch.cat(out, dim=1)
 
     # ------------------------------------------------------------ residency
-    def weight_bytes(self) -> dict:
-        """Resident packed weight bytes beside the bf16 bytes of the same
-        weights."""
-        return {"packed": packing.resident_weight_bytes(self.params),
-                "bf16": packing.bf16_weight_bytes(self.params)}
+    def residency(self, cache=None) -> dict:
+        """Resident and roofline bytes of the weights and, given one, a
+        cache (``serve/residency.py``, the one definition)."""
+        return residency.report(self.params, cache)

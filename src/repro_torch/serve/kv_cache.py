@@ -33,7 +33,8 @@ class ServeCache:
 
 def init_cache(cfg, batch: int, max_seq: int, dtype, device,
                cache_bits=None) -> ServeCache:
-    """Fresh cache; every request starts empty."""
+    """Fresh cache; every request starts empty.  ``cache_bits``: None (full
+    dtype), an int, or {group: per-layer bits} (``tf.init_caches``)."""
     return ServeCache(
         layers=tf.init_caches(cfg, batch, max_seq, dtype, device, cache_bits),
         lengths=torch.zeros((batch,), dtype=torch.int32, device=device))
@@ -121,17 +122,3 @@ def advance(cache: ServeCache, steps: int = 1, active=None) -> ServeCache:
     if active is not None:
         delta = torch.where(active, delta, 0).to(torch.int32)
     return ServeCache(layers=cache.layers, lengths=cache.lengths + delta)
-
-
-def cache_bytes(cache) -> int:
-    """Resident bytes of a contiguous or paged cache's buffers: codes or
-    pools, scales, lengths and the block table."""
-    def walk(node):
-        if isinstance(node, dict):
-            return sum(walk(v) for v in node.values())
-        if isinstance(node, list):
-            return sum(walk(v) for v in node)
-        return node.numel() * node.element_size()
-    tbl = getattr(cache, "block_tbl", None)
-    return (walk(cache.layers) + walk(cache.lengths)
-            + (0 if tbl is None else walk(tbl)))

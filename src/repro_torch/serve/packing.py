@@ -6,7 +6,8 @@ int4 units -> K-major uint8 (2 codes/byte), int2 -> 4 codes/byte, the
 pinned 8-bit embedding -> int8 codes with a scalar scale.  The pattern
 stays a per-layer list, byte-equal to the reference's
 ``pack_params(..., layout="unrolled")``.  Packing runs on the weights'
-device.
+device.  ``serving_layout`` is the walk it shares with the fake-quant
+layout (``serve.engine.quantize_for_serving``).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from repro_torch import resolve_device
 from repro_torch.core import quant
 from repro_torch.core.quant import PackedLinear
 from repro_torch.models import transformer as tf
+from repro_torch.serve import residency
 
 
 def quantize_edge(p: dict) -> dict:
@@ -41,27 +43,49 @@ def _is_quant_node(node) -> bool:
     return isinstance(node, dict) and {"w", "sw", "sa"} <= set(node)
 
 
-def _walk(node, path, layer, slot_of, policy_arrays):
+def _walk(node, path, layer, slot_of, policy_arrays, convert):
     if _is_quant_node(node):
         key = slot_of.get(path)
-        bits = (4.0 if key is None
-                else np.asarray(policy_arrays[key[0]][key[1]])[layer])
-        return quant.pack_linear(node["w"], node["sw"], node["sa"],
-                                 _int_bits(bits))
+        bits = (4.0 if key is None      # no unit: the reference's default
+                else float(np.asarray(policy_arrays[key[0]][key[1]])[layer]))
+        return convert(node, bits)
     if isinstance(node, dict):
-        return {k: _walk(v, path + (k,), layer, slot_of, policy_arrays)
+        return {k: _walk(v, path + (k,), layer, slot_of, policy_arrays,
+                         convert)
                 for k, v in node.items()}
     return node
 
 
 def _to(node, dev: torch.device):
     if isinstance(node, torch.Tensor):
-        return node.to(dev)
+        return node.detach().to(dev)
     if isinstance(node, dict):
         return {k: _to(v, dev) for k, v in node.items()}
     if isinstance(node, list):
         return [_to(v, dev) for v in node]
     return node
+
+
+@torch.no_grad()
+def serving_layout(params: dict, policy_arrays: Dict[str, Dict[str, Any]],
+                   cfg, convert, device="cuda") -> dict:
+    """Raw QAT params -> a serving layout on ``device``, detached: each
+    projection's {'w','sw','sa'} node becomes ``convert(node, bits)`` at
+    its unit's per-layer bits (``tf.slot_index``), the embedding the pinned
+    8-bit ``quantize_edge``, and every other leaf is moved as it is."""
+    dev = resolve_device(device)
+    slot_of = tf.slot_index(cfg)
+    out: dict = {}
+    for key, node in params.items():
+        if key == "embed":
+            out[key] = quantize_edge(_to(node, dev))
+        elif key == "pat":
+            out[key] = [_walk(_to(layer, dev), ("pat",), r, slot_of,
+                              policy_arrays, convert)
+                        for r, layer in enumerate(node)]
+        else:
+            out[key] = _to(node, dev)
+    return out
 
 
 def pack_params(params: dict, policy_arrays: Dict[str, Dict[str, Any]], cfg,
@@ -71,20 +95,16 @@ def pack_params(params: dict, policy_arrays: Dict[str, Dict[str, Any]], cfg,
     params: ``init_params`` / ``convert.from_jax_params`` output (raw
     {'w','sw','sa'} nodes, a per-layer ``pat`` list).  policy_arrays: the
     knapsack outcome (host-side numpy; bit-widths pick buffer shapes).
+    The reference's ``cache_bits=`` argument exists only to plan buckets
+    that the packed weights and a mixed cache share; the port's per-layer
+    list needs no plan, so it has no such argument, and any per-layer cache
+    bits serve over any packed tree.
     """
-    dev = resolve_device(device)
-    slot_of = tf.slot_index(cfg)
-    out: dict = {}
-    for key, node in params.items():
-        if key == "embed":
-            out[key] = quantize_edge(_to(node, dev))
-        elif key == "pat":
-            out[key] = [_walk(_to(layer, dev), ("pat",), r, slot_of,
-                              policy_arrays)
-                        for r, layer in enumerate(node)]
-        else:
-            out[key] = _to(node, dev)
-    return out
+    return serving_layout(
+        params, policy_arrays, cfg,
+        lambda n, bits: quant.pack_linear(n["w"], n["sw"], n["sa"],
+                                          _int_bits(bits)),
+        device)
 
 
 def decode_weight_view(params: dict) -> dict:
@@ -104,27 +124,30 @@ def decode_weight_view(params: dict) -> dict:
     return conv(params)
 
 
-def _leaves(node):
-    if isinstance(node, PackedLinear):
-        yield from (node.wp, node.scale, node.sa)
-    elif isinstance(node, dict):
-        for v in node.values():
-            yield from _leaves(v)
-    elif isinstance(node, list):
-        for v in node:
-            yield from _leaves(v)
-    elif isinstance(node, torch.Tensor):
-        yield node
+def params_are_packed(params) -> bool:
+    """True if the tree holds any PackedLinear (the packed layout)."""
+    if isinstance(params, PackedLinear):
+        return True
+    if isinstance(params, dict):
+        return any(params_are_packed(v) for v in params.values())
+    if isinstance(params, list):
+        return any(params_are_packed(v) for v in params)
+    return False
 
 
 def resident_weight_bytes(params: dict) -> int:
-    """Bytes the params tree actually keeps resident (summed buffers)."""
-    return int(sum(t.numel() * t.element_size() for t in _leaves(params)))
+    """Bytes the params tree keeps resident; delegates to
+    ``serve/residency.py``, the one definition."""
+    return residency.resident_bytes(params)
 
 
 def bf16_weight_bytes(params: dict) -> int:
-    """Bytes of the same weights held as bf16: every packed or int8 matrix
-    at 2 bytes per logical element (scales and steps excluded)."""
+    """Bytes of the same weights held as bf16: every packed matrix, and
+    every int8 code matrix (the embedding, and each projection of the
+    fake-quant layout), at 2 bytes per logical weight; scales and steps
+    excluded.  This is the "bf16" column of PERF.md, not the reference's
+    ``bf16_resident_bytes`` (``residency.bf16_resident_bytes``), which
+    counts 2 bytes per stored element of every buffer, packed or not."""
     total = 0
 
     def visit(node):
@@ -132,7 +155,7 @@ def bf16_weight_bytes(params: dict) -> int:
         if isinstance(node, PackedLinear):
             total += 2 * node.k_dim * node.n_dim
         elif isinstance(node, dict):
-            if isinstance(node.get("wq"), torch.Tensor):    # int8 edge
+            if isinstance(node.get("wq"), torch.Tensor):    # int8 codes
                 total += 2 * node["wq"].numel()
                 return
             for v in node.values():

@@ -53,11 +53,14 @@ def is_paged_leaf(node) -> bool:
 
 def init_paged_cache(cfg, batch: int, max_seq: int, n_pages: int,
                      page_size: int, dtype, device,
-                     cache_bits: Optional[int] = None) -> PagedServeCache:
-    """Fresh pools and an all -1 table.  A never-admitted slot must hold
-    only the sentinel: its inactive decode writes are pinned at max_seq,
-    which lies inside the table's range when max_seq % page != 0, and a
-    zero entry would route them into page 0, another request's."""
+                     cache_bits=None) -> PagedServeCache:
+    """Fresh pools and an all -1 table.  ``cache_bits`` as in
+    ``kv_cache.init_cache``: each layer's pools take its own code width
+    (int8 rows of D, int4 rows of D / 2, or full dtype) behind the one
+    table.  A never-admitted slot must hold only the sentinel: its inactive
+    decode writes are pinned at max_seq, which lies inside the table's
+    range when max_seq % page != 0, and a zero entry would route them into
+    page 0, another request's."""
     return PagedServeCache(
         layers=tf.init_caches(cfg, batch, max_seq, dtype, device, cache_bits,
                               page_geom=(n_pages, page_size)),

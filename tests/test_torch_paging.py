@@ -145,10 +145,11 @@ def test_gather_pages_and_page_count_match_jax():
 
 def test_paged_cache_bookkeeping():
     """A fresh cache holds only the -1 sentinel; table rows and lengths
-    update in place; the byte count covers pools, scales, lengths and
-    table."""
+    update in place; the resident KV bytes cover pools and scales, not the
+    lengths and the table (``residency.resident_kv_bytes``, the
+    reference's definition)."""
     from repro_torch.configs import olmo_1b
-    from repro_torch.serve import kv_cache, paging
+    from repro_torch.serve import paging, residency
     cfg = olmo_1b.config().smoke()
     c = paging.init_paged_cache(cfg, 2, 40, 7, 16, torch.float32, "cpu",
                                 cache_bits=4)
@@ -163,7 +164,8 @@ def test_paged_cache_bookkeeping():
     leaf = c.layers["pat"][0]["p0"]
     per_layer = (2 * leaf["pkq"].numel() + 4 * leaf["pv_scale"].numel()
                  + 4 * leaf["k_scale"].numel())
-    assert kv_cache.cache_bytes(c) == cfg.n_repeats * per_layer + 8 + 24
+    # the reference's bytes: pools and K grids; lengths and table are not
+    assert residency.resident_kv_bytes(c) == cfg.n_repeats * per_layer
 
 
 def test_splice_prefill_maps_slots_sequentially():

@@ -35,7 +35,8 @@ from repro_torch.convert import from_jax_cache, from_jax_params  # noqa: E402
 from repro_torch.core import knapsack as tk  # noqa: E402
 from repro_torch.core.quant import PackedLinear  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
-from repro_torch.serve import EngineSpec, ServeEngine, pack_params  # noqa: E402
+from repro_torch.serve import (EngineSpec, ServeEngine,  # noqa: E402
+                               pack_params, quantize_for_serving)
 
 MAX_SEQ = 64
 CACHES = [("full", 8), ("quantized", 8), ("quantized", 4)]
@@ -322,8 +323,14 @@ def test_unported_options_raise(setup):
             setup["cfg"].replace(causal=False))
     with pytest.raises(NotImplementedError, match="item 11"):
         EngineSpec(sampler=SamplerConfig("top_k", top_k=4)).validate()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        EngineSpec(weights="fake_quant").validate()
+    EngineSpec(weights="fake_quant").validate()
+    for weights, params in (("fake_quant", "packed"), ("packed", "fake")):
+        built = (pack_params if params == "packed" else
+                 quantize_for_serving)(setup["tparams"],
+                                       setup["arrays"]["uniform"][1],
+                                       setup["cfg"], device="cpu")
+        with pytest.raises(ValueError, match="layout"):
+            EngineSpec(weights=weights).validate(setup["cfg"], built)
     for kw in ({"mesh": object()}, {"draft": object()},
                {"prefill_chunk": 4}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
