@@ -7,7 +7,7 @@ Phases, in order; any failure exits non-zero:
   1. device  - the card's name and power limit (nvidia-smi); no card fails.
   2. build   - nvcc builds the kernels from src/repro_torch/csrc into
                build/kernels/ (parallel, one process per source).
-  3. kernels - each of the seven kernels against its plain PyTorch version at
+  3. kernels - each of the eight kernels against its plain PyTorch version at
                the main path's shapes, with its tolerance, kernel / plain /
                library times (CUDA events, warm-up excluded, L2 flushed) and
                bound; the decode GEMV's shapes also in device time alone
@@ -25,7 +25,11 @@ Phases, in order; any failure exits non-zero:
                cut to their last rows; and the suffix prefill's Sk > Sq
                shapes beside SDPA with a bottom-right mask), lsq_fakequant (NaN,
                +-inf, ties, clamp edges, ragged lengths) and the histogram
-               (repeat, one device op a call) bit for bit.
+               (repeat, one device op a call) bit for bit; the float32 flash
+               kernel at bert-base's prefill shape beside float32 SDPA, then
+               causal, ragged, GQA, D = 128 and Sk > Sq (check_flash_f32);
+               quant_matmul on float32 x at bert-base's four projection
+               shapes, M = 32 x 384, bits 4 and 2 (check_quant_matmul_f32).
   select     - EAGL gains of olmo-1b at full width, weights drawn on the
                card from seed 0, through the histogram kernel and through
                impl="ref" (the same knapsack take), and the 4/2 mix the
@@ -68,6 +72,11 @@ Phases, in order; any failure exits non-zero:
                and in the fake-quant layout, phase 4's traffic; gates J1-J5
                (layouts and bytes, paged tokens, launches, codes, teacher-
                forced logits; see phase_joint).
+  bert       - bert-base at its published widths and depth (float32,
+               bidirectional, GeLU, LayerNorm, untied head): 4-bit QAT at
+               32 x 384, EAGL, ALPS, HAWQ-v3, the frontier, and the packed
+               forward of EAGL's take through the float32 flash kernel and
+               quant_matmul; gates B2-B6 (see phase_bert).
 The second-to-last line is the kernels JSON, the last the device JSON.
 Details go to chiprun_out/chip_smoke.json and chiprun_out/build_log.txt.
 """
@@ -104,8 +113,17 @@ TPU_SOURCES = {
     "paged_kv_decode_attention": "src/repro/kernels/flash_attention.py:237",
     # no Pallas kernel: the reference's custom VJP, which XLA fuses
     "lsq_fakequant_bwd": "src/repro/core/quant.py:77",
+    # the float32 case of the same Pallas kernel (bert-base's prefill)
+    "flash_attention_f32": "src/repro/kernels/flash_attention.py:318",
+    # quant_matmul on float32 x (bert-base's packed forward)
+    "quant_matmul_f32": "src/repro/kernels/quant_matmul.py:72",
 }
+# a check's kernel, where the check is named after one of its cases
+KERNEL_OF = {"quant_matmul_f32": "quant_matmul"}
 PAGE = 16                        # the paged serve runs' page size
+# BERT's SQuAD v1.1 fine-tuning shape: 32 sequences of 384 tokens, for the
+# bert phase's training and its packed forward
+BERT_B, BERT_S = 32, 384
 
 
 def log(*args):
@@ -193,10 +211,19 @@ def phase_build():
 
 
 # ------------------------------------------------------------ kernel phases
-def qmm_case(timer, dev, gen, bits, m, k, n, wp=None, x=None):
-    """One quant_matmul shape against its plain version (1 bf16 ulp of
-    max|ref|), timed beside cuBLAS bf16 on the dequantized weight.  A GEMV
-    shape (M <= 16) is also read in device time alone (``device_us``)."""
+QMM_F32_TOL = 1e-5       # of max|ref|, float32 x and output (see below)
+
+
+def qmm_case(timer, dev, gen, bits, m, k, n, wp=None, x=None,
+             dtype=torch.bfloat16):
+    """One quant_matmul shape against its plain version, timed beside
+    cuBLAS bf16 on bf16(x) and the dequantized weight.  x of ``dtype``: in
+    bf16 within 1 bf16 ulp of max|ref| (the output's rounding); in float32,
+    on a tensor-core route, within QMM_F32_TOL of max|ref| (both sides
+    multiply bf16(x) by exact codes and sum in float32, in other orders;
+    a code off by one moves an output by |x| x scale, typically 3e-4 to
+    6e-4 of max|ref| at bert-base's shapes).  A GEMV shape (M <= 16) is
+    also read in device time alone (``device_us``)."""
     from repro_torch.kernels import cuda, ref
     unpack = ref.unpack_w4 if bits == 4 else ref.unpack_w2
     if wp is None:
@@ -204,21 +231,27 @@ def qmm_case(timer, dev, gen, bits, m, k, n, wp=None, x=None):
         codes = torch.randint(lo, hi, (k, n), generator=gen, device=dev)
         wp = (ref.pack_w4 if bits == 4 else ref.pack_w2)(codes)
     if x is None:
-        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
     scale = torch.rand((n,), generator=gen, device=dev) * 0.02 + 1e-3
     got = cuda.quant_matmul(x, wp, scale, bits).float()
     plain = ref.quant_matmul_w4 if bits == 4 else ref.quant_matmul_w2
     want = plain(x, wp, scale)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    tol = bf16_ulp(float(want.abs().max()))
+    if x.dtype == torch.bfloat16:
+        tol, tol_is = bf16_ulp(float(want.abs().max())), "1 bf16 ulp"
+    else:
+        tol, tol_is = QMM_F32_TOL * float(want.abs().max()), "1e-5"
     w_bf16 = (unpack(wp, torch.float32) * scale[None]).to(torch.bfloat16)
-    rec = {"bits": bits, "m": m, "k": k, "n": n, "max_abs_err": err,
+    x_bf16 = x.to(torch.bfloat16)
+    rec = {"bits": bits, "m": m, "k": k, "n": n,
+           "dtype": str(x.dtype).removeprefix("torch."), "max_abs_err": err,
            "tol": tol, "ok": err <= tol,
            "ms": timer(lambda: cuda.quant_matmul(x, wp, scale, bits)),
            "plain_ms": timer(lambda: plain(x, wp, scale)),
-           "library_ms": timer(lambda: torch.matmul(x, w_bf16))}
-    nb = m * k * 2 + wp.numel() + n * 4 + m * n * 2
+           "library_ms": timer(lambda: torch.matmul(x_bf16, w_bf16))}
+    size = x.element_size()
+    nb = m * k * size + wp.numel() + n * 4 + m * n * size
     flop = 2.0 * m * n * k
     rec["bound_ms"], rec["bound_by"] = bound_ms(nb, flop, BF16_OPS_PER_S)
     rate = ""
@@ -228,8 +261,8 @@ def qmm_case(timer, dev, gen, bits, m, k, n, wp=None, x=None):
         rec["x_cublas"] = rec["ms"] / rec["library_ms"]
         rate = (f", {rec['tflops']:.1f} TFLOP/s, {rec['x_cublas']:.2f}x "
                 f"cuBLAS")
-    log(f"  quant_matmul {rec['route']} w{bits} M={m} K={k} N={n}: err "
-        f"{err:.3g} (tol {tol:.3g}, 1 bf16 ulp of max|ref|) "
+    log(f"  quant_matmul {rec['route']} w{bits} {rec['dtype']} M={m} K={k} "
+        f"N={n}: err {err:.3g} (tol {tol:.3g}, {tol_is} of max|ref|) "
         f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}, cuBLAS bf16 "
         f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} "
         f"({rec['bound_by']}){rate}")
@@ -380,6 +413,22 @@ def check_quant_matmul(timer, dev, gen):
     head = next(c for c in cases if (c["bits"], c["m"], c["k"], c["n"])
                 == (4, 8, 2048, 8192))
     return head, cases
+
+
+# bert-base's projections (K, N): q/k/v, o, up and down
+BERT_PROJECTIONS = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
+
+
+def check_quant_matmul_f32(timer, dev, gen):
+    """quant_matmul as bert-base's packed forward runs it: float32 x and
+    output, M = 32 x 384 tokens, each projection shape at bits 4 and 2
+    (``qmm_case``; the tensor-core route on bf16(x), as its plain version
+    rounds x)."""
+    cases = [qmm_case(timer, dev, gen, bits, BERT_B * BERT_S, k, n,
+                      dtype=torch.float32)[0]
+             for bits in (4, 2) for (k, n) in BERT_PROJECTIONS]
+    # headline: the up projection at int4
+    return cases[2], cases
 
 
 def alone_device(timer, rec, fn, library):
@@ -780,6 +829,82 @@ def flash_digest(dev) -> str:
         out = cuda.flash_attention(q, k, v, causal=True)
         h.update(out.view(torch.int16).cpu().numpy().tobytes())
     return h.hexdigest()[:16]
+
+
+# float32 kernel vs its plain version, relative to max|ref| and to each
+# row's norm: both sum in float32, in other orders (a score of D = 64 terms
+# and a row of up to 456 keys), an error near 1e-6 of the result
+FLASH_F32_TOL = 1e-5
+# (b, h, hkv, s, s_k, d, causal, layout): bert-base's prefill first (the
+# model's (B, S, H, D) projections passed as (B, H, S, D) views), then
+# causal, ragged S, GQA 12/4, D = 128 and keys longer than the queries
+FLASH_F32_CASES = ((32, 12, 12, 384, 384, 64, False, "model"),
+                   (2, 12, 12, 300, 300, 64, True, "bhsd"),
+                   (2, 12, 12, 129, 129, 64, False, "model"),
+                   (2, 12, 4, 384, 384, 64, False, "bhsd"),
+                   (2, 8, 8, 257, 257, 128, True, "model"),
+                   (2, 8, 8, 257, 257, 128, False, "bhsd"),
+                   (1, 12, 12, 200, 456, 64, True, "bhsd"),
+                   (1, 12, 4, 200, 456, 64, False, "model"))
+
+
+def check_flash_f32(timer, dev, gen):
+    """The float32 flash kernel against its plain version in float32 on
+    the same inputs (FLASH_F32_TOL of max|ref| and of every row's norm) at
+    FLASH_F32_CASES; the first, bert-base's prefill shape, timed beside
+    float32 SDPA and read in device time alone."""
+    from repro_torch.kernels import cuda, ops
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cases = []
+    for i, (b, h, hkv, s, s_k, d, causal, layout) in enumerate(
+            FLASH_F32_CASES):
+        def make(heads, n):
+            if layout == "model":
+                return torch.randn((b, n, heads, d), generator=gen,
+                                   device=dev).transpose(1, 2)
+            return torch.randn((b, heads, n, d), generator=gen, device=dev)
+        q, k, v = make(h, s), make(hkv, s_k), make(hkv, s_k)
+        got = cuda.flash_attention(q, k, v, causal=causal)
+        want = ops.flash_attention(q, k, v, causal=causal, impl="ref")
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = FLASH_F32_TOL * float(want.abs().max())
+        row_err = float((torch.linalg.vector_norm(got - want, dim=-1)
+                         / torch.linalg.vector_norm(want, dim=-1)).max())
+        rec = {"b": b, "h": h, "hkv": hkv, "s": s, "s_k": s_k, "d": d,
+               "causal": causal, "layout": layout, "max_abs_err": err,
+               "tol": tol, "max_row_rel_err": row_err,
+               "row_tol": FLASH_F32_TOL,
+               "ok": err <= tol and row_err <= FLASH_F32_TOL}
+        log(f"  flash_attention f32 B={b} H={h} Hkv={hkv} Sq={s} Sk={s_k} "
+            f"D={d} causal={causal} {layout}: err {err:.3g} (tol "
+            f"{tol:.3g}), worst row |d|/|ref| {row_err:.3g} (tol "
+            f"{FLASH_F32_TOL})")
+        if i == 0:
+            def kern():
+                return cuda.flash_attention(q, k, v, causal=causal)
+
+            def lib():
+                return sdpa(q, k, v, enable_gqa=hkv != h)
+            rec["ms"] = timer(kern)
+            rec["plain_ms"] = timer(lambda: ops.flash_attention(
+                q, k, v, causal=causal, impl="ref"))
+            rec["library_ms"] = timer(lib)
+            nb = 4 * (2 * b * h * s * d) + 4 * (2 * b * hkv * s_k * d)
+            flop = 4.0 * b * h * s * s_k * d
+            rec["bound_ms"], rec["bound_by"] = bound_ms(nb, flop,
+                                                        F32_OPS_PER_S)
+            rec["tflops"] = flop / rec["ms"] * 1e-9
+            alone_device(timer, rec, kern, lib)
+            rec["sdpa_max_abs_err"] = float((lib() - want).abs().max())
+            log(f"    {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}, "
+                f"float32 SDPA {rec['library_ms']:.4f} (its error "
+                f"{rec['sdpa_max_abs_err']:.3g}), bound "
+                f"{rec['bound_ms']:.4f} ({rec['bound_by']}); "
+                f"{rec['tflops']:.1f} TFLOP/s (4 B H Sq Sk D)")
+            log_alone(rec, "float32 SDPA")
+        cases.append(rec)
+    return cases[0], cases
 
 
 LSQ_STEPS = (0.7559289, 0.31, 1.7)   # q, k and v's steps in phase 3
@@ -1414,8 +1539,9 @@ def phase_select(cfg, raw, dev):
         f"{n2} at 2 bits: " + " ".join(
             f"{name.replace('pat0.', '')}={int(b)}"
             for name, b in rec["mix"].items()))
-    log("  the weights are random (seed 0), so this mix says nothing about "
-        "which layers of a trained OLMo-1B need 4 bits")
+    log(f"  the weights are random (seed 0) or trained for 16 steps on "
+        f"synthetic tokens, so this mix says nothing about which layers of "
+        f"a trained {cfg.name} need 4 bits")
     if not (rel <= 1e-6 and rec["take_equal"]):
         raise RuntimeError(f"EAGL through the kernel disagrees with "
                            f"impl='ref': max relative gain difference {rel}, "
@@ -2090,14 +2216,14 @@ def shadowed(block_apply, errs: list):
     """``block_apply`` that also runs the plain version of each block
     (impl="ref") on the same input and a copy of the same cache, and
     appends the relative RMS and max-abs errors of the block's output."""
-    def both(p, x, bits, cfg, mode, cache, positions, impl="auto",
+    def both(p, x, bits, cfg, bdef, mode, cache, positions, impl="auto",
              hvp=False):
         copy = None if cache is None else {k: v.clone()
                                            for k, v in cache.items()}
-        want, _ = block_apply(p, x, bits, cfg, mode, copy, positions, "ref",
-                              hvp)
-        got, new = block_apply(p, x, bits, cfg, mode, cache, positions, impl,
-                               hvp)
+        want, _ = block_apply(p, x, bits, cfg, bdef, mode, copy, positions,
+                              "ref", hvp)
+        got, new = block_apply(p, x, bits, cfg, bdef, mode, cache, positions,
+                               impl, hvp)
         errs.append((rel_rms_err(got, want), rel_err(got, want)))
         return got, new
     return both
@@ -2263,14 +2389,18 @@ ALPS_REF_TOL = 1e-2                         # gains, kernel vs plain path
 
 def lsq_sites(cfg) -> dict:
     """Fake-quant sites of a train step (one launch each way, steps that
-    share an input grouped): the activations of q/k/v, o, gate/up and down
-    in each layer and the head's; the 7 weights of each layer and the
-    embedding table twice (the gather's and the tied head's).  The
-    backward recomputes each layer (checkpointing), so its activation
-    sites launch the forward a second time."""
+    share an input grouped): the activations of q/k/v, o, gate/up (up
+    alone in a GeLU FFN) and down in each layer and the head's; the
+    weights of each layer (7 with SwiGLU, 6 with GeLU) and two edges: the
+    embedding table twice (the gather's and the tied head's), or the table
+    and the untied head once each.  The backward recomputes each layer
+    (checkpointing), so its activation sites launch the forward a second
+    time."""
     layers = cfg.n_repeats * len(cfg.pattern)
-    return {"activations": 4 * layers + 1, "weights": 7 * layers + 2,
-            "recomputed": 4 * layers}
+    per_layer = 4 + sum(3 if b.ffn == "swiglu" else 2 for b in cfg.pattern
+                        ) // len(cfg.pattern)
+    return {"activations": 4 * layers + 1,
+            "weights": per_layer * layers + 2, "recomputed": 4 * layers}
 
 
 def grads_of(state, cfg, batch, impl):
@@ -2283,7 +2413,8 @@ def grads_of(state, cfg, batch, impl):
 
 
 def compare_grads(state, g_kernel, g_again, g_ref) -> dict:
-    """T2: each gradient finite and not all zero; each weight gradient of
+    """T2: each gradient finite and not all zero; each gradient of a
+    weight or another leaf with a shape (a LayerNorm's scale or bias) of
     the kernel path bit for bit with impl="ref", or else equal to a second
     kernel-path run's (a difference the run itself makes); each step's
     within STEP_GRAD_TOL relative."""
@@ -2296,7 +2427,7 @@ def compare_grads(state, g_kernel, g_again, g_ref) -> dict:
         rec["leaves"] += 1
         if not (bool(torch.isfinite(a).all()) and bool((a != 0).any())):
             rec["bad"].append(f"{name}: not finite or all zero")
-        if path[-1] == "w":
+        if path[-1] == "w" or a.ndim:      # weights, LayerNorm scale/bias
             if torch.equal(a, c):
                 rec["w_equal"] += 1
             else:
@@ -2316,18 +2447,21 @@ def compare_grads(state, g_kernel, g_again, g_ref) -> dict:
     return rec
 
 
-def phase_train(cfg, dev, smi_line):
-    """QAT of olmo-1b at full width and depth (weights from seed 0, bf16),
-    uniform 4-bit, AdamW (lr LR, clip 1.0, float32 moments), the port's
-    synthetic batches of 8 x 512 tokens, TRAIN_STEPS steps.  Gates: (T1)
+def phase_train(cfg, dev, smi_line, batch=None):
+    """QAT of ``cfg`` at full width and depth (weights from seed 0, in the
+    config's dtype), uniform 4-bit, AdamW (lr LR, clip 1.0, float32
+    moments), the port's synthetic batches of ``batch`` (B, S) tokens
+    (default TRAIN_B x TRAIN_S, olmo-1b's), TRAIN_STEPS steps.  Gates: (T1)
     step 1's loss on the kernel path equals impl="ref"'s bit for bit; (T2)
     ``compare_grads``; (T3) the mean loss of the last 4 steps below step
     1's; (T4) each step launches the LSQ forward once a site and once more
-    a recomputed site, and the backward once a site; (T5) no
-    flash_attention, quant_matmul or decode attention launch.  Readings:
-    ms/step on the host clock (synchronized), tokens/s, MFU, peak memory,
-    and a profiled step (device ms, idle share, top 20, LSQ ms).  Returns
-    the final state and the record."""
+    a recomputed site, and the backward once a site; (T5) no flash
+    attention (bf16 or float32), quant_matmul or decode attention launch.
+    Readings: ms/step on the host clock (synchronized), tokens/s, MFU
+    (against the dense peak of the compute dtype: bf16 tensor cores, or
+    float32 outside them), peak memory, and a profiled step (device ms,
+    idle share, top 20, LSQ ms).  Returns the final state and the
+    record."""
     import functools
     from repro_torch import tree
     from repro_torch.data.synthetic import make_batch
@@ -2340,7 +2474,8 @@ def phase_train(cfg, dev, smi_line):
     state = init_train_state(cfg, functools.partial(
         AdamW, learning_rate=LR, grad_clip=GRAD_CLIP), 0, policy, device=dev)
     n_params = sum(p.numel() for p in tree.leaves(state.params))
-    batches = [make_batch(0, i, TRAIN_B, TRAIN_S, cfg.vocab, device=dev)
+    n_b, n_s = batch or (TRAIN_B, TRAIN_S)
+    batches = [make_batch(0, i, n_b, n_s, cfg.vocab, device=dev)
                for i in range(TRAIN_STEPS + 1)]
     sites = lsq_sites(cfg)
     n_sites = sites["activations"] + sites["weights"]
@@ -2377,27 +2512,30 @@ def phase_train(cfg, dev, smi_line):
     peak = torch.cuda.max_memory_allocated()
     prof = device_breakdown(lambda: step(state, batches[TRAIN_STEPS]))
     ms = float(np.median(wall[1:])) * 1e3
-    tokens = TRAIN_B * TRAIN_S
+    tokens = n_b * n_s
+    peak_ops = (F32_OPS_PER_S if cfg.compute_dtype == torch.float32
+                else BF16_OPS_PER_S)
     rec = {"config": f"{cfg.name} d_model={cfg.d_model} layers="
                      f"{cfg.n_repeats} heads={cfg.n_heads} d_ff={cfg.d_ff} "
                      f"vocab={cfg.vocab} {cfg.param_dtype}",
-           "device": smi_line, "batch": [TRAIN_B, TRAIN_S],
+           "device": smi_line, "batch": [n_b, n_s],
            "steps": TRAIN_STEPS, "n_params": n_params, "losses": losses,
            "step_ms": [w * 1e3 for w in wall], "ms_per_step": ms,
            "first_step_ms": wall[0] * 1e3,
            "tokens_per_s": tokens / (ms / 1e3),
-           "mfu": 6.0 * n_params * tokens / ((ms / 1e3) * BF16_OPS_PER_S),
+           "mfu": 6.0 * n_params * tokens / ((ms / 1e3) * peak_ops),
            "peak_gib": peak / 2 ** 30, "launches": launches,
            "launches_step1_grads": once, "sites": sites, "grads": grads,
            "t1_loss_equal": t1_equal, "profile": prof,
            "last4_mean": float(np.mean(losses[-4:]))}
     rec["t3_margin"] = losses[0] - rec["last4_mean"]
-    log(f"  {rec['config']}: {TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_S}; "
+    log(f"  {rec['config']}: {TRAIN_STEPS} steps of {n_b} x {n_s}; "
         f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (last 4 mean "
         f"{rec['last4_mean']:.4f}, margin {rec['t3_margin']:.4f})")
     log(f"  {ms:.1f} ms/step (host clock, median of steps 2-{TRAIN_STEPS}; "
         f"step 1 {wall[0] * 1e3:.1f}), {rec['tokens_per_s']:.0f} tokens/s, "
-        f"MFU {rec['mfu']:.4f} (6 N tokens, N = {n_params}, at 989 TFLOP/s);"
+        f"MFU {rec['mfu']:.4f} (6 N tokens, N = {n_params}, at "
+        f"{peak_ops / 1e12:.0f} TFLOP/s);"
         f" peak {rec['peak_gib']:.2f} GiB; launches {launches}")
     log_breakdown("one train step", prof)
     log(f"    lsq_fakequant_bwd {prof['lsq_fakequant_bwd_ms']:.3f} ms; top "
@@ -2415,8 +2553,8 @@ def phase_train(cfg, dev, smi_line):
         if launches[name] != n:
             bad.append(f"T4: {name} launched {launches[name]} times, "
                        f"{n} expected ({sites}, {TRAIN_STEPS} steps)")
-    for name in ("flash_attention", "quant_matmul", "kv_decode_attention",
-                 "paged_kv_decode_attention"):
+    for name in ("flash_attention", "flash_attention_f32", "quant_matmul",
+                 "kv_decode_attention", "paged_kv_decode_attention"):
         if launches[name]:
             bad.append(f"T5: {name} launched {launches[name]} times")
     if bad:
@@ -3014,9 +3152,159 @@ def selection_methods(policy, alps, hawq) -> dict:
             "first_to_last": None, "last_to_first": None}
 
 
+BERT_FORWARD_LAUNCHES = {"quant_matmul": 6, "lsq_fakequant": 4,
+                         "flash_attention_f32": 1}   # a layer's, + the head's
+                                                     # lsq_fakequant
+
+
+def bert_forward(cfg, dev, raw, mixed, smi_line):
+    """B5: the packed forward of ``mixed`` (EAGL's take at 0.7) over
+    BERT_B x BERT_S tokens, ``transformer.apply(..., mode="prefill")``:
+    its launches (BERT_FORWARD_LAUNCHES a layer, one more lsq_fakequant for
+    the head, nothing else), finite logits of the expected shape, and the
+    kernel path against impl="ref" within CONTROL_FACTOR times the
+    control's drift: the plain path with its attention in float64 (as in
+    phase_check: a whole code step of some activation fake-quant follows
+    any rounding difference, and 12 blocks amplify it).  Readings: host
+    ms (synchronized, median of 3), tokens/s, the profiled forward (device
+    ms, idle share, top 10) and the resident weight bytes beside the same
+    weights in float32 and bf16."""
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels import cuda
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import pack_params, packing, residency
+    pa = mixed.as_arrays()
+    packed = pack_params(raw, pa, cfg, device=dev)
+    tokens = make_batch(21, 0, BERT_B, BERT_S, cfg.vocab,
+                        device=dev)["tokens"]
+    layers = cfg.n_repeats * len(cfg.pattern)
+    want = {k: n * layers for k, n in BERT_FORWARD_LAUNCHES.items()}
+    want["lsq_fakequant"] += 1
+
+    def forward(impl="auto"):
+        return tf.apply(packed, pa, tokens, cfg, mode="prefill",
+                        impl=impl)[0]
+
+    with torch.no_grad():
+        forward()
+        sync(dev)
+        cuda.reset_launches()
+        got = forward()
+        sync(dev)
+        launches = dict(cuda.LAUNCHES)
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            forward()
+            sync(dev)
+            walls.append(time.perf_counter() - t0)
+        prof = device_breakdown(forward, top=10)
+        plain = forward("ref")
+        with patched(attn, "chunked_attention", attention_f64):
+            control = forward("ref")
+    ms = float(np.median(walls)) * 1e3
+    weights_f32 = 2 * packing.bf16_weight_bytes(packed)
+    rec = {"device": smi_line, "batch": [BERT_B, BERT_S],
+           "launches": launches, "expected_launches": want,
+           "shape": list(got.shape), "finite": bool(torch.isfinite(got).all()),
+           "rel_logit_err": rel_err(got, plain),
+           "rel_rms_logit_err": rel_rms_err(got, plain),
+           "control_rel_logit_err": rel_err(control, plain),
+           "control_rel_rms_logit_err": rel_rms_err(control, plain),
+           "kernel_vs_control_rel_logit_err": rel_err(got, control),
+           "top1_agreement": float((got.argmax(-1) == plain.argmax(-1))
+                                   .float().mean()),
+           "host_ms": ms, "host_ms_runs": [w * 1e3 for w in walls],
+           "tokens_per_s": BERT_B * BERT_S / (ms / 1e3), "profile": prof,
+           "resident_weight_bytes": residency.resident_bytes(packed),
+           "weight_bytes_bf16": packing.bf16_weight_bytes(packed),
+           "weight_bytes_f32": weights_f32}
+    rec["bound"] = CONTROL_FACTOR * rec["control_rel_logit_err"]
+    log(f"  B5 packed forward of EAGL's 0.7 take, {BERT_B} x {BERT_S} "
+        f"tokens (mode='prefill'): {ms:.2f} ms host (median of 3), "
+        f"{rec['tokens_per_s']:.0f} tokens/s; logits {rec['shape']} finite "
+        f"{rec['finite']}; launches {launches} (expected {want})")
+    log(f"    kernel vs plain max|dlogit|/max|logit| "
+        f"{rec['rel_logit_err']:.4g} (bound {CONTROL_FACTOR} x control = "
+        f"{rec['bound']:.4g}), RMS {rec['rel_rms_logit_err']:.4g}, top-1 "
+        f"agreement {rec['top1_agreement']:.4f}; control (float64 "
+        f"attention vs plain) {rec['control_rel_logit_err']:.4g}, RMS "
+        f"{rec['control_rel_rms_logit_err']:.4g}; kernel vs control "
+        f"{rec['kernel_vs_control_rel_logit_err']:.4g}")
+    log(f"    weights {rec['resident_weight_bytes'] / 1e6:.1f} MB resident "
+        f"vs {weights_f32 / 1e6:.1f} MB float32, "
+        f"{rec['weight_bytes_bf16'] / 1e6:.1f} MB bf16")
+    log_breakdown("the packed forward", prof)
+    for row in prof["top"][6:]:
+        log(f"      {row['ms']:9.3f} ms  x{row['count']:<5d} {row['kernel']}")
+    bad = []
+    if rec["shape"] != [BERT_B, BERT_S, cfg.vocab] or not rec["finite"]:
+        bad.append(f"logits of shape {rec['shape']}, finite {rec['finite']}")
+    wrong = {k: n for k, n in launches.items() if n != want.get(k, 0)}
+    if wrong:
+        bad.append(f"launches {wrong}, expected {want}")
+    if not rec["rel_logit_err"] <= rec["bound"]:
+        bad.append(f"kernel vs plain {rec['rel_logit_err']} over "
+                   f"{rec['bound']}")
+    del packed, got, plain, control
+    if bad:
+        raise RuntimeError(f"bert phase B5: {bad}")
+    return rec
+
+
+def phase_bert(cfg, dev, smi_line):
+    """``cfg``: bert-base, the paper's NLP network, at its published widths
+    and depth (12 layers, d 768, 12 heads of 64, d_ff 3072, vocab 30522,
+    float32, bidirectional, GeLU, LayerNorm, untied head; weights from seed
+    0).  B6: ``EngineSpec.validate`` refuses it (an encoder has no
+    autoregressive decode).  B2: ``phase_train`` at BERT_B x BERT_S (T1-T5,
+    the LSQ launches worked out for its 12 layers by ``lsq_sites``).  B3:
+    ``phase_select`` on the trained weights (EAGL through the histogram
+    kernel takes what impl="ref" takes), then ``phase_alps`` (A1-A3) and
+    ``phase_hawq`` (H1-H4) over its 48 selectable units.  B4:
+    ``phase_frontier`` (F1-F4; the losses reported, not gated: the
+    synthetic task's next-token labels are visible to a bidirectional
+    model).  B5: ``bert_forward`` of EAGL's take."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import EngineSpec
+    log(f"  {cfg.name} d_model={cfg.d_model} layers={cfg.n_repeats} heads="
+        f"{cfg.n_heads} d_ff={cfg.d_ff} vocab={cfg.vocab} "
+        f"{cfg.param_dtype} causal={cfg.causal}")
+    try:
+        EngineSpec().validate(cfg)
+        b6 = None
+    except ValueError as e:
+        b6 = str(e)
+    log(f"  B6 EngineSpec.validate refuses it: {b6}")
+    if b6 is None or "autoregressive" not in b6:
+        raise RuntimeError("bert phase B6: EngineSpec.validate accepted a "
+                           "non-causal config")
+    rec = {"config": cfg.name, "device": smi_line, "b6": b6}
+    t0 = time.perf_counter()
+    state, rec["train"] = phase_train(cfg, dev, smi_line,
+                                      batch=(BERT_B, BERT_S))
+    log(f"  B2 train {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        mixed, rec["select"] = phase_select(cfg, state.params, dev)
+    rec["alps"] = alps = phase_alps(cfg, dev, state, smi_line)
+    rec["hawq"] = hawq = phase_hawq(cfg, dev, state, alps, smi_line)
+    log(f"  B3 select, alps and hawq {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rec["frontier"] = phase_frontier(cfg, dev, state, selection_methods(
+        tf.build_policy(cfg), alps, hawq), smi_line)
+    log(f"  B4 frontier {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rec["forward"] = bert_forward(cfg, dev, state.params, mixed, smi_line)
+    log(f"  B5 forward {time.perf_counter() - t0:.1f} s")
+    return rec
+
+
 def main():
+    t_start = time.perf_counter()
     smi_line = phase_device()
-    from repro_torch.configs import olmo_1b
+    from repro_torch.configs import get_config, olmo_1b
     from repro_torch.kernels import cuda
     from repro_torch.models import transformer as tf
     from repro_torch.serve import pack_params
@@ -3033,7 +3321,9 @@ def main():
               "lsq_fakequant_bwd": check_lsq_bwd(timer, dev, gen),
               "histogram": check_histogram(timer, dev, gen),
               "paged_kv_decode_attention": check_paged_kv_decode(timer, dev,
-                                                                 gen)}
+                                                                 gen),
+              "flash_attention_f32": check_flash_f32(timer, dev, gen),
+              "quant_matmul_f32": check_quant_matmul_f32(timer, dev, gen)}
     bad = [(name, c) for name, (_, cases) in checks.items() for c in cases
            if not c["ok"]]
     if bad:
@@ -3091,6 +3381,11 @@ def main():
                         smi_line)
     log(f"  joint phase {time.perf_counter() - t0:.1f} s")
     del state
+    torch.cuda.empty_cache()
+    log("bert (bert-base: QAT, selection, frontier, packed forward):")
+    t0 = time.perf_counter()
+    bert = phase_bert(get_config("bert-base"), dev, smi_line)
+    log(f"  bert phase {time.perf_counter() - t0:.1f} s")
 
     # each kernel's launches on the path that runs it
     launches = dict(runs["contiguous-int8"]["launches"])
@@ -3098,11 +3393,15 @@ def main():
         runs["paged-int8"]["launches"]["paged_kv_decode_attention"]
     launches["histogram"] = select["launches"]["histogram"]
     launches["lsq_fakequant_bwd"] = train["launches"]["lsq_fakequant_bwd"]
+    launches["flash_attention_f32"] = \
+        bert["forward"]["launches"]["flash_attention_f32"]
+    launches["quant_matmul_f32"] = bert["forward"]["launches"]["quant_matmul"]
     kernels = []
     for name, (head, _) in checks.items():
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{cuda.source_of(name)}.cu",
+            "source": "src/repro_torch/csrc/"
+                      f"{cuda.source_of(KERNEL_OF.get(name, name))}.cu",
             "replaces": TPU_SOURCES[name], "launches": launches[name],
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
@@ -3121,8 +3420,9 @@ def main():
                    "select": select, "serve": runs,
                    "schedule": schedule, "check": check,
                    "train": train, "alps": alps, "hawq": hawq,
-                   "frontier": front, "joint": joint,
+                   "frontier": front, "joint": joint, "bert": bert,
                    "launch_counts_after": dict(cuda.LAUNCHES)}, f, indent=1)
+    log(f"chip_smoke: {time.perf_counter() - t_start:.0f} s in all")
     log(smi_line)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,8 +1,10 @@
 """ArchConfig: declarative architecture description (port of
 ``repro/configs/base.py`` and ``BlockDef`` from ``repro/models/common.py``).
 
-The port covers the olmo family (GQA mixer, SwiGLU FFN); the fields for the
-rest of the zoo (MoE, MLA, SSMs) arrive with ROADMAP Queue 1 item 13.
+The port covers the olmo family (GQA mixer, SwiGLU FFN) and the encoder
+blocks of bert-base (bidirectional GQA, GeLU FFN, parametric LayerNorm, an
+untied head); the fields for the rest of the zoo (MoE, MLA, SSMs) arrive
+with ROADMAP Queue 1 item 13.
 """
 from __future__ import annotations
 
@@ -15,8 +17,8 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class BlockDef:
     """One layer of the repeating pattern."""
-    mixer: str      # 'gqa' (the port's only mixer so far)
-    ffn: str        # 'swiglu'
+    mixer: str      # 'gqa' | 'bidir' (GQA under cfg.causal=False)
+    ffn: str        # 'swiglu' | 'gelu' (non-gated)
     d_ff: Optional[int] = None
 
 
@@ -34,7 +36,7 @@ class ArchConfig:
     prefix: Tuple[BlockDef, ...] = ()
 
     norm: str = "rms"                    # 'rms' | 'ln' | 'nonparam_ln'
-    activation: str = "silu"
+    activation: str = "silu"             # 'silu' | 'gelu' (tanh form)
     rope: str = "rope"                   # 'rope' | 'none'
     rope_base: float = 10_000.0
     causal: bool = True

@@ -6,9 +6,10 @@ Arithmetic matches the reference bit for bit on the CPU: the quantizer is
 round-half-to-even (``torch.round``, like ``jnp.round``).  ``LsqFakeQuant``
 is the reference's ``jax.custom_vjp`` (``repro/core/quant.py:46-126``): the
 straight-through estimator for x and the LSQ step gradient scaled by
-``rsqrt(n * qmax)``, forward and backward each through
-``kernels/ops.py`` (the hand-written CUDA kernels on the card, the plain
-versions in ``kernels/ref.py`` elsewhere).  ``fake_quant`` and
+``rsqrt(n * mean(qmax))`` (the mean over a stacked weight's layers),
+forward and backward each through ``kernels/ops.py`` (the hand-written
+CUDA kernels on the card, the plain versions in ``kernels/ref.py``
+elsewhere).  ``fake_quant`` and
 ``fake_quant_group`` are the entry points: without a gradient to record
 they call the forward alone.
 """
@@ -55,12 +56,25 @@ def lsq_fake_quant(x: torch.Tensor, step, bits,
     return (q * s).to(x.dtype)
 
 
-def lsq_step_grad_scale(n: int, bits) -> float:
+def lsq_step_grad_scale(n: int, bits, grad_qmax=None) -> float:
     """The LSQ step gradient's scale rsqrt(max(n * qmax, 1)) in float32,
-    for n elements of x per step element (``_lsq_bwd``'s ``gscale``)."""
-    qmax = torch.tensor(qrange(bits)[1], dtype=torch.float32)
+    for n elements of x per step element (``_lsq_bwd``'s ``gscale``).
+    ``grad_qmax``, where given, stands for ``bits``' qmax: the reference
+    takes the mean qmax over the layers of a stacked weight
+    (``mean_qmax``)."""
+    qmax = torch.tensor(qrange(bits)[1] if grad_qmax is None else grad_qmax,
+                        dtype=torch.float32)
     prod = torch.tensor(float(max(1, n)), dtype=torch.float32) * qmax
     return float(torch.rsqrt(torch.clamp(prod, min=1.0)))
+
+
+def mean_qmax(bits) -> float:
+    """The mean qmax of per-layer bits in float32: the reference
+    fake-quantizes a pattern slot's weights stacked over the layers at once,
+    so its step gradient's scale takes ``jnp.mean(qmax)`` over them
+    (``repro/core/quant.py:96-97``)."""
+    b = torch.as_tensor(bits, dtype=torch.float32)
+    return float(torch.mean(2.0 ** (b - 1.0) - 1.0))
 
 
 def _needs_grad(x: torch.Tensor, steps) -> bool:
@@ -68,10 +82,10 @@ def _needs_grad(x: torch.Tensor, steps) -> bool:
         isinstance(s, torch.Tensor) and s.requires_grad for s in steps))
 
 
-def _save_lsq(ctx, x, bits, impl, steps) -> list:
+def _save_lsq(ctx, x, bits, impl, grad_qmax, steps) -> list:
     """Keeps what the LSQ backward needs on ``ctx``; returns the tensor
     steps."""
-    ctx.bits, ctx.impl = bits, impl
+    ctx.bits, ctx.impl, ctx.grad_qmax = bits, impl, grad_qmax
     ctx.floats = [None if isinstance(s, torch.Tensor) else s for s in steps]
     tensors = [s for s in steps if isinstance(s, torch.Tensor)]
     ctx.save_for_backward(x, *tensors)
@@ -86,10 +100,11 @@ def _saved_lsq(ctx):
 
 
 def _lsq_input_grads(ctx, gx, gsteps) -> tuple:
-    """The backward's result for ``apply(x, bits, impl, *steps)``."""
-    return (gx, None, None, *[
+    """The backward's result for ``apply(x, bits, impl, grad_qmax,
+    *steps)``."""
+    return (gx, None, None, None, *[
         g if f is None and need else None
-        for g, f, need in zip(gsteps, ctx.floats, ctx.needs_input_grad[3:])])
+        for g, f, need in zip(gsteps, ctx.floats, ctx.needs_input_grad[4:])])
 
 
 class LsqFakeQuant(torch.autograd.Function):
@@ -101,18 +116,20 @@ class LsqFakeQuant(torch.autograd.Function):
     order and rounded once to x's dtype (one step: exactly the reference's
     ``where(in_range, g, 0)``); each tensor step gets
     gscale * sum(g_k * ds_k), ds = round(xs) - xs in range and
-    clip(xs, qmin, qmax) outside, reduced to the step's shape; bits and
-    float steps get none (``kernels/ops.lsq_fakequant_bwd``: the backward
-    kernel on the card).  Arguments: ``apply(x, bits, impl, *steps)``.
+    clip(xs, qmin, qmax) outside, reduced to the step's shape
+    (``lsq_step_grad_scale``'s gscale, at ``grad_qmax`` where it is not
+    None); bits and float steps get none (``kernels/ops.lsq_fakequant_bwd``:
+    the backward kernel on the card).  Arguments: ``apply(x, bits, impl,
+    grad_qmax, *steps)``.
     ``LsqFakeQuantHvp`` is the same function in the form ``torch.func``
     transforms take.
     """
 
     @staticmethod
-    def forward(ctx, x, bits, impl, *steps):
+    def forward(ctx, x, bits, impl, grad_qmax, *steps):
         from repro_torch.kernels import ops as kops
         outs = kops.lsq_fakequant(x, list(steps), bits, impl=impl)
-        _save_lsq(ctx, x, bits, impl, steps)
+        _save_lsq(ctx, x, bits, impl, grad_qmax, steps)
         return tuple(outs)
 
     @staticmethod
@@ -120,7 +137,8 @@ class LsqFakeQuant(torch.autograd.Function):
         from repro_torch.kernels import ops as kops
         x, steps = _saved_lsq(ctx)
         gx, gsteps = kops.lsq_fakequant_bwd(x, list(grads), steps, ctx.bits,
-                                            impl=ctx.impl)
+                                            impl=ctx.impl,
+                                            grad_qmax=ctx.grad_qmax)
         return _lsq_input_grads(ctx, gx, gsteps)
 
 
@@ -147,17 +165,18 @@ class LsqFakeQuantHvp(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(x, bits, impl, *steps):
+    def forward(x, bits, impl, grad_qmax, *steps):
         from repro_torch.kernels import ops as kops
         return tuple(kops.lsq_fakequant(x, list(steps), bits, impl=impl))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        x, bits, impl, *steps = inputs
-        ctx.save_for_forward(x, *_save_lsq(ctx, x, bits, impl, steps))
+        x, bits, impl, grad_qmax, *steps = inputs
+        ctx.save_for_forward(x, *_save_lsq(ctx, x, bits, impl, grad_qmax,
+                                           steps))
 
     @staticmethod
-    def jvp(ctx, x_t, bits_t, impl_t, *step_ts):
+    def jvp(ctx, x_t, bits_t, impl_t, grad_qmax_t, *step_ts):
         x, steps = _saved_lsq(ctx)
         qmin, qmax = qrange(ctx.bits)
         outs = []
@@ -177,27 +196,29 @@ class LsqFakeQuantHvp(torch.autograd.Function):
         x, steps = _saved_lsq(ctx)
         with torch.no_grad():
             gx, gsteps = kref.lsq_fakequant_bwd(x, list(grads), steps,
-                                                ctx.bits)
+                                                ctx.bits, ctx.grad_qmax)
         return _lsq_input_grads(ctx, gx, gsteps)
 
 
 def fake_quant_group(x: torch.Tensor, steps, bits, impl: str = "auto",
-                     hvp: bool = False) -> list:
+                     hvp: bool = False, grad_qmax=None) -> list:
     """``lsq_fake_quant`` of one input at each of 1 to 3 steps (a list of
     outputs), differentiable through ``LsqFakeQuant`` when a gradient is
     to be recorded (through ``LsqFakeQuantHvp`` with ``hvp=True``);
-    otherwise the forward alone (serving)."""
+    otherwise the forward alone (serving).  ``grad_qmax``: the qmax of the
+    step gradient's scale, where it is not ``bits``' own
+    (``lsq_step_grad_scale``)."""
     if _needs_grad(x, steps):
         fn = LsqFakeQuantHvp if hvp else LsqFakeQuant
-        return list(fn.apply(x, bits, impl, *steps))
+        return list(fn.apply(x, bits, impl, grad_qmax, *steps))
     from repro_torch.kernels import ops as kops
     return kops.lsq_fakequant(x, list(steps), bits, impl=impl)
 
 
 def fake_quant(x: torch.Tensor, step, bits, impl: str = "auto",
-               hvp: bool = False) -> torch.Tensor:
+               hvp: bool = False, grad_qmax=None) -> torch.Tensor:
     """``fake_quant_group`` at one step."""
-    return fake_quant_group(x, [step], bits, impl, hvp)[0]
+    return fake_quant_group(x, [step], bits, impl, hvp, grad_qmax)[0]
 
 
 def rescale_step_for_bits(step, old_bits: float, new_bits: float):

@@ -1,4 +1,5 @@
-// Blocked online-softmax (flash) attention for prefill, bf16 in and out:
+// Blocked online-softmax (flash) attention for prefill, bf16 in and out
+// (flash_wg), and float32 in and out (flash_f32, further down):
 //   out[b, h, i] = softmax_j(q[b, h, i] . k[b, hk, j] * scale) @ v[b, hk]
 // over j <= q_off + i when causal, with hk = h / (H / Hkv) (GQA).  q has
 // Sq rows and k, v have Sk >= Sq: query row i sits at absolute position
@@ -418,6 +419,267 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------- float32
+// The float32 case of the same function: q, k, v and out float32, with the
+// products in float32 FFMA (not TF32, which keeps about three decimal
+// digits: bert-base runs float32, and the Pallas kernel upcasts q, k and v
+// to float32 and accumulates in float32 whatever their type).
+//
+// Replaces: src/repro/kernels/flash_attention.py::flash_attention
+// (_flash_kernel, its float32 case).  Plain version: the same
+// ref.attention.
+//
+// Bound on the H100: at bert-base's B = 32, H = 12, S = 384, D = 64 (not
+// causal) the work is 4 B H S^2 D = 14.5 GFLOP of float32 FMA, 216 us at
+// 67 TFLOP/s, against 151 MB of q, k, v and out (45 us at 3.35 TB/s):
+// operations.  Every score costs 2 D FMAs and one expf; the design keeps
+// the FMA units fed from registers and shared memory.
+//
+// Design: one block of 256 threads per (64-query tile, h, b), as a 16 x 16
+// grid of threads.  Q (64 rows) and two stages of K and V tiles (64 rows
+// each) sit in shared memory, copied with cp.async as 16-byte chunks (rows
+// past Sq or Sk are zero-filled); tile j + 1 is in flight while tile j is
+// used.  Thread (ty, tx) owns query rows 4 ty .. 4 ty + 3:
+//  * S = Q.K^T: keys tx + 16 c (c < 4), so a quarter warp reads 8
+//    consecutive K rows; Q and K rows are padded to D + 4 floats, which
+//    puts those 8 rows' 16-byte chunks on distinct banks (Q's reads are
+//    broadcasts).  4 x 4 scores a thread, one float4 of Q and of K per
+//    four FMAs deep.
+//  * The online softmax runs in the Pallas kernel's order: the scaled
+//    scores, masked to -1e30 on tiles that cross Sk or the causal
+//    diagonal; m_new = max(m, max_j s); p = exp(s - m_new); alpha =
+//    exp(m - m_new); l = l alpha + sum p; acc = acc alpha + p.v; out = acc /
+//    max(l, 1e-30).  A row's max and sum are reduced over the 16 threads
+//    of its half warp with __shfl_xor_sync.
+//  * P goes through shared memory (rows padded to 68 floats) and O = P.V
+//    gives each thread its rows' columns 64 n + 4 tx .. + 3: one float4 of
+//    V per key and 64-column group, the same float4 columns it stores.
+// Causal rows are aligned bottom-right (query row i at position Sk - Sq +
+// i) and key tiles wholly past a q tile's last row are skipped; GQA reads
+// K/V head h / (H / Hkv).  Strides are the caller's (D contiguous; strides
+// multiples of 4 elements and 16-byte aligned bases: the copies are
+// 16-byte chunks).
+constexpr int G_THREADS = 256, G_PP = 68;
+constexpr float G_NEG_INF = -1e30f;
+
+struct Strides {
+  long long s[12];  // q, k, v, out: (batch, head, sequence) each
+};
+
+template <int D>
+struct F32Layout {
+  static constexpr int QP = D + 4;  // padded Q and K row (floats)
+  static constexpr int Q = 64 * QP, K = 64 * QP, V = 64 * D;
+  static constexpr int STAGE = K + V;
+  static constexpr int BYTES = 4 * (Q + 2 * STAGE + 64 * G_PP);
+};
+
+// rows [row0, row0 + 64) of one head's (S, D) matrix into shared memory at
+// `pitch` floats a row, zeros past row `rows`
+template <int D>
+__device__ __forceinline__ void copy_rows(float* dst, int pitch,
+                                          const float* src, long long ss,
+                                          int row0, int rows, int tid) {
+  constexpr int CPR = D / 4;  // 16-byte chunks a row
+#pragma unroll
+  for (int i = 0; i < 64 * CPR / G_THREADS; ++i) {
+    const int idx = tid + i * G_THREADS, r = idx / CPR, c = idx % CPR;
+    const bool ok = row0 + r < rows;
+    repro::cp_async16(repro::smem_addr(dst + r * pitch + 4 * c),
+                      src + (ok ? row0 + r : 0) * ss + 4 * c, ok);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(G_THREADS, D == 64 ? 2 : 1)
+    flash_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, int B,
+              int H, int Hkv, int Sq, int Sk, Strides st, int causal,
+              float scale) {
+  using L = F32Layout<D>;
+  constexpr int QP = L::QP, NJ = D / 64;
+  extern __shared__ float4 smem_f4[];
+  float* const qs = reinterpret_cast<float*>(smem_f4);
+  float* const kv0 = qs + L::Q;  // stage s: K at kv0 + s STAGE, V after
+  float* const ps = kv0 + 2 * L::STAGE;
+
+  const int n_q = (Sq + 63) / 64;
+  const int q_off = Sk - Sq;
+  const int hb = blockIdx.x % (H * B);
+  const int qt = n_q - 1 - static_cast<int>(blockIdx.x / (H * B));
+  const int h = hb % H, b = hb / H;
+  const int hk = h / (H / Hkv);
+  const int q0 = qt * 64;
+  const int n_kv_all = (Sk + 63) / 64;
+  const int n_kv =
+      causal ? min(n_kv_all, (q_off + q0 + 63) / 64 + 1) : n_kv_all;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const float* const qb = q + b * st.s[0] + h * st.s[1];
+  const float* const kb = k + b * st.s[3] + hk * st.s[4];
+  const float* const vb = v + b * st.s[6] + hk * st.s[7];
+
+  copy_rows<D>(qs, QP, qb, st.s[2], q0, Sq, tid);
+  copy_rows<D>(kv0, QP, kb, st.s[5], 0, Sk, tid);
+  copy_rows<D>(kv0 + L::K, D, vb, st.s[8], 0, Sk, tid);
+  repro::cp_async_commit();
+
+  float acc[4][4 * NJ];
+  float m_run[4], l_run[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_run[i] = G_NEG_INF;
+    l_run[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4 * NJ; ++e) acc[i][e] = 0.f;
+  }
+
+  for (int j = 0; j < n_kv; ++j) {
+    if (j + 1 < n_kv) {
+      float* const nxt = kv0 + ((j + 1) & 1) * L::STAGE;
+      copy_rows<D>(nxt, QP, kb, st.s[5], (j + 1) * 64, Sk, tid);
+      copy_rows<D>(nxt + L::K, D, vb, st.s[8], (j + 1) * 64, Sk, tid);
+      repro::cp_async_commit();
+      repro::cp_async_wait<1>();
+    } else {
+      repro::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* const ks = kv0 + (j & 1) * L::STAGE;
+    const float* const vs = ks + L::K;
+
+    // S = Q . K^T: s[i][c] is row 4 ty + i, key k0 + tx + 16 c
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 qa[4], ka[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qa[i] = *reinterpret_cast<const float4*>(qs + (4 * ty + i) * QP + d);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        ka[c] = *reinterpret_cast<const float4*>(ks + (tx + 16 * c) * QP + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          s[i][c] = fmaf(qa[i].x, ka[c].x, s[i][c]);
+          s[i][c] = fmaf(qa[i].y, ka[c].y, s[i][c]);
+          s[i][c] = fmaf(qa[i].z, ka[c].z, s[i][c]);
+          s[i][c] = fmaf(qa[i].w, ka[c].w, s[i][c]);
+        }
+    }
+
+    const int k0 = j * 64;
+    const bool edge = k0 + 64 > Sk || (causal && k0 + 63 > q_off + q0);
+    float alpha[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + 4 * ty + i;
+      float mx = G_NEG_INF;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[i][c] *= scale;
+        const int key = k0 + tx + 16 * c;
+        if (edge && (key >= Sk || (causal && key > q_off + row)))
+          s[i][c] = G_NEG_INF;
+        mx = fmaxf(mx, s[i][c]);
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m_run[i], mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[i][c] = expf(s[i][c] - m_new);
+        sum += s[i][c];
+        ps[(4 * ty + i) * G_PP + tx + 16 * c] = s[i][c];
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      alpha[i] = expf(m_run[i] - m_new);
+      l_run[i] = l_run[i] * alpha[i] + sum;
+      m_run[i] = m_new;
+#pragma unroll
+      for (int e = 0; e < 4 * NJ; ++e) acc[i][e] *= alpha[i];
+    }
+    __syncthreads();
+
+    // O += P . V: acc[i][4 n + e] is row 4 ty + i, column 64 n + 4 tx + e
+#pragma unroll 2
+    for (int kk = 0; kk < 64; kk += 4) {
+      float4 pa[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pa[i] = *reinterpret_cast<const float4*>(ps + (4 * ty + i) * G_PP +
+                                                 kk);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        float4 vv[NJ];
+#pragma unroll
+        for (int n = 0; n < NJ; ++n)
+          vv[n] = *reinterpret_cast<const float4*>(vs + (kk + t) * D +
+                                                   64 * n + 4 * tx);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = t == 0 ? pa[i].x
+                          : t == 1 ? pa[i].y
+                          : t == 2 ? pa[i].z
+                                   : pa[i].w;
+#pragma unroll
+          for (int n = 0; n < NJ; ++n) {
+            acc[i][4 * n] = fmaf(p, vv[n].x, acc[i][4 * n]);
+            acc[i][4 * n + 1] = fmaf(p, vv[n].y, acc[i][4 * n + 1]);
+            acc[i][4 * n + 2] = fmaf(p, vv[n].z, acc[i][4 * n + 2]);
+            acc[i][4 * n + 3] = fmaf(p, vv[n].w, acc[i][4 * n + 3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the stage and P are rewritten next
+  }
+
+  float* const ob = o + b * st.s[9] + h * st.s[10];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    if (row >= Sq) continue;
+    const float den = fmaxf(l_run[i], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < NJ; ++n)
+      *reinterpret_cast<float4*>(ob + row * st.s[11] + 64 * n + 4 * tx) =
+          make_float4(acc[i][4 * n] / den, acc[i][4 * n + 1] / den,
+                      acc[i][4 * n + 2] / den, acc[i][4 * n + 3] / den);
+  }
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int H, int Hkv, int Sq, int Sk, const long long* st,
+               int causal, float scale, cudaStream_t stream) {
+  if (Sk < Sq) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int bytes = F32Layout<D>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n_q = (Sq + 63) / 64;
+  if (n_q * H * B > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  Strides s;
+  for (int i = 0; i < 12; ++i) s.s[i] = st[i];
+  flash_f32<D><<<dim3(static_cast<unsigned>(n_q * H * B)), G_THREADS, bytes,
+                 stream>>>(static_cast<const float*>(q),
+                           static_cast<const float*>(k),
+                           static_cast<const float*>(v),
+                           static_cast<float*>(o), B, H, Hkv, Sq, Sk, s,
+                           causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -432,5 +694,21 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (D == 64)
     return launch<64>(q, k, v, o, B, H, Hkv, Sq, Sk, strides, causal, scale,
                       st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int flash_attention_f32_launch(const void* q, const void* k,
+                                          const void* v, void* o, int B,
+                                          int H, int Hkv, int Sq, int Sk,
+                                          int D, const long long* strides,
+                                          int causal, float scale,
+                                          void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 128)
+    return launch_f32<128>(q, k, v, o, B, H, Hkv, Sq, Sk, strides, causal,
+                           scale, st);
+  if (D == 64)
+    return launch_f32<64>(q, k, v, o, B, H, Hkv, Sq, Sk, strides, causal,
+                          scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -25,7 +25,7 @@ from repro_torch.kernels import build
 LAUNCHES: Dict[str, int] = {"quant_matmul": 0, "kv_decode_attention": 0,
                             "flash_attention": 0, "lsq_fakequant": 0,
                             "histogram": 0, "paged_kv_decode_attention": 0,
-                            "lsq_fakequant_bwd": 0}
+                            "lsq_fakequant_bwd": 0, "flash_attention_f32": 0}
 HIST_MAX_BINS = 4096            # the kernel's shared-memory counters
 LSQ_MAX_STEPS = 3               # steps (outputs) of one lsq_fakequant launch
 LSQ_BWD_THREADS = 256           # the backward's block
@@ -60,6 +60,9 @@ _SIGNATURES = {
     "flash_attention": ("flash_attention_launch",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          ctypes.POINTER(_LL), _I, _F, _P]),
+    "flash_attention_f32": ("flash_attention_f32_launch",
+                            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             ctypes.POINTER(_LL), _I, _F, _P]),
     "lsq_fakequant": ("lsq_fakequant_launch",
                       [_P, _P, _P, _P, _LL, _P, _P, _P, _F, _F, _F, _I, _I,
                        _I, _P]),
@@ -74,7 +77,8 @@ _SIGNATURES = {
 }
 _SHARED_SOURCE = {"histogram": "entropy_hist",
                   "paged_kv_decode_attention": "kv_decode_attention",
-                  "lsq_fakequant_bwd": "lsq_fakequant"}
+                  "lsq_fakequant_bwd": "lsq_fakequant",
+                  "flash_attention_f32": "flash_attention"}
 
 
 def source_of(name: str) -> str:
@@ -229,7 +233,7 @@ def lsq_bwd_blocks(n: int, dtype) -> int:
     return max(1, min(-(-(n // vec) // LSQ_BWD_THREADS), LSQ_BWD_MAX_BLOCKS))
 
 
-def lsq_fakequant_bwd(x: torch.Tensor, grads, steps, bits):
+def lsq_fakequant_bwd(x: torch.Tensor, grads, steps, bits, grad_qmax=None):
     """The backward of ``lsq_fakequant(x, steps, bits)`` for one cotangent
     a step, in one launch: (gx in x's dtype, [gs_k]) as
     ``ref.lsq_fakequant_bwd`` defines them, each gs_k a 0-d float32 view of
@@ -253,7 +257,7 @@ def lsq_fakequant_bwd(x: torch.Tensor, grads, steps, bits):
     b = _lsq_bits(name, bits)
     ptrs, vals = _lsq_steps(name, x, steps)
     n = x.numel()
-    gscale = lsq_step_grad_scale(n, b)
+    gscale = lsq_step_grad_scale(n, b, grad_qmax)
     blocks = lsq_bwd_blocks(n, x.dtype)
     stream = _stream()
     counter = _split_counters(x.device, stream, 1)
@@ -544,18 +548,22 @@ def paged_kv_decode_attention(q: torch.Tensor, kq_pool: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
-    """q (B, H, Sq, D), k/v (B, Hkv, Sk, D) bf16 with Sk >= Sq, head_dim
-    contiguous (any batch/head/sequence strides) -> (B, H, Sq, D) bf16
-    with q's strides.  Causal rows are aligned bottom-right: query row i
-    sits at position Sk - Sq + i (the suffix prefill over shared prefix
-    rows; Sk = Sq for a whole prompt).  Prefill calls it once a layer, so
-    its host work stays small: messages are formatted only when a check
-    fails, and the array of strides is made once for each set of
+    """q (B, H, Sq, D), k/v (B, Hkv, Sk, D), all bf16 or all float32, with
+    Sk >= Sq, head_dim contiguous (any batch/head/sequence strides) -> (B,
+    H, Sq, D) in their dtype with q's strides.  bf16 launches the wgmma
+    kernel (counter ``flash_attention``), float32 the FFMA kernel
+    (``flash_attention_f32``).  Causal rows are aligned bottom-right: query
+    row i sits at position Sk - Sq + i (the suffix prefill over shared
+    prefix rows; Sk = Sq for a whole prompt).  Prefill calls it once a
+    layer, so its host work stays small: messages are formatted only when
+    a check fails, and the array of strides is made once for each set of
     strides."""
-    name = "flash_attention"
+    f32 = q.dtype == torch.float32
+    name = "flash_attention_f32" if f32 else "flash_attention"
     _on_card(name, q, k, v)
-    _require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
-             "flash_attention: q, k, v must be bfloat16")
+    _require(q.dtype == k.dtype == v.dtype
+             and q.dtype in (torch.bfloat16, torch.float32),
+             "flash_attention: q, k, v must be all bfloat16 or all float32")
     qs, ks = q.shape, k.shape
     _require(len(qs) == 4 and len(ks) == 4 and ks == v.shape,
              "flash_attention: need q (B, H, Sq, D) and k, v (B, Hkv, Sk, "
@@ -576,9 +584,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              "flash_attention: head_dim must be contiguous")
     strides = st[0:3] + st[4:7] + st[8:11] + st[12:15]
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-    _require(not any(x % 8 for x in strides)
+    per_16 = 4 if f32 else 8                 # elements in 16 bytes
+    _require(not any(x % per_16 for x in strides)
              and not any(p % 16 for p in ptrs),
-             "flash_attention: strides must be multiples of 8 elements and "
+             "flash_attention: strides must be multiples of 16 bytes and "
              "bases 16-byte aligned")
     if b == 0 or s == 0:
         return out

@@ -65,16 +65,17 @@ def lsq_fakequant(x: torch.Tensor, step, bits, impl: str = "auto"):
 
 
 def lsq_fakequant_bwd(x: torch.Tensor, grads, steps, bits,
-                      impl: str = "auto"):
+                      impl: str = "auto", grad_qmax=None):
     """The LSQ backward of ``lsq_fakequant(x, steps, bits)`` for the
     cotangents ``grads`` (one per step): (gx, [gs_k]) as
-    ``ref.lsq_fakequant_bwd`` defines them.  On the card one launch of the
-    backward kernel, which takes scalar steps only."""
+    ``ref.lsq_fakequant_bwd`` defines them (``grad_qmax`` as there).  On
+    the card one launch of the backward kernel, which takes scalar steps
+    only."""
     if use_kernel(x, impl):
         return cuda.lsq_fakequant_bwd(
             _aligned(x), [_aligned(g.to(x.dtype)) for g in grads], steps,
-            bits)
-    return ref.lsq_fakequant_bwd(x, grads, steps, bits)
+            bits, grad_qmax)
+    return ref.lsq_fakequant_bwd(x, grads, steps, bits, grad_qmax)
 
 
 def packed_matmul(x: torch.Tensor, p: PackedLinear, impl: str = "auto"

@@ -63,7 +63,7 @@ def _reduce_to_shape(t: torch.Tensor, shape) -> torch.Tensor:
     return t
 
 
-def lsq_fakequant_bwd(x: torch.Tensor, grads, steps, bits):
+def lsq_fakequant_bwd(x: torch.Tensor, grads, steps, bits, grad_qmax=None):
     """The LSQ backward of ``lsq_fakequant_grouped`` (the reference's
     ``_lsq_bwd`` for each step): (gx, [gs_k]).
 
@@ -74,7 +74,9 @@ def lsq_fakequant_bwd(x: torch.Tensor, grads, steps, bits):
     summed there, times gscale, rounded once to float32 (so the sum's order
     moves it by about float64's rounding, not float32's), reduced to the
     step's shape.  A step is a tensor (any shape broadcasting against x)
-    or a float; gs_k is float32 of the step's shape (0-d for a float)."""
+    or a float; gs_k is float32 of the step's shape (0-d for a float).
+    gscale is ``quant.lsq_step_grad_scale``'s, at ``grad_qmax`` where it
+    is not None (a stacked weight's mean qmax over its layers)."""
     qmin, qmax = quant.qrange(bits)
     xf = x.float()
     gx, gsteps = None, []
@@ -88,7 +90,7 @@ def lsq_fakequant_bwd(x: torch.Tensor, grads, steps, bits):
         ds = torch.where(in_range, torch.round(xs) - xs,
                          torch.clamp(xs, qmin, qmax))
         gscale = quant.lsq_step_grad_scale(x.numel() // max(st.numel(), 1),
-                                           bits)
+                                           bits, grad_qmax)
         total = _reduce_to_shape(g.double() * ds.double(), st.shape)
         gsteps.append((total * gscale).float())
     return gx.to(x.dtype), gsteps

@@ -1,1 +1,2 @@
-"""Model forward for the olmo family (GQA + SwiGLU)."""
+"""Model forward for the olmo family (GQA + SwiGLU) and bert-base's
+encoder (bidirectional GQA + GeLU)."""

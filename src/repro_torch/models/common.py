@@ -157,14 +157,18 @@ def prequantize_params(params, policy_arrays, slot_of, impl: str = "auto",
     gradient reaches w and sw through ``LsqFakeQuant``.  ``params["pat"]``
     is the per-layer list; ``slot_of`` maps a node's path to its (group,
     slot) (``transformer.slot_index``), whose bits ``policy_arrays`` gives
-    per layer (a node with no unit gets 4, as in the reference)."""
+    per layer (a node with no unit gets 4, as in the reference).  The
+    reference quantizes a slot's layers stacked, so every layer's step
+    gradient takes the slot's mean qmax (``quant.mean_qmax``)."""
     def walk(node, path, layer):
         if isinstance(node, dict) and {"w", "sw", "sa"} <= node.keys():
             key = slot_of.get(path)
-            bits = (4.0 if key is None else
-                    float(np.asarray(policy_arrays[key[0]][key[1]])[layer]))
+            bits, grad_qmax = 4.0, None
+            if key is not None:
+                slot = np.asarray(policy_arrays[key[0]][key[1]])
+                bits, grad_qmax = float(slot[layer]), quant.mean_qmax(slot)
             return {"wpre": quant.fake_quant(node["w"], node["sw"], bits,
-                                             impl, hvp),
+                                             impl, hvp, grad_qmax),
                     "sa": node["sa"]}
         if isinstance(node, dict):
             return {k: walk(v, path + (k,), layer) for k, v in node.items()}

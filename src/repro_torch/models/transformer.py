@@ -1,5 +1,5 @@
-"""Model stack and LM loss for the olmo family — port of
-``repro/models/transformer.py``.
+"""Model stack and LM loss for the olmo family and bert-base's encoder —
+port of ``repro/models/transformer.py``.
 
 The JAX model stacks the repeat pattern and runs it under ``lax.scan`` (or
 bucketed scans) to bound XLA compile time; eager PyTorch needs neither, so
@@ -26,28 +26,33 @@ from repro_torch.kernels import ref as kref
 from repro_torch.models import attention as attn
 from repro_torch.models import common, mlp
 
-HEAD_ACT_STEP = 0.05       # tied LM head's activation step (pinned 8-bit)
+HEAD_ACT_STEP = 0.05       # LM head's activation step (pinned 8-bit): the
+                           # tied head's constant, the untied head's init
 
 
 def _check_supported(cfg) -> None:
     for bdef in tuple(cfg.prefix) + tuple(cfg.pattern):
-        if bdef.mixer != "gqa" or bdef.ffn != "swiglu":
+        if bdef.mixer not in ("gqa", "bidir") \
+                or bdef.ffn not in ("swiglu", "gelu"):
             raise NotImplementedError(
-                f"block {bdef} is not ported: the port runs GQA + SwiGLU "
-                f"blocks (the rest of the zoo is ROADMAP Queue 1 item 13)")
-    if cfg.prefix or not cfg.tie_embeddings or cfg.activation != "silu":
-        raise NotImplementedError("prefix blocks, an untied LM head and "
-                                  "non-SiLU gates are ROADMAP Queue 1 "
-                                  "item 13")
+                f"block {bdef} is not ported: the port runs GQA (causal or "
+                f"bidirectional) blocks with a SwiGLU or GeLU FFN (the rest "
+                f"of the zoo is ROADMAP Queue 1 item 13)")
+    if cfg.prefix or cfg.activation not in ("silu", "gelu"):
+        raise NotImplementedError("prefix blocks and activations other than "
+                                  "SiLU and GeLU are ROADMAP Queue 1 item 13")
 
 
-def init_block(gen: torch.Generator, cfg, device) -> dict:
+def init_block(gen: torch.Generator, cfg, bdef, device) -> dict:
+    """norm1, attn, norm2 and the MLP (gated for SwiGLU, {up, down} for
+    GeLU) of one block."""
     return {"norm1": common.init_norm(cfg.norm, cfg.d_model, cfg.param_dtype,
                                       device),
             "attn": attn.init_gqa(gen, cfg, device),
             "norm2": common.init_norm(cfg.norm, cfg.d_model, cfg.param_dtype,
                                       device),
-            "mlp": mlp.init_dense_mlp(gen, cfg, device)}
+            "mlp": mlp.init_dense_mlp(gen, cfg, device, d_ff=bdef.d_ff,
+                                      gated=bdef.ffn != "gelu")}
 
 
 def init_params(cfg, seed: int = 0, device="cuda") -> dict:
@@ -64,24 +69,38 @@ def init_params(cfg, seed: int = 0, device="cuda") -> dict:
                         dtype=cfg.param_dtype, device=dev) * 0.02
     params: dict = {"embed": {"w": table,
                               "sw": quant.init_step_from_tensor(table, 8.0)}}
-    params["pat"] = [{f"p{j}": init_block(gen, cfg, dev)
-                      for j, _ in enumerate(cfg.pattern)}
+    params["pat"] = [{f"p{j}": init_block(gen, cfg, bdef, dev)
+                      for j, bdef in enumerate(cfg.pattern)}
                      for _ in range(cfg.n_repeats)]
     params["final_norm"] = common.init_norm(cfg.norm, cfg.d_model,
                                             cfg.param_dtype, dev)
+    if not cfg.tie_embeddings:
+        head = torch.randn((cfg.d_model, cfg.vocab), generator=gen,
+                           dtype=cfg.param_dtype, device=dev) \
+            * cfg.d_model ** -0.5
+        # the untied head's activation step is a trained leaf
+        params["head"] = {"w": head,
+                          "sw": quant.init_step_from_tensor(head, 8.0),
+                          "sa": torch.tensor(HEAD_ACT_STEP,
+                                             dtype=torch.float32,
+                                             device=dev)}
     return params
 
 
-def block_apply(p: dict, x: torch.Tensor, bits: dict, cfg, mode: str, cache,
-                positions: torch.Tensor, impl: str = "auto",
+def block_apply(p: dict, x: torch.Tensor, bits: dict, cfg, bdef,
+                mode: str, cache, positions: torch.Tensor, impl: str = "auto",
                 hvp: bool = False):
-    """One GQA + SwiGLU block.  Returns (x, new_cache)."""
+    """One GQA block (causal or not, as ``cfg.causal`` says) with its
+    FFN: GeLU for ``bdef.ffn == "gelu"``, else ``cfg.activation`` (the
+    reference's choice).  Returns (x, new_cache)."""
     h = common.apply_norm(cfg.norm, x, p["norm1"])
     y, new_cache = attn.gqa_apply(p["attn"], h, bits, cfg, mode, cache,
                                   positions, impl, hvp)
     x = x + y
     h = common.apply_norm(cfg.norm, x, p["norm2"])
-    return x + mlp.dense_mlp_apply(p["mlp"], h, bits, impl, hvp), new_cache
+    act = "gelu" if bdef.ffn == "gelu" else cfg.activation
+    return (x + mlp.dense_mlp_apply(p["mlp"], h, bits, act, impl, hvp),
+            new_cache)
 
 
 def _cache_bits_for(cache_bits, group: str, layer: int) -> Optional[int]:
@@ -153,16 +172,23 @@ def _embed(params: dict, cfg, tokens: torch.Tensor, impl: str = "auto",
 
 def _head(params: dict, cfg, x: torch.Tensor, impl: str = "auto",
           hvp: bool = False) -> torch.Tensor:
-    """Tied LM head, weights and input activations pinned 8-bit.  A plain
-    product (the JAX package leaves it to XLA), here ``torch.matmul``.  As
-    in the reference, the table is fake-quantized here and in ``_embed``
-    (two fake-quant sites; their gradients add)."""
-    p = params["embed"]
+    """LM head, weights and input activations pinned 8-bit.  A plain
+    product (the JAX package leaves it to XLA), here ``torch.matmul``.
+    Tied: the embedding table, fake-quantized here and in ``_embed`` (two
+    fake-quant sites; their gradients add), and the constant activation
+    step HEAD_ACT_STEP.  Untied: ``params["head"]`` (d, vocab) with its
+    trained activation step ``sa``.  The serve layouts hold int8 codes
+    times a scale (``serve.packing.quantize_edge``)."""
+    p = params["embed"] if cfg.tie_embeddings else params["head"]
     if "wq" in p:
-        w = (p["wq"].to(x.dtype) * p["scale"].to(x.dtype)).t()
+        w = p["wq"].to(x.dtype) * p["scale"].to(x.dtype)
     else:
-        w = quant.fake_quant(p["w"], p["sw"], PIN_EDGE_BITS, impl, hvp).t()
-    xq = quant.fake_quant(x, HEAD_ACT_STEP, PIN_EDGE_BITS, impl, hvp)
+        w = quant.fake_quant(p["w"], p["sw"], PIN_EDGE_BITS, impl, hvp)
+    if cfg.tie_embeddings:
+        w, sa = w.t(), HEAD_ACT_STEP
+    else:
+        sa = p["sa"]
+    xq = quant.fake_quant(x, sa, PIN_EDGE_BITS, impl, hvp)
     return kref.matmul(xq, w.to(x.dtype))
 
 
@@ -209,10 +235,10 @@ def apply(params: dict, policy_arrays: dict, tokens: torch.Tensor, cfg,
     for r in range(cfg.n_repeats):
         bits = layer_bits(policy_arrays, cfg, r)
         out = {}
-        for j, _ in enumerate(cfg.pattern):
+        for j, bdef in enumerate(cfg.pattern):
             cache = None if caches is None else caches["pat"][r][f"p{j}"]
-            args = (params["pat"][r][f"p{j}"], x, bits[j], cfg, mode, cache,
-                    positions, impl, hvp)
+            args = (params["pat"][r][f"p{j}"], x, bits[j], cfg, bdef, mode,
+                    cache, positions, impl, hvp)
             x, out[f"p{j}"] = (checkpoint(block_apply, *args,
                                           use_reentrant=False) if remat
                                else block_apply(*args))
@@ -275,7 +301,8 @@ def _block_units(cfg, bdef, group: str, layer: int, base: tuple):
     d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     ff = bdef.d_ff or cfg.d_ff
     nqkv = d * (h * dh + 2 * hkv * dh)
-    n_up = 2 * d * ff
+    ups = ("up",) if bdef.ffn == "gelu" else ("gate", "up")
+    n_up = len(ups) * d * ff
     return [
         _unit(group, layer, "attn_qkv",
               [base + ("attn", w, "w") for w in ("wq", "wk", "wv")],
@@ -283,8 +310,7 @@ def _block_units(cfg, bdef, group: str, layer: int, base: tuple):
         _unit(group, layer, "attn_wo", [base + ("attn", "wo", "w")],
               h * dh * d, h * dh * d, h * dh),
         _unit(group, layer, "mlp_gateup",
-              [base + ("mlp", "gate", "w"), base + ("mlp", "up", "w")],
-              n_up, n_up, d),
+              [base + ("mlp", w, "w") for w in ups], n_up, n_up, d),
         _unit(group, layer, "mlp_down", [base + ("mlp", "down", "w")],
               ff * d, ff * d, ff),
     ]
@@ -292,8 +318,10 @@ def _block_units(cfg, bdef, group: str, layer: int, base: tuple):
 
 def build_policy(cfg, b_hi: float = 4.0, b_lo: float = 2.0
                  ) -> PrecisionPolicy:
-    """Every quant unit of the model (with the pinned 8-bit embedding) and
-    every per-layer KV-cache unit, named as in the reference."""
+    """Every quant unit of the model (the pinned 8-bit embedding first and,
+    untied, the pinned 8-bit head last) and a KV-cache unit for each causal
+    GQA layer (a bidirectional block keeps no cache), named as in the
+    reference."""
     _check_supported(cfg)
     units = [_unit("embed", 0, "embed", [("embed", "w")],
                    cfg.vocab * cfg.d_model, 0.0, cfg.vocab,
@@ -303,9 +331,14 @@ def build_policy(cfg, b_hi: float = 4.0, b_lo: float = 2.0
         for j, bdef in enumerate(cfg.pattern):
             units.extend(_block_units(cfg, bdef, f"pat{j}", r,
                                       ("pat", f"p{j}")))
-            cache_units.append(CacheUnit(
-                name=f"pat{j}.cache.L{r}", group=f"pat{j}", layer=r,
-                kv_elems_per_token=2 * cfg.n_kv_heads * cfg.head_dim))
+            if bdef.mixer == "gqa":
+                cache_units.append(CacheUnit(
+                    name=f"pat{j}.cache.L{r}", group=f"pat{j}", layer=r,
+                    kv_elems_per_token=2 * cfg.n_kv_heads * cfg.head_dim))
+    if not cfg.tie_embeddings:
+        n_head = cfg.d_model * cfg.vocab
+        units.append(_unit("head", 0, "head", [("head", "w")], n_head,
+                           n_head, cfg.d_model, pinned=PIN_EDGE_BITS))
     return PrecisionPolicy(units, b_hi=b_hi, b_lo=b_lo,
                            cache_units=cache_units)
 

@@ -5,7 +5,9 @@ One ``step`` equals the reference's ``AdamW.update``: an optional global
 norm clip (the gradients scaled by min(1, clip / (norm + 1e-9)) in their
 own dtype), the moments updated in float32 (in bf16 when stored as int8),
 bias-corrected with the count's powers in float32, decoupled weight decay
-on matrices only (ndim >= 2), and the parameter rounded once to its dtype.
+on matrices only (ndim >= 2, counted on the reference's stacked leaf: a
+pattern layer's LayerNorm scale or bias is a row of an (L, d) matrix
+there, and decays), and the parameter rounded once to its dtype.
 Parameters are updated in place; the moments are the optimizer's state.
 
 int8 storage (the paper's quantization applied to the optimizer): m as
@@ -13,11 +15,11 @@ int8 codes with one float32 scale per last-dim row, v in sqrt space as
 uint8 codes, ``{'q', 's'}`` per leaf.  The reference stacks the layers of
 the pattern on one leaf, so the layers' scalars at one path (the LSQ steps
 ``sw``, ``sa``) are one 1-D leaf with one scale, the largest over the
-layers.  The port keeps the layers apart; ``share_scales`` names each such
-set of 0-d leaves (``train.step.stacked_scalars``), and a step encodes the
-set's moments stacked, as the reference does, so codes and scales are the
-reference's.  Each leaf of a set keeps its own 0-d code and the shared 0-d
-scale.
+layers.  The port keeps the layers apart; ``stack_layers`` names each set
+of leaves that is one stacked leaf there (``train.step.stacked_leaves``),
+and a step encodes the moments of a set of 0-d leaves stacked, as the
+reference does, so codes and scales are the reference's.  Each leaf of
+such a set keeps its own 0-d code and the shared 0-d scale.
 """
 from __future__ import annotations
 
@@ -111,7 +113,8 @@ class AdamW(torch.optim.Optimizer):
         self.state_dtype = state_dtype
         self.grad_clip = grad_clip
         self.count = 0
-        self.shared: list = []
+        self.shared: list = []          # sets of 0-d leaves: one scale
+        self.layered: set = set()       # leaves of a stacked leaf
         for p in self.leaves():
             z = torch.zeros_like(p, dtype=torch.float32)
             self.state[p] = {"m": encode(z, state_dtype, signed=True),
@@ -120,16 +123,21 @@ class AdamW(torch.optim.Optimizer):
     def leaves(self) -> list:
         return [p for g in self.param_groups for p in g["params"]]
 
-    def share_scales(self, sets: Sequence[Sequence[int]]) -> None:
-        """Each set (indices into ``leaves()``, all 0-d) is one stacked 1-D
-        leaf of the reference: its int8 moments share one scale.  Float32
-        and bf16 moments are the same either way."""
+    def stack_layers(self, sets: Sequence[Sequence[int]]) -> None:
+        """Each set (indices into ``leaves()``, one shape) is one leaf of
+        the reference that stacks the layers: its leaves decay as a leaf
+        of one more dimension, and the int8 moments of a set of 0-d leaves
+        share one scale (float32 and bf16 moments are the same either
+        way)."""
         params = self.leaves()
         for idx in sets:
-            if any(params[i].ndim != 0 for i in idx):
-                raise ValueError(f"share_scales takes 0-d leaves, got "
-                                 f"{[tuple(params[i].shape) for i in idx]}")
-        self.shared = [list(idx) for idx in sets]
+            shapes = [tuple(params[i].shape) for i in idx]
+            if len(set(shapes)) != 1:
+                raise ValueError(f"stack_layers takes leaves of one shape, "
+                                 f"got {shapes}")
+        self.shared = [list(idx) for idx in sets
+                       if params[idx[0]].ndim == 0]
+        self.layered = {i for idx in sets for i in idx}
 
     @torch.no_grad()
     def step(self, closure=None, grads: Optional[Sequence] = None):
@@ -161,7 +169,7 @@ class AdamW(torch.optim.Optimizer):
                  + (1 - self.b2) * gf * gf).to(mdt)
             upd = (m.float() / bc1) / (
                 torch.sqrt(v.float() / bc2) + self.eps)
-            if self.weight_decay and p.ndim >= 2:
+            if self.weight_decay and p.ndim + (i in self.layered) >= 2:
                 upd = upd + self.weight_decay * p.float()
             p.copy_((p.float() - lr * upd).to(p.dtype))
             if i in stacked:

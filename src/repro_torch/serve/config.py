@@ -42,6 +42,11 @@ class EngineSpec:
         if self.cache not in ("full", "quantized"):
             raise ValueError(f"cache must be 'full' or 'quantized', "
                              f"got {self.cache!r}")
+        if cfg is not None and not cfg.causal:
+            raise ValueError(f"{cfg.name} is not causal: an encoder has no "
+                             f"autoregressive decode to serve (DESIGN.md "
+                             f"§4); its forward is transformer.apply(packed, "
+                             f"policy_arrays, tokens, cfg, mode='prefill')")
         if self.cache_layout not in ("contiguous", "paged"):
             raise ValueError(f"cache_layout must be 'contiguous' or "
                              f"'paged', got {self.cache_layout!r}")
@@ -52,9 +57,6 @@ class EngineSpec:
             if self.n_pages is not None and int(self.n_pages) < 1:
                 raise ValueError(f"n_pages must be >= 1 when given, "
                                  f"got {self.n_pages}")
-            if cfg is not None and not cfg.causal:
-                raise ValueError("cache_layout='paged' serves causal "
-                                 "attention caches only")
         if self.decode_chunk < 1:
             raise ValueError(f"decode_chunk must be >= 1, "
                              f"got {self.decode_chunk}")

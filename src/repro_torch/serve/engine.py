@@ -66,8 +66,8 @@ def quantize_for_serving(params: dict, policy_arrays: dict, cfg,
     """Raw QAT params -> the fake-quant serve layout on ``device``
     (``repro/serve/engine.py:121-185``): each projection at its unit's
     per-layer bits from ``policy_arrays`` (a node with no unit at 4), the
-    pinned 8-bit embedding through ``packing.quantize_edge``, as the
-    packed layout's."""
+    pinned 8-bit embedding (and an untied head) through
+    ``packing.quantize_edge``, as the packed layout's."""
     return packing.serving_layout(params, policy_arrays, cfg,
                                   _quantize_qdense, device)
 

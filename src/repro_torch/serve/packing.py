@@ -3,7 +3,8 @@
 ``pack_params`` converts a raw QAT checkpoint, under a knapsack-selected
 policy (``PrecisionPolicy.as_arrays()``), into the packed serving layout:
 int4 units -> K-major uint8 (2 codes/byte), int2 -> 4 codes/byte, the
-pinned 8-bit embedding -> int8 codes with a scalar scale.  The pattern
+pinned 8-bit edges (the embedding, and an untied LM head) -> int8 codes
+with a scalar scale.  The pattern
 stays a per-layer list, byte-equal to the reference's
 ``pack_params(..., layout="unrolled")``.  Packing runs on the weights'
 device.  ``serving_layout`` is the walk it shares with the fake-quant
@@ -24,12 +25,16 @@ from repro_torch.serve import residency
 
 
 def quantize_edge(p: dict) -> dict:
-    """Pinned 8-bit edge (the tied embedding): int8 codes + scalar
-    scale."""
+    """Pinned 8-bit edge (the embedding, an untied LM head): int8 codes +
+    scalar scale, and the head's trained activation step ``sa`` where the
+    node has one."""
     w = p["w"].float()
     step = torch.clamp(torch.abs(p["sw"]).float(), min=1e-9)
-    return {"wq": quant.quantize_int(w, step, 8.0).to(torch.int8),
-            "scale": step}
+    out = {"wq": quant.quantize_int(w, step, 8.0).to(torch.int8),
+           "scale": step}
+    if "sa" in p:
+        out["sa"] = p["sa"]
+    return out
 
 
 def _int_bits(b) -> int:
@@ -71,13 +76,14 @@ def serving_layout(params: dict, policy_arrays: Dict[str, Dict[str, Any]],
                    cfg, convert, device="cuda") -> dict:
     """Raw QAT params -> a serving layout on ``device``, detached: each
     projection's {'w','sw','sa'} node becomes ``convert(node, bits)`` at
-    its unit's per-layer bits (``tf.slot_index``), the embedding the pinned
-    8-bit ``quantize_edge``, and every other leaf is moved as it is."""
+    its unit's per-layer bits (``tf.slot_index``), the embedding and an
+    untied head the pinned 8-bit ``quantize_edge``, and every other leaf is
+    moved as it is."""
     dev = resolve_device(device)
     slot_of = tf.slot_index(cfg)
     out: dict = {}
     for key, node in params.items():
-        if key == "embed":
+        if key in ("embed", "head"):
             out[key] = quantize_edge(_to(node, dev))
         elif key == "pat":
             out[key] = [_walk(_to(layer, dev), ("pat",), r, slot_of,

@@ -100,7 +100,7 @@ def _shared_scales(t: dict) -> dict:
         if np.any(s != s[0]):
             raise ValueError("the layers' scales of a stacked int8 moment "
                              "differ: the optimizer was not given "
-                             "share_scales(stacked_scalars(params))")
+                             "stack_layers(stacked_leaves(params))")
         return {"q": e["q"], "s": s[:1]}
     return dict(t, pat=_q8_nodes(t["pat"], one)) if "pat" in t else t
 
@@ -112,13 +112,13 @@ def _per_layer_scales(t: dict) -> dict:
     return dict(t, pat=_q8_nodes(t["pat"], one)) if "pat" in t else t
 
 
-def stacked_scalars(params: dict) -> list:
+def stacked_leaves(params: dict) -> list:
     """Index sets into ``tree.leaves(params)``: for each path inside the
-    pattern's layers whose leaf is 0-d (the LSQ steps), that leaf in every
-    layer.  The reference stacks each set on one 1-D leaf."""
+    pattern's layers, that leaf in every layer.  The reference stacks each
+    set on one leaf (the LSQ steps on a 1-D one)."""
     at = {}
-    for i, (path, leaf) in enumerate(tree.flatten(params)):
-        if path[:1] == ("pat",) and leaf.ndim == 0:
+    for i, (path, _) in enumerate(tree.flatten(params)):
+        if path[:1] == ("pat",):
             at.setdefault(path[2:], []).append(i)
     return list(at.values())
 
@@ -140,14 +140,15 @@ def train_state_from_params(params: dict, optimizer: Callable, policy,
     """A state over existing params (e.g. ``convert.from_jax_params``):
     every leaf is set to require grad and ``optimizer(leaves)`` builds the
     optimizer (``functools.partial(AdamW, learning_rate=...)``); an AdamW
-    shares its int8 scales over ``stacked_scalars(params)``."""
+    is told which leaves the reference stacks (``stacked_leaves``), for
+    its weight decay and its int8 scales."""
     leaves = tree.leaves(params)
     for leaf in leaves:
         leaf.requires_grad_(True)
     pa = policy.as_arrays() if hasattr(policy, "as_arrays") else policy
     opt = optimizer(leaves)
     if isinstance(opt, AdamW):
-        opt.share_scales(stacked_scalars(params))
+        opt.stack_layers(stacked_leaves(params))
     return TrainState(step=step, params=params, optimizer=opt, policy=pa)
 
 

@@ -231,7 +231,10 @@ FLASH_PALLAS_CASES = [  # group, causal, (b, hkv, s, d), Pallas bq = bk
     pytest.param(g, c, (2, 2, 32, 32), 16, id=f"{g}-{c}")
     for g in (1, 2) for c in (True, False)] + [
     pytest.param(4, c, (1, 1, 256, 128), 64, id=f"4-{c}-d128")
-    for c in (True, False)]
+    for c in (True, False)] + [
+    # bert-base's case: float32, not causal, head_dim 64
+    pytest.param(g, False, (2, 2, 128, 64), 64, id=f"{g}-False-d64")
+    for g in (1, 2)]
 
 
 @pytest.mark.parametrize("group,causal,shape,blk", FLASH_PALLAS_CASES)
@@ -611,6 +614,50 @@ def test_cuda_flash_offset(card, s, off, d, group, layout):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["bhsd", "model"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s,off", [(1, 0), (63, 0), (64, 0), (65, 0),
+                                   (129, 0), (384, 0), (37, 16), (200, 256)])
+def test_cuda_flash_f32(card, s, off, d, group, causal, layout):
+    """The float32 kernel against its plain version in float32, within
+    1e-5 of max|ref| and of every row's norm (both sum in float32, in
+    other orders): ragged S around the 64-row tiles, bert-base's S = 384,
+    keys longer than the queries (Sk = off + Sq), both head dims, GQA and
+    the model's transposed views."""
+    from repro_torch.kernels import cuda
+    g = torch.Generator(card).manual_seed(3)
+    b, hkv = 2, 2
+
+    def make(heads, n):
+        if layout == "model":
+            return torch.randn((b, n, heads, d), generator=g,
+                               device=card).transpose(1, 2)
+        return torch.randn((b, heads, n, d), generator=g, device=card)
+
+    q, k, v = make(hkv * group, s), make(hkv, off + s), make(hkv, off + s)
+    before = cuda.LAUNCHES["flash_attention_f32"]
+    got = cuda.flash_attention(q, k, v, causal=causal)
+    assert cuda.LAUNCHES["flash_attention_f32"] == before + 1
+    assert got.dtype == torch.float32 and got.stride() == q.stride()
+    want = tops.flash_attention(q, k, v, causal=causal, impl="ref")
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    row = torch.linalg.vector_norm(got - want, dim=-1)
+    assert (row <= 1e-5 * torch.linalg.vector_norm(want, dim=-1)).all()
+
+
+@pytest.mark.cuda
+def test_cuda_flash_refuses_mixed_dtypes(card):
+    from repro_torch.kernels import cuda
+    q = torch.zeros((1, 2, 32, 64), device=card)
+    with pytest.raises(ValueError, match="all bfloat16 or all float32"):
+        cuda.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="all bfloat16 or all float32"):
+        cuda.flash_attention(*(q.half() for _ in range(3)))
+
+
+@pytest.mark.cuda
 def test_cuda_flash_refuses_short_keys(card):
     """Sk < Sq has no bottom-right alignment: the wrapper refuses it."""
     from repro_torch.kernels import cuda
@@ -764,6 +811,28 @@ def test_cuda_lsq_bwd_autograd_matches_ref(card):
     assert torch.equal(out["auto"][0], out["ref"][0])
     for a, b in zip(out["auto"][1], out["ref"][1]):
         assert abs(float(a) - float(b)) <= 1e-6 * abs(float(b))
+
+
+@pytest.mark.cuda
+def test_cuda_lsq_bwd_grad_qmax_matches_ref(card):
+    """A 2-bit layer of a slot whose mean qmax is 4 (``grad_qmax``): the
+    backward kernel's step gradient equals impl="ref"'s within 1e-6
+    relative, and is rsqrt(4 / 1) = 0.5 times the one at its own qmax
+    within float32's rounding of the two scales (1e-6)."""
+    from repro_torch.core import quant
+    g = torch.Generator(card).manual_seed(5)
+    x0 = torch.randn((64, 512), generator=g, device=card)
+    cot = torch.randn(x0.shape, generator=g, device=card)
+    out = {}
+    for impl, grad_qmax in (("auto", 4.0), ("ref", 4.0), ("auto", None)):
+        step = torch.tensor(0.4, device=card, requires_grad=True)
+        y = quant.fake_quant(x0, step, 2, impl, grad_qmax=grad_qmax)
+        y.backward(cot)
+        out[impl, grad_qmax] = float(step.grad)
+    want = out["ref", 4.0]
+    assert abs(out["auto", 4.0] - want) <= 1e-6 * abs(want)
+    assert abs(out["auto", 4.0] - 0.5 * out["auto", None]) \
+        <= 1e-6 * abs(want)
 
 
 @pytest.mark.cuda

@@ -64,7 +64,7 @@ def _jax_vjp(x, g, step, bits, dtype):
             np.asarray(gx.astype(jnp.float32)), np.asarray(gs))
 
 
-def _gs_scale(x, g, step, bits):
+def _gs_scale(x, g, step, bits, grad_qmax=None):
     """gscale * sum|g * ds|, reduced to the step's shape: the size of the
     terms the step gradient sums."""
     qmin, qmax = quant.qrange(bits)
@@ -73,7 +73,7 @@ def _gs_scale(x, g, step, bits):
     inr = (xs >= qmin) & (xs <= qmax)
     ds = np.where(inr, np.round(xs) - xs, np.clip(xs, qmin, qmax))
     n = x.size // np.asarray(step).size
-    gscale = quant.lsq_step_grad_scale(n, bits)
+    gscale = quant.lsq_step_grad_scale(n, bits, grad_qmax)
     t = np.abs(g.astype(np.float64) * ds) * gscale
     shape = np.shape(step)
     if shape == ():
@@ -212,6 +212,47 @@ def test_step_grad_scale_matches_jax_formula():
         # one float32 ulp: XLA's rsqrt and torch's may round apart
         got = quant.lsq_step_grad_scale(n, bits)
         assert abs(got - want) <= np.spacing(np.float32(want))
+    # a stacked weight's layers at bits 2, 4, 4 and 2: their mean qmax
+    layers = jnp.asarray([2.0, 4.0, 4.0, 2.0])
+    mean = jnp.mean(2.0 ** (layers - 1.0) - 1.0).astype(jnp.float32)
+    want = float(jax.lax.rsqrt(jnp.maximum(768.0 * mean, 1.0)))
+    got = quant.lsq_step_grad_scale(768, 2, quant.mean_qmax([2, 4, 4, 2]))
+    assert quant.mean_qmax([2, 4, 4, 2]) == float(mean) == 4.0
+    assert abs(got - want) <= np.spacing(np.float32(want))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bits", [(2, 4, 4, 2), (4, 2, 8)])
+def test_stacked_mixed_bits_step_grads_match_jax(bits, dtype):
+    """The reference fake-quantizes a pattern slot's weights stacked over
+    its layers, per-layer steps and bits: every layer's step gradient takes
+    rsqrt(n * mean(qmax)) over the layers.  The port quantizes each layer
+    alone at its own bits and passes the slot's ``mean_qmax``; the same
+    tolerances as above."""
+    steps = np.array([0.37, 0.21, 0.6, 0.45][:len(bits)], np.float32)
+    x, g = _inputs(dtype, (len(bits), 48, 96), steps)
+    jdt = getattr(jnp, dtype)
+    b = jnp.asarray(bits, jnp.float32)[:, None, None]
+    y, vjp = jax.vjp(lambda a, s: jquant.lsq_fake_quant(a, s, b),
+                     jnp.asarray(x).astype(jdt),
+                     jnp.asarray(steps)[:, None, None])
+    want_gx, want_gs = vjp(jnp.asarray(g).astype(jdt))
+    t = getattr(torch, dtype)
+    grad_qmax = quant.mean_qmax(bits)
+    for layer, lb in enumerate(bits):
+        xt = torch.from_numpy(x[layer]).to(t).requires_grad_(True)
+        st = torch.tensor(steps[layer]).requires_grad_(True)
+        yt = quant.fake_quant(xt, st, float(lb), grad_qmax=grad_qmax)
+        yt.backward(torch.from_numpy(g[layer]).to(t))
+        np.testing.assert_array_equal(
+            yt.detach().float().numpy(),
+            np.asarray(y[layer].astype(jnp.float32)))
+        np.testing.assert_array_equal(
+            xt.grad.float().numpy(),
+            np.asarray(want_gx[layer].astype(jnp.float32)))
+        err = abs(float(st.grad) - float(want_gs[layer, 0, 0]))
+        assert err <= GS_TOL * _gs_scale(x[layer], g[layer], steps[layer],
+                                         lb, grad_qmax), (layer, err)
 
 
 def _grad_operands():
