@@ -27,9 +27,12 @@ Phases, in order; any failure exits non-zero:
                +-inf, ties, clamp edges, ragged lengths) and the histogram
                (repeat, one device op a call) bit for bit; the float32 flash
                kernel at bert-base's prefill shape beside float32 SDPA, then
-               causal, ragged, GQA, D = 128 and Sk > Sq (check_flash_f32);
-               quant_matmul on float32 x at bert-base's four projection
-               shapes, M = 32 x 384, bits 4 and 2 (check_quant_matmul_f32).
+               causal, ragged, GQA, D = 128 and Sk > Sq, the precision probe
+               and HGMMA in its SASS (check_flash_f32); quant_matmul on
+               float32 x at bert-base's four projection shapes, M = 32 x
+               384, bits 4 and 2, beside PyTorch's same function, the
+               rounding probe bit for bit and a digest of the outputs
+               (check_quant_matmul_f32).
   select     - EAGL gains of olmo-1b at full width, weights drawn on the
                card from seed 0, through the histogram kernel and through
                impl="ref" (the same knapsack take), and the 4/2 mix the
@@ -215,7 +218,7 @@ QMM_F32_TOL = 1e-5       # of max|ref|, float32 x and output (see below)
 
 
 def qmm_case(timer, dev, gen, bits, m, k, n, wp=None, x=None,
-             dtype=torch.bfloat16):
+             dtype=torch.bfloat16, alone=False):
     """One quant_matmul shape against its plain version, timed beside
     cuBLAS bf16 on bf16(x) and the dequantized weight.  x of ``dtype``: in
     bf16 within 1 bf16 ulp of max|ref| (the output's rounding); in float32,
@@ -223,7 +226,8 @@ def qmm_case(timer, dev, gen, bits, m, k, n, wp=None, x=None,
     multiply bf16(x) by exact codes and sum in float32, in other orders;
     a code off by one moves an output by |x| x scale, typically 3e-4 to
     6e-4 of max|ref| at bert-base's shapes).  A GEMV shape (M <= 16) is
-    also read in device time alone (``device_us``)."""
+    also read in device time alone (``device_us``); so is, where ``alone``,
+    a float32 x beside the library's same function."""
     from repro_torch.kernels import cuda, ref
     unpack = ref.unpack_w4 if bits == 4 else ref.unpack_w2
     if wp is None:
@@ -249,23 +253,37 @@ def qmm_case(timer, dev, gen, bits, m, k, n, wp=None, x=None,
            "tol": tol, "ok": err <= tol,
            "ms": timer(lambda: cuda.quant_matmul(x, wp, scale, bits)),
            "plain_ms": timer(lambda: plain(x, wp, scale)),
-           "library_ms": timer(lambda: torch.matmul(x_bf16, w_bf16))}
+           "cublas_bf16_ms": timer(lambda: torch.matmul(x_bf16, w_bf16))}
+    # the library's time for the same function: on bf16 x cuBLAS bf16; on
+    # float32 x the cast included and float32 out (``mm_f32_out``)
+    rec["library_ms"] = rec["cublas_bf16_ms"]
+    same = ""
+    if x.dtype == torch.float32:
+        rec["library"], fn = mm_f32_out()
+        rec["library_ms"] = timer(lambda: fn(x, w_bf16))
+        same = f", the same function {rec['library_ms']:.4f} ({rec['library']})"
     size = x.element_size()
     nb = m * k * size + wp.numel() + n * 4 + m * n * size
     flop = 2.0 * m * n * k
     rec["bound_ms"], rec["bound_by"] = bound_ms(nb, flop, BF16_OPS_PER_S)
     rate = ""
-    rec["route"] = cuda.quant_matmul_route(m, n, k)
+    rec["route"] = cuda.quant_matmul_route(m, n, k, x.dtype)
     if rec["route"] != "gemv":
         rec["tflops"] = flop / rec["ms"] * 1e-9
         rec["x_cublas"] = rec["ms"] / rec["library_ms"]
         rate = (f", {rec['tflops']:.1f} TFLOP/s, {rec['x_cublas']:.2f}x "
-                f"cuBLAS")
+                f"the library")
     log(f"  quant_matmul {rec['route']} w{bits} {rec['dtype']} M={m} K={k} "
         f"N={n}: err {err:.3g} (tol {tol:.3g}, {tol_is} of max|ref|) "
         f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}, cuBLAS bf16 "
-        f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} "
+        f"{rec['cublas_bf16_ms']:.4f}{same}, bound {rec['bound_ms']:.4f} "
         f"({rec['bound_by']}){rate}")
+    if alone and x.dtype == torch.float32:
+        # the timer's window holds the wrapper's host work past the flush:
+        # the kernel and the library's same function in device time alone
+        alone_device(timer, rec, lambda: cuda.quant_matmul(x, wp, scale, bits),
+                     lambda: fn(x, w_bf16))
+        log_alone(rec, rec["library"])
     if rec["route"] == "gemv":
         rec["plan"] = list(cuda.gemv_plan(m, n, k, bits))
         rec["device_us"], rec["device_kernels"] = device_us(
@@ -419,14 +437,113 @@ def check_quant_matmul(timer, dev, gen):
 BERT_PROJECTIONS = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
 
 
+def mm_f32_out():
+    """PyTorch's call for the function of quant_matmul on float32 x, the
+    rounding of x to bf16 included and float32 out: (its name, fn(x,
+    w_bf16)).  ``aten::mm.dtype`` where this PyTorch has it for CUDA, else
+    the cast, a bf16 matmul and a cast of the product."""
+    if torch._C._dispatch_has_kernel_for_dispatch_key("aten::mm.dtype",
+                                                      "CUDA"):
+        return ("torch.mm(x.bfloat16(), w, out_dtype=torch.float32)",
+                lambda x, w: torch.mm(x.bfloat16(), w,
+                                      out_dtype=torch.float32))
+    return ("x.bfloat16() @ w, then .float()",
+            lambda x, w: torch.matmul(x.bfloat16(), w).float())
+
+
+def qmm_rounding_probe(dev, bits, m=300, k=256, n=512):
+    """Float32 x on and around bf16 rounding ties through the wgmma route:
+    code[c, j] = 1 where c == j % K and 0 elsewhere, scale 1.0, so output
+    (i, j) is bf16(x[i, j % K]) exactly.  Rows hold random bf16 values plus
+    offsets of their low 16 bits (0x8000 a tie, 0x7FFF and 0x8001 around
+    it, 0x0001, 0xFFFF), signed zeros, subnormal ties, values that round to
+    +-inf or lie at bf16's largest finite value, +-inf, and NaN rows; M =
+    300 leaves a ragged token tile.  Returns (got, want): want is
+    x.to(torch.bfloat16).float() at column j % K, NaN where the row holds
+    a non-finite value at another K position (0 x inf in the sum);
+    ``probe_equal`` compares them."""
+    from repro_torch.kernels import cuda, ref
+    g = torch.Generator(dev).manual_seed(9)
+    base = torch.randn((m, k), generator=g, device=dev).bfloat16().float()
+    offs = torch.tensor([0x8000, 0x7FFF, 0x8001, 0x0001, 0xFFFF, 0],
+                        dtype=torch.int32, device=dev)
+    iv = base.view(torch.int32) + offs[torch.arange(k, device=dev) % 6]
+    sign = torch.where(torch.rand((m, k), generator=g, device=dev) < 0.5,
+                       torch.tensor(-1, dtype=torch.int32, device=dev),
+                       torch.tensor(0, dtype=torch.int32, device=dev))
+    # subnormal ties and their neighbours: mantissa (r << 16) | 0x8000 +- 1
+    mant = torch.randint(0, 1 << 7, (k,), generator=g,
+                         device=dev).to(torch.int32) << 16
+    iv[0] = (mant | offs[torch.arange(k, device=dev) % 3]) | (sign[0] << 31)
+    x = iv.view(torch.float32).clone()
+    x[1] = torch.where(sign[1] < 0, -0.0, 0.0)          # signed zeros
+    big = 3.3895e38                                      # bf16's largest
+    x[2] = torch.tensor([big, -big, 3.39e38, -3.4e38, 3.4028e38],
+                        device=dev).repeat(k // 5 + 1)[:k]
+    x[3, 17], x[4, 200], x[5] = math.inf, -math.inf, math.nan
+    codes = torch.zeros((k, n), dtype=torch.int64, device=dev)
+    cols = torch.arange(n, device=dev)
+    codes[cols % k, cols] = 1
+    wp = (ref.pack_w4 if bits == 4 else ref.pack_w2)(codes)
+    scale = torch.ones((n,), device=dev)
+    got = cuda.quant_matmul(x, wp, scale, bits)
+    xb = x.to(torch.bfloat16).float()
+    want = xb[:, cols % k]
+    bad = ~torch.isfinite(xb)
+    others = bad.sum(1, keepdim=True) - bad[:, cols % k].int() > 0
+    want = torch.where(others, torch.tensor(math.nan, device=dev), want)
+    return got, want
+
+
+def probe_equal(got, want) -> bool:
+    """``same_bits`` with signed zeros taken as equal: an output is a sum of
+    products, and 0 x code adds +0 whatever the sign of the selected 0."""
+    return same_bits(got + 0.0, want + 0.0)
+
+
+def qmm_f32_digest(dev) -> str:
+    """sha256 of quant_matmul's float32 outputs on seeded inputs, bits 4
+    and 2 at bert-base's four projection shapes and M = 4099: equal digests
+    from two trees in one call show they compute the same bits."""
+    import hashlib
+    from repro_torch.kernels import cuda, ref
+    g = torch.Generator(dev).manual_seed(8)
+    h = hashlib.sha256()
+    for bits in (4, 2):
+        for (k, n) in BERT_PROJECTIONS:
+            lo, hi = -(1 << (bits - 1)), 1 << (bits - 1)
+            codes = torch.randint(lo, hi, (k, n), generator=g, device=dev)
+            wp = (ref.pack_w4 if bits == 4 else ref.pack_w2)(codes)
+            x = torch.randn((4099, k), generator=g, device=dev)
+            scale = torch.rand((n,), generator=g, device=dev) * 0.02 + 1e-3
+            out = cuda.quant_matmul(x, wp, scale, bits)
+            h.update(out.view(torch.int32).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def check_quant_matmul_f32(timer, dev, gen):
     """quant_matmul as bert-base's packed forward runs it: float32 x and
     output, M = 32 x 384 tokens, each projection shape at bits 4 and 2
-    (``qmm_case``; the tensor-core route on bf16(x), as its plain version
-    rounds x)."""
+    (``qmm_case``; the wgmma route, which rounds x to bf16 in the kernel as
+    its plain version rounds it), beside PyTorch's same function
+    (``mm_f32_out``); then the rounding probe at both widths, bit for bit,
+    and a digest of the outputs."""
     cases = [qmm_case(timer, dev, gen, bits, BERT_B * BERT_S, k, n,
-                      dtype=torch.float32)[0]
+                      dtype=torch.float32,
+                      alone=(bits, k, n) == (4, 768, 3072))[0]
              for bits in (4, 2) for (k, n) in BERT_PROJECTIONS]
+    for bits in (4, 2):
+        got, want = qmm_rounding_probe(dev, bits)
+        same = probe_equal(got, want)
+        cases.append({"rounding_probe": True, "bits": bits, "m": 300,
+                      "k": 256, "n": 512, "bit_equal": same, "ok": same})
+        log(f"    rounding probe w{bits} (ties, subnormals, +-0, +-inf, "
+            f"NaN rows; M=300 K=256 N=512): outputs equal "
+            f"x.to(torch.bfloat16) bit for bit: {same}")
+    digest = qmm_f32_digest(dev)
+    cases.append({"digest": digest, "ok": True})
+    log(f"    float32 outputs (seeded inputs, bert-base's projections, "
+        f"M=4099, bits 4 and 2): sha256 {digest}")
     # headline: the up projection at int4
     return cases[2], cases
 
@@ -835,6 +952,7 @@ def flash_digest(dev) -> str:
 # row's norm: both sum in float32, in other orders (a score of D = 64 terms
 # and a row of up to 456 keys), an error near 1e-6 of the result
 FLASH_F32_TOL = 1e-5
+FLASH_F32_TERMS = 6   # bf16 products a float32 product takes (flash_f32)
 # (b, h, hkv, s, s_k, d, causal, layout): bert-base's prefill first (the
 # model's (B, S, H, D) projections passed as (B, H, S, D) views), then
 # causal, ragged S, GQA 12/4, D = 128 and keys longer than the queries
@@ -892,19 +1010,67 @@ def check_flash_f32(timer, dev, gen):
             rec["library_ms"] = timer(lib)
             nb = 4 * (2 * b * h * s * d) + 4 * (2 * b * hkv * s_k * d)
             flop = 4.0 * b * h * s * s_k * d
-            rec["bound_ms"], rec["bound_by"] = bound_ms(nb, flop,
-                                                        F32_OPS_PER_S)
+            # the kernel's six bf16 products on the tensor cores; beside
+            # it the float32 FMA bound of the products themselves
+            rec["bound_ms"], rec["bound_by"] = bound_ms(
+                nb, FLASH_F32_TERMS * flop, BF16_OPS_PER_S)
+            rec["ffma_bound_ms"], _ = bound_ms(nb, flop, F32_OPS_PER_S)
             rec["tflops"] = flop / rec["ms"] * 1e-9
             alone_device(timer, rec, kern, lib)
             rec["sdpa_max_abs_err"] = float((lib() - want).abs().max())
             log(f"    {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}, "
                 f"float32 SDPA {rec['library_ms']:.4f} (its error "
                 f"{rec['sdpa_max_abs_err']:.3g}), bound "
-                f"{rec['bound_ms']:.4f} ({rec['bound_by']}); "
+                f"{rec['bound_ms']:.4f} ({rec['bound_by']}: "
+                f"{FLASH_F32_TERMS} bf16 products at 989 TFLOP/s; float32 "
+                f"FMA bound {rec['ffma_bound_ms']:.4f}); "
                 f"{rec['tflops']:.1f} TFLOP/s (4 B H Sq Sk D)")
             log_alone(rec, "float32 SDPA")
         cases.append(rec)
+    probe = flash_f32_precision_probe(dev)
+    probe["ok"] = probe["ok"] and probe["control_rel_err"] > 10 * FLASH_F32_TOL
+    cases.append(probe)
+    log(f"    precision probe (24-bit mantissas, B=2 H=12 S=384 D=64): "
+        f"err {probe['rel_err']:.3g} of max|ref|, worst row "
+        f"{probe['max_row_rel_err']:.3g} (tol {FLASH_F32_TOL}); the hi "
+        f"terms alone (bf16 q, k, v) {probe['control_rel_err']:.3g}, worst "
+        f"row {probe['control_row_rel_err']:.3g}")
+    hgmma = sass_hgmma("flash_attention", "flash_f32")
+    cases.append({"sass_hgmma": hgmma, "ok": hgmma is None or (
+        len(hgmma) == 2 and all(n > 0 for n in hgmma.values()))})
+    log(f"    SASS HGMMA instructions of each flash_f32 instantiation: "
+        f"{hgmma if hgmma is not None else 'not checked (no cuobjdump)'}")
     return cases[0], cases
+
+
+def flash_f32_precision_probe(dev, b=2, h=12, s=384, d=64):
+    """The float32 flash kernel on inputs whose mantissas use all 24 bits
+    (q = 2 randn, k and v randn; not causal), against the plain version in
+    float32: its error relative to max|ref| and to each row's norm, beside
+    the control, the plain version on q, k and v rounded to bf16 (what the
+    hi terms alone would compute), which misses FLASH_F32_TOL by far."""
+    from repro_torch.kernels import cuda, ops
+    g = torch.Generator(dev).manual_seed(11)
+    q = 2 * torch.randn((b, h, s, d), generator=g, device=dev)
+    k, v = (torch.randn((b, h, s, d), generator=g, device=dev)
+            for _ in range(2))
+    got = cuda.flash_attention(q, k, v, causal=False)
+    want = ops.flash_attention(q, k, v, causal=False, impl="ref")
+    hi = ops.flash_attention(*(t.bfloat16().float() for t in (q, k, v)),
+                             causal=False, impl="ref")
+    top = float(want.abs().max())
+    norm = torch.linalg.vector_norm(want, dim=-1)
+
+    def errs(x):
+        return (float((x - want).abs().max()) / top,
+                float((torch.linalg.vector_norm(x - want, dim=-1)
+                       / norm).max()))
+    rec = {"precision_probe": True, "b": b, "h": h, "s": s, "d": d}
+    rec["rel_err"], rec["max_row_rel_err"] = errs(got)
+    rec["control_rel_err"], rec["control_row_rel_err"] = errs(hi)
+    rec["ok"] = (rec["rel_err"] <= FLASH_F32_TOL
+                 and rec["max_row_rel_err"] <= FLASH_F32_TOL)
+    return rec
 
 
 LSQ_STEPS = (0.7559289, 0.31, 1.7)   # q, k and v's steps in phase 3
@@ -974,14 +1140,10 @@ def lsq_probe(dev):
     return calls, bad
 
 
-def sass_count(source: str, kernel: str):
-    """SASS instructions of each instantiation of ``kernel`` in a built
-    library, from cuobjdump: {mangled name: (all, main path)}, the main
-    path being the instructions up to the last EXIT before the first RET
-    (what follows is the division's slow path, a subroutine); None where
-    the toolkit has no cuobjdump.  Static counts: the kernels have no
-    loops, so the main path is what a thread executes, the tail's branch
-    included."""
+def sass_ops(source: str, kernel: str):
+    """The SASS opcodes of each instantiation of ``kernel`` in a built
+    library, in order, from cuobjdump: {mangled name: [opcode]}; None
+    where the toolkit has no cuobjdump."""
     from repro_torch.kernels import build
     tool = Path(build.nvcc_path()).parent / "cuobjdump"
     if not tool.exists():
@@ -1001,6 +1163,30 @@ def sass_count(source: str, kernel: str):
                          line)
             if m:
                 ops[name].append(m.group(1))
+    return ops
+
+
+def sass_hgmma(source: str, kernel: str):
+    """{instantiation of ``kernel``: its HGMMA (wgmma) instructions}, or
+    None where the toolkit has no cuobjdump."""
+    ops = sass_ops(source, kernel)
+    if ops is None:
+        return None
+    return {name: sum(op.startswith("HGMMA") for op in seq)
+            for name, seq in ops.items()}
+
+
+def sass_count(source: str, kernel: str):
+    """SASS instructions of each instantiation of ``kernel`` in a built
+    library, from cuobjdump: {mangled name: (all, main path)}, the main
+    path being the instructions up to the last EXIT before the first RET
+    (what follows is the division's slow path, a subroutine); None where
+    the toolkit has no cuobjdump.  Static counts: the kernels have no
+    loops, so the main path is what a thread executes, the tail's branch
+    included."""
+    ops = sass_ops(source, kernel)
+    if ops is None:
+        return None
     counts = {}
     for name, seq in ops.items():
         ret = next((i for i, op in enumerate(seq) if op.startswith("RET")),
@@ -1477,6 +1663,10 @@ def device_breakdown(fn, top: int = 20) -> dict:
                                     if "lsq_kernel" in k) / 1e3,
             "lsq_fakequant_bwd_ms": sum(us for k, us, _ in rows
                                         if "lsq_bwd_kernel" in k) / 1e3,
+            # PyTorch's copy kernels (dtype casts among them)
+            "copy_kernel_ms": sum(us for k, us, _ in rows
+                                  if "copy_kernel" in k) / 1e3,
+            "copy_kernels": sum(n for k, _, n in rows if "copy_kernel" in k),
             "top": [{"kernel": k[:90], "ms": us / 1e3, "count": n}
                     for k, us, n in rows[:top]]}
 
@@ -3238,6 +3428,9 @@ def bert_forward(cfg, dev, raw, mixed, smi_line):
     log_breakdown("the packed forward", prof)
     for row in prof["top"][6:]:
         log(f"      {row['ms']:9.3f} ms  x{row['count']:<5d} {row['kernel']}")
+    log(f"    copy kernels (dtype casts among them): "
+        f"{prof['copy_kernel_ms']:.3f} ms in {prof['copy_kernels']} launches "
+        f"(quant_matmul reads float32 x itself)")
     bad = []
     if rec["shape"] != [BERT_B, BERT_S, cfg.vocab] or not rec["finite"]:
         bad.append(f"logits of shape {rec['shape']}, finite {rec['finite']}")

@@ -201,6 +201,27 @@ __device__ __forceinline__ void wg_hold(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// Make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma's shared operands, TMA) before it signals a barrier.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ------------------------------------------------- host: the device
+// Streaming multiprocessors of the current device (the persistent kernels'
+// grid), read once.
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 132;
+  }
+  return n;
+}
+
 // ------------------------------------------------- host: tensor maps
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
@@ -211,19 +232,21 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
 
 constexpr int kMaxTmaRank = 5;
 
-// A tiled TMA descriptor of rank <= 5 with the 128-byte swizzle, made by
-// libcuda's cuTensorMapEncodeTiled, looked up through the runtime so a
-// library needs no -lcuda.  dims and box run innermost first; strides
-// holds the byte strides of dims 1 .. rank - 1 (each a multiple of 16).
-// Out-of-bounds boxes are zero-filled.  Descriptors are cached by pointer,
-// shape, strides and box.
+// A tiled TMA descriptor of rank <= 5, with the 128-byte swizzle unless
+// told otherwise, made by libcuda's cuTensorMapEncodeTiled, looked up
+// through the runtime so a library needs no -lcuda.  dims and box run
+// innermost first; strides holds the byte strides of dims 1 .. rank - 1
+// (each a multiple of 16).  Out-of-bounds boxes are zero-filled.
+// Descriptors are cached by pointer, type, shape, strides, box and swizzle.
 inline int tensor_map(CUtensorMap* map, const void* ptr,
                       CUtensorMapDataType type, int rank,
                       const uint64_t* dims, const uint64_t* strides,
-                      const uint32_t* box) {
+                      const uint32_t* box,
+                      CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   typedef std::array<uint64_t, 3 * kMaxTmaRank> Shape;
   static EncodeTiled encode = nullptr;
-  static std::map<std::tuple<const void*, int, int, Shape>, CUtensorMap> cache;
+  static std::map<std::tuple<const void*, int, int, int, Shape>, CUtensorMap>
+      cache;
   if (rank < 1 || rank > kMaxTmaRank)
     return static_cast<int>(cudaErrorInvalidValue);
   Shape shape{};
@@ -232,7 +255,8 @@ inline int tensor_map(CUtensorMap* map, const void* ptr,
     shape[kMaxTmaRank + i] = i + 1 < rank ? strides[i] : 0;
     shape[2 * kMaxTmaRank + i] = box[i];
   }
-  const auto key = std::make_tuple(ptr, static_cast<int>(type), rank, shape);
+  const auto key = std::make_tuple(ptr, static_cast<int>(type), rank,
+                                   static_cast<int>(swizzle), shape);
   const auto hit = cache.find(key);
   if (hit != cache.end()) {
     *map = hit->second;
@@ -258,7 +282,7 @@ inline int tensor_map(CUtensorMap* map, const void* ptr,
   }
   const CUresult r = encode(map, type, rank, const_cast<void*>(ptr), d, st,
                             bx, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B,
+                            swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);

@@ -116,6 +116,44 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// S (64 x 64) (+)= Q (64 x 16, registers) . K^T (smem, K-major)
+__device__ __forceinline__ void wgmma_qk_r(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, "
+      "1, 1, 0;\n"
+      "}\n"
+      : FD8(0), FD8(8), FD8(16), FD8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// O (64 x 64) (+)= P (64 x 16, registers) . V (16 x 64, smem, MN-major)
+__device__ __forceinline__ void wgmma_pv_z(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, "
+      "1, 1, 1;\n"
+      "}\n"
+      : FD8(0), FD8(8), FD8(16), FD8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(accumulate));
+}
+
 // O (64 x D) += P (64 x 16, registers) . V (16 x D, smem, MN-major)
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&d)[D / 2],
@@ -160,6 +198,12 @@ __device__ __forceinline__ void wgmma_pv<128>(float (&d)[64],
 }
 #undef FD8
 
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
 __device__ __forceinline__ uint32_t bits_of(__nv_bfloat162 v) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
@@ -176,6 +220,23 @@ __device__ __forceinline__ void split3(float a, float b, uint32_t& hi,
   hi = bits_of(h);
   mid = bits_of(m);
   lo = bits_of(__floats2bfloat162_rn(ra - mf.x, rb - mf.y));
+}
+
+// The same exact split with one conversion (the float32 kernel's: the
+// conversion unit issues a quarter as fast as the ALU): hi = bf16(a) to
+// nearest even as above; r = a - hi has at most 16 significant bits, so its
+// upper half (truncation) is mid and r - mid, at most 8 significant bits,
+// is lo exactly.  |mid| <= 2^-9 |a| and |lo| < 2^-16 |a|.
+__device__ __forceinline__ void split3t(float a, float b, uint32_t& hi,
+                                        uint32_t& mid, uint32_t& lo) {
+  hi = bits_of(__floats2bfloat162_rn(a, b));
+  const float ra = a - __uint_as_float(hi << 16);
+  const float rb = b - __uint_as_float(hi & 0xFFFF0000u);
+  const uint32_t ua = __float_as_uint(ra), ub = __float_as_uint(rb);
+  mid = __byte_perm(ua, ub, 0x7632);
+  const float la = ra - __uint_as_float(ua & 0xFFFF0000u);
+  const float lb = rb - __uint_as_float(ub & 0xFFFF0000u);
+  lo = __byte_perm(__float_as_uint(la), __float_as_uint(lb), 0x7632);
 }
 
 // 2^x in one MUFU.EX2; results below 2^-126 flush to 0 (exp2f adds range
@@ -420,242 +481,467 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
 }
 
 // ------------------------------------------------------------- float32
-// The float32 case of the same function: q, k, v and out float32, with the
-// products in float32 FFMA (not TF32, which keeps about three decimal
-// digits: bert-base runs float32, and the Pallas kernel upcasts q, k and v
-// to float32 and accumulates in float32 whatever their type).
+// The float32 case of the same function: q, k, v and out float32, the
+// products on the tensor cores through exact bf16 terms (not TF32, which
+// keeps 10 of float32's 24 bits: bert-base runs float32, and the Pallas
+// kernel upcasts q, k and v to float32 and accumulates in float32 whatever
+// their type).
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention
 // (_flash_kernel, its float32 case).  Plain version: the same
 // ref.attention.
 //
 // Bound on the H100: at bert-base's B = 32, H = 12, S = 384, D = 64 (not
-// causal) the work is 4 B H S^2 D = 14.5 GFLOP of float32 FMA, 216 us at
-// 67 TFLOP/s, against 151 MB of q, k, v and out (45 us at 3.35 TB/s):
-// operations.  Every score costs 2 D FMAs and one expf; the design keeps
-// the FMA units fed from registers and shared memory.
+// causal) the products are 4 B H S^2 D = 14.5 GFLOP.  In float32 FMA that
+// is 216 us at 67 TFLOP/s; as the six bf16 products below, 87 GFLOP, 88 us
+// at 989 TFLOP/s, against 151 MB of q, k, v and out (45 us at 3.35 TB/s):
+// operations either way.
 //
-// Design: one block of 256 threads per (64-query tile, h, b), as a 16 x 16
-// grid of threads.  Q (64 rows) and two stages of K and V tiles (64 rows
-// each) sit in shared memory, copied with cp.async as 16-byte chunks (rows
-// past Sq or Sk are zero-filled); tile j + 1 is in flight while tile j is
-// used.  Thread (ty, tx) owns query rows 4 ty .. 4 ty + 3:
-//  * S = Q.K^T: keys tx + 16 c (c < 4), so a quarter warp reads 8
-//    consecutive K rows; Q and K rows are padded to D + 4 floats, which
-//    puts those 8 rows' 16-byte chunks on distinct banks (Q's reads are
-//    broadcasts).  4 x 4 scores a thread, one float4 of Q and of K per
-//    four FMAs deep.
-//  * The online softmax runs in the Pallas kernel's order: the scaled
-//    scores, masked to -1e30 on tiles that cross Sk or the causal
-//    diagonal; m_new = max(m, max_j s); p = exp(s - m_new); alpha =
-//    exp(m - m_new); l = l alpha + sum p; acc = acc alpha + p.v; out = acc /
-//    max(l, 1e-30).  A row's max and sum are reduced over the 16 threads
-//    of its half warp with __shfl_xor_sync.
-//  * P goes through shared memory (rows padded to 68 floats) and O = P.V
-//    gives each thread its rows' columns 64 n + 4 tx .. + 3: one float4 of
-//    V per key and 64-column group, the same float4 columns it stores.
+// Precision: each float32 operand x splits exactly into three bf16 terms,
+// x = hi + mid + lo: hi = bf16(x) to nearest even; x - hi is exact in
+// float32 with at most 16 significant bits, mid is its upper half and lo
+// the rest, exactly (split3t: one conversion, then integer masks), so
+// |mid| <= 2^-9 |x| and |lo| < 2^-16 |x|.  A product a b takes the six
+// cross terms hi.hi, hi.mid, mid.hi, hi.lo, mid.mid and lo.hi: the three
+// dropped ones (mid.lo, lo.mid, lo.lo) lie below 2^-24 of |a b|.  wgmma
+// multiplies bf16 exactly and sums in fp32, the smallest terms first; its
+// sums are not rounded to nearest, so each kv tile's P.V goes to a zeroed
+// tile sum and the tiles add in float32 FMAs (acc = acc alpha + tile):
+// summing every tile into one wgmma accumulator gave 7.7e-6 of max|ref| at
+// S = 512, D = 128, the tile sums 2.9e-6 (PERF.md §6).  Six terms, not
+// three (hi.hi, hi.mid, mid.hi leave 2^-16): the scores' error reaches the
+// output through exp, and 1e-5 of max|ref| needs float32's 24 bits.
+//
+// Design: persistent, one block an SM (216 KB of shared memory at D = 128,
+// 208 KB at D = 64), 128 query rows a work item; items in order of (b, h),
+// q tile fastest, so the q tiles of a head run side by side and read its K
+// and V from device memory once.  Warp-specialised:
+//  * One producer thread keeps TMA loads in flight of 64 x 64 float32
+//    boxes through 4-D tensor maps over the caller's strides (unswizzled
+//    256-byte rows; rows past Sq or Sk arrive as zeros), into a ring of
+//    L::SLOTS landing boxes: an item's Q (two warpgroups x D / 64 boxes),
+//    then for each kv tile its K boxes and its V boxes.
+//  * Three producer warps split each landed box into its three bf16
+//    terms and store each as a 64 x 64 box in the 128-byte-swizzled layout
+//    that TMA gives the bf16 kernel (16-byte stores; the 8 threads of a row
+//    hit its 8 chunks): Q into the warpgroup's Q boxes (once the warpgroup
+//    has taken the previous item's), K and V into a ring of L::SLOTS term
+//    boxes (24 KB each).  Each write is fenced for the async proxy and
+//    signalled on an mbarrier.
+//  * Two consumer warpgroups own 64 query rows each, warp w rows 16w ..
+//    16w + 15.  At D = 64 a warpgroup moves Q's terms to registers once an
+//    item (48 a thread) and S = Q.K^T reads only K's terms from shared
+//    memory; at D = 128 (96 registers) both come from shared memory.  S
+//    runs on wgmma.m64n64k16, 6 term pairs x D / 16 steps.
+//  * The online softmax runs in the Pallas kernel's order on the
+//    accumulator layout (a lane holds rows g and g + 8 of its warp at 2
+//    columns of each 8-column tile; a row's max is two __shfl_xor_sync
+//    over the lane quad): the scaled scores, masked to -1e30 on tiles that
+//    cross Sk or the causal diagonal; m_new = max(m, max_j s); p = exp(s -
+//    m_new); alpha = exp(m - m_new); l = l alpha + sum p (per lane, summed
+//    over the quad at the end); acc = acc alpha + p.v; out = acc / max(l,
+//    1e-30).  exp is one ex2.approx of (s - m) log2(e), 2^-22 relative.
+//  * P splits into its three terms in registers: the accumulators of two
+//    neighbouring 8-key tiles are, lane for lane, the register A fragment
+//    of a 16-key step, so P never touches shared memory.  P.V runs on
+//    wgmma.m64n64k16 (one box of 64 columns of O at a time) with V's terms
+//    as the MN-major B operand (the transpose bit): 6 term pairs x 4 key
+//    steps into the tile sum.
+//  * O stays in registers (D / 2 floats a thread) and leaves as 8-byte
+//    stores that fill whole 32-byte sectors; rows past Sq are not stored.
 // Causal rows are aligned bottom-right (query row i at position Sk - Sq +
-// i) and key tiles wholly past a q tile's last row are skipped; GQA reads
-// K/V head h / (H / Hkv).  Strides are the caller's (D contiguous; strides
-// multiples of 4 elements and 16-byte aligned bases: the copies are
-// 16-byte chunks).
-constexpr int G_THREADS = 256, G_PP = 68;
-constexpr float G_NEG_INF = -1e30f;
+// i) and key tiles wholly past an item's last row are skipped (the first
+// warpgroup's rows past the diagonal are masked); GQA reads K/V head h /
+// (H / Hkv).  Strides are the caller's (D contiguous; strides multiples of
+// 4 elements and 16-byte aligned bases: TMA's rules).
+constexpr int F32_ROWS = 128;        // query rows a block: two warpgroups
+constexpr int F32_THREADS = 384;     // 2 consumer warpgroups, the producer
+constexpr int F32_CONVERTERS = 96;   // producer warps 1-3
+constexpr int F32_SLOT = 3 * BLK;    // one 64 x 64 box in three bf16 terms
+constexpr int F32_BOX = 64 * 64 * 4;  // one 64 x 64 float32 box: 16 KB
+constexpr float F32_NEG_INF = -1e30f;
+constexpr float F32_LOG2E = 1.4426950408889634f;
 
-struct Strides {
-  long long s[12];  // q, k, v, out: (batch, head, sequence) each
-};
-
-template <int D>
-struct F32Layout {
-  static constexpr int QP = D + 4;  // padded Q and K row (floats)
-  static constexpr int Q = 64 * QP, K = 64 * QP, V = 64 * D;
-  static constexpr int STAGE = K + V;
-  static constexpr int BYTES = 4 * (Q + 2 * STAGE + 64 * G_PP);
-};
-
-// rows [row0, row0 + 64) of one head's (S, D) matrix into shared memory at
-// `pitch` floats a row, zeros past row `rows`
-template <int D>
-__device__ __forceinline__ void copy_rows(float* dst, int pitch,
-                                          const float* src, long long ss,
-                                          int row0, int rows, int tid) {
-  constexpr int CPR = D / 4;  // 16-byte chunks a row
-#pragma unroll
-  for (int i = 0; i < 64 * CPR / G_THREADS; ++i) {
-    const int idx = tid + i * G_THREADS, r = idx / CPR, c = idx % CPR;
-    const bool ok = row0 + r < rows;
-    repro::cp_async16(repro::smem_addr(dst + r * pitch + 4 * c),
-                      src + (ok ? row0 + r : 0) * ss + 4 * c, ok);
-  }
+// Term pair pr of a product, the smallest first: (lo, hi), (hi, lo),
+// (mid, mid), (mid, hi), (hi, mid), (hi, hi), with 0 = hi, 1 = mid, 2 = lo;
+// term_a is Q's or P's term, term_b K's or V's.  Unrolled loops fold them.
+__device__ __forceinline__ constexpr int term_a(int pr) {
+  return pr == 0 ? 2 : (pr == 2 || pr == 3) ? 1 : 0;
+}
+__device__ __forceinline__ constexpr int term_b(int pr) {
+  return pr == 1 ? 2 : (pr == 2 || pr == 4) ? 1 : 0;
 }
 
 template <int D>
-__global__ void __launch_bounds__(G_THREADS, D == 64 ? 2 : 1)
-    flash_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int B,
-              int H, int Hkv, int Sq, int Sk, Strides st, int causal,
-              float scale) {
+struct F32Layout {
+  static constexpr int NB = D / 64;           // 64-column boxes of a row
+  static constexpr int Q = 3 * NB * BLK;      // a warpgroup's Q terms
+  // bf16 term boxes and float32 landing boxes: 208 KB in all at D = 64,
+  // 216 KB at D = 128
+  static constexpr int SLOTS = D == 64 ? 4 : 3;
+  // D = 64: a warpgroup's Q terms move to registers (48 a thread) once an
+  // item, so S reads only K from shared memory; D = 128 would need 96
+  static constexpr bool QREG = D == 64;
+  static constexpr int BARS = 8 * (4 * SLOTS + 4);
+  static constexpr int BYTES =
+      2 * Q + SLOTS * (F32_SLOT + F32_BOX) + BARS + 1024;
+};
+
+// Split 8 floats of row r, chunk ch (values 8 ch .. 8 ch + 7) into three
+// bf16 terms and store each in its swizzled 128-byte row: term k of the box
+// at dst + k * tstride.
+__device__ __forceinline__ void f32_store8(uint32_t dst, int tstride,
+                                           float4 a, float4 b, int r,
+                                           int ch) {
+  uint32_t t[3][4];
+  split3t(a.x, a.y, t[0][0], t[1][0], t[2][0]);
+  split3t(a.z, a.w, t[0][1], t[1][1], t[2][1]);
+  split3t(b.x, b.y, t[0][2], t[1][2], t[2][2]);
+  split3t(b.z, b.w, t[0][3], t[1][3], t[2][3]);
+  const uint32_t off = r * 128 + ((ch ^ (r & 7)) << 4);
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                     dst + k * tstride + off),
+                 "r"(t[k][0]), "r"(t[k][1]), "r"(t[k][2]), "r"(t[k][3])
+                 : "memory");
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+    flash_f32(const __grid_constant__ CUtensorMap qmap,
+              const __grid_constant__ CUtensorMap kmap,
+              const __grid_constant__ CUtensorMap vmap, float* __restrict__ o,
+              int B, int H, int Hkv, int Sq, int Sk, long long osb,
+              long long osh, long long oss, int causal, float scale) {
   using L = F32Layout<D>;
-  constexpr int QP = L::QP, NJ = D / 64;
-  extern __shared__ float4 smem_f4[];
-  float* const qs = reinterpret_cast<float*>(smem_f4);
-  float* const kv0 = qs + L::Q;  // stage s: K at kv0 + s STAGE, V after
-  float* const ps = kv0 + 2 * L::STAGE;
+  constexpr int NB = L::NB;
+  constexpr int SN = FK / 8;  // 8-key tiles of S
+  extern __shared__ uint8_t f32_smem_raw[];
+  const uint32_t qs = (smem_addr(f32_smem_raw) + 1023u) & ~1023u;
+  const uint32_t slots = qs + 2 * L::Q;
+  const uint32_t land = slots + L::SLOTS * F32_SLOT;
+  const uint32_t slot_full = land + L::SLOTS * F32_BOX;
+  const uint32_t slot_empty = slot_full + 8 * L::SLOTS;
+  const uint32_t land_full = slot_empty + 8 * L::SLOTS;
+  const uint32_t land_free = land_full + 8 * L::SLOTS;
+  const uint32_t q_full = land_free + 8 * L::SLOTS;  // one a warpgroup
+  const uint32_t q_free = q_full + 16;
 
-  const int n_q = (Sq + 63) / 64;
+  // Work item i is q tile n_q - 1 - i % n_q of (h, b) = i / n_q; a block
+  // takes items blockIdx.x, + gridDim.x, ..., so the q tiles of a head run
+  // side by side and its K and V come from device memory once.
+  const int n_q = (Sq + F32_ROWS - 1) / F32_ROWS;
+  const int items = n_q * H * B;
   const int q_off = Sk - Sq;
-  const int hb = blockIdx.x % (H * B);
-  const int qt = n_q - 1 - static_cast<int>(blockIdx.x / (H * B));
-  const int h = hb % H, b = hb / H;
-  const int hk = h / (H / Hkv);
-  const int q0 = qt * 64;
-  const int n_kv_all = (Sk + 63) / 64;
-  const int n_kv =
-      causal ? min(n_kv_all, (q_off + q0 + 63) / 64 + 1) : n_kv_all;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const float* const qb = q + b * st.s[0] + h * st.s[1];
-  const float* const kb = k + b * st.s[3] + hk * st.s[4];
-  const float* const vb = v + b * st.s[6] + hk * st.s[7];
+  const int n_kv_all = (Sk + FK - 1) / FK;
+  auto n_kv_of = [&](int q0) {
+    return causal ? min(n_kv_all, (q_off + q0 + F32_ROWS - 1) / FK + 1)
+                  : n_kv_all;
+  };
+  const int tid = threadIdx.x, wg = tid >> 7;
 
-  copy_rows<D>(qs, QP, qb, st.s[2], q0, Sq, tid);
-  copy_rows<D>(kv0, QP, kb, st.s[5], 0, Sk, tid);
-  copy_rows<D>(kv0 + L::K, D, vb, st.s[8], 0, Sk, tid);
-  repro::cp_async_commit();
-
-  float acc[4][4 * NJ];
-  float m_run[4], l_run[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = G_NEG_INF;
-    l_run[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < 4 * NJ; ++e) acc[i][e] = 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < L::SLOTS; ++s) {
+      mbar_init(slot_full + 8 * s, F32_CONVERTERS);
+      mbar_init(slot_empty + 8 * s, 256);  // every consumer thread
+      mbar_init(land_full + 8 * s, 1);
+      mbar_init(land_free + 8 * s, F32_CONVERTERS);
+    }
+    for (int w = 0; w < 2; ++w) {
+      mbar_init(q_full + 8 * w, F32_CONVERTERS);
+      mbar_init(q_free + 8 * w, 128);  // the warpgroup's threads
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  for (int j = 0; j < n_kv; ++j) {
-    if (j + 1 < n_kv) {
-      float* const nxt = kv0 + ((j + 1) & 1) * L::STAGE;
-      copy_rows<D>(nxt, QP, kb, st.s[5], (j + 1) * 64, Sk, tid);
-      copy_rows<D>(nxt + L::K, D, vb, st.s[8], (j + 1) * 64, Sk, tid);
-      repro::cp_async_commit();
-      repro::cp_async_wait<1>();
-    } else {
-      repro::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* const ks = kv0 + (j & 1) * L::STAGE;
-    const float* const vs = ks + L::K;
-
-    // S = Q . K^T: s[i][c] is row 4 ty + i, key k0 + tx + 16 c
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qa[4], ka[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qa[i] = *reinterpret_cast<const float4*>(qs + (4 * ty + i) * QP + d);
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        ka[c] = *reinterpret_cast<const float4*>(ks + (tx + 16 * c) * QP + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          s[i][c] = fmaf(qa[i].x, ka[c].x, s[i][c]);
-          s[i][c] = fmaf(qa[i].y, ka[c].y, s[i][c]);
-          s[i][c] = fmaf(qa[i].z, ka[c].z, s[i][c]);
-          s[i][c] = fmaf(qa[i].w, ka[c].w, s[i][c]);
-        }
-    }
-
-    const int k0 = j * 64;
-    const bool edge = k0 + 64 > Sk || (causal && k0 + 63 > q_off + q0);
-    float alpha[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 4 * ty + i;
-      float mx = G_NEG_INF;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[i][c] *= scale;
-        const int key = k0 + tx + 16 * c;
-        if (edge && (key >= Sk || (causal && key > q_off + row)))
-          s[i][c] = G_NEG_INF;
-        mx = fmaxf(mx, s[i][c]);
-      }
-#pragma unroll
-      for (int off = 1; off < 16; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_run[i], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[i][c] = expf(s[i][c] - m_new);
-        sum += s[i][c];
-        ps[(4 * ty + i) * G_PP + tx + 16 * c] = s[i][c];
-      }
-#pragma unroll
-      for (int off = 1; off < 16; off <<= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      alpha[i] = expf(m_run[i] - m_new);
-      l_run[i] = l_run[i] * alpha[i] + sum;
-      m_run[i] = m_new;
-#pragma unroll
-      for (int e = 0; e < 4 * NJ; ++e) acc[i][e] *= alpha[i];
-    }
-    __syncthreads();
-
-    // O += P . V: acc[i][4 n + e] is row 4 ty + i, column 64 n + 4 tx + e
-#pragma unroll 2
-    for (int kk = 0; kk < 64; kk += 4) {
-      float4 pa[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pa[i] = *reinterpret_cast<const float4*>(ps + (4 * ty + i) * G_PP +
-                                                 kk);
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        float4 vv[NJ];
-#pragma unroll
-        for (int n = 0; n < NJ; ++n)
-          vv[n] = *reinterpret_cast<const float4*>(vs + (kk + t) * D +
-                                                   64 * n + 4 * tx);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = t == 0 ? pa[i].x
-                          : t == 1 ? pa[i].y
-                          : t == 2 ? pa[i].z
-                                   : pa[i].w;
-#pragma unroll
-          for (int n = 0; n < NJ; ++n) {
-            acc[i][4 * n] = fmaf(p, vv[n].x, acc[i][4 * n]);
-            acc[i][4 * n + 1] = fmaf(p, vv[n].y, acc[i][4 * n + 1]);
-            acc[i][4 * n + 2] = fmaf(p, vv[n].z, acc[i][4 * n + 2]);
-            acc[i][4 * n + 3] = fmaf(p, vv[n].w, acc[i][4 * n + 3]);
+  // The producer's sequence of float32 boxes, an item at a time: Q's 2 NB
+  // (warpgroup w's box cb), then for each kv tile NB boxes of K and NB of V.
+  if (wg == 2) {  // producer: warp 0 issues TMA, warps 1-3 split
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 72;\n");
+    if (tid == 256) {
+      int i = 0;  // landing boxes filled so far
+      for (int it = blockIdx.x; it < items; it += gridDim.x) {
+        const int hb = it / n_q, h = hb % H, b = hb / H;
+        const int q0 = (n_q - 1 - it % n_q) * F32_ROWS;
+        const int hk = h / (H / Hkv);
+        const int n = 2 * NB + 2 * NB * n_kv_of(q0);
+        for (int u = 0; u < n; ++u, ++i) {
+          const int s = i % L::SLOTS;
+          if (i >= L::SLOTS)
+            mbar_wait(land_free + 8 * s, (i / L::SLOTS - 1) & 1);
+          mbar_expect_tx(land_full + 8 * s, F32_BOX);
+          const uint32_t dst = land + s * F32_BOX, bar = land_full + 8 * s;
+          if (u < 2 * NB) {
+            tma_load_4d(dst, &qmap, bar, 64 * (u % NB), q0 + 64 * (u / NB),
+                        h, b);
+          } else {
+            const int v = u - 2 * NB, j = v / (2 * NB), w = v % (2 * NB);
+            tma_load_4d(dst, w < NB ? &kmap : &vmap, bar, 64 * (w % NB),
+                        j * FK, hk, b);
           }
         }
       }
+    } else if (tid >= 288) {
+      const int c = tid - 288;
+      int i = 0, k = 0, local = 0;  // landing boxes, slots, items so far
+      for (int it = blockIdx.x; it < items; it += gridDim.x, ++local) {
+        const int q0 = (n_q - 1 - it % n_q) * F32_ROWS;
+        const int n = 2 * NB + 2 * NB * n_kv_of(q0);
+        for (int u = 0; u < n; ++u, ++i) {
+          const int s = i % L::SLOTS;
+          mbar_wait(land_full + 8 * s, (i / L::SLOTS) & 1);
+          uint32_t dst;
+          int tstride;
+          if (u < 2 * NB) {  // Q: once the warpgroup is done with its last
+            const int w = u / NB;
+            if (local > 0 && u % NB == 0)
+              mbar_wait(q_free + 8 * w, (local - 1) & 1);
+            dst = qs + w * L::Q + (u % NB) * BLK;
+            tstride = NB * BLK;
+          } else {
+            const int sl = k % L::SLOTS;
+            if (k >= L::SLOTS)
+              mbar_wait(slot_empty + 8 * sl, (k / L::SLOTS - 1) & 1);
+            dst = slots + sl * F32_SLOT;
+            tstride = BLK;
+          }
+          // chunk idx: row idx / 8, values 8 (idx % 8) .. + 7 of the
+          // box's 256-byte row
+          const uint32_t src = land + s * F32_BOX;
+          for (int idx = c; idx < 64 * 8; idx += F32_CONVERTERS) {
+            const int r = idx >> 3, ch = idx & 7;
+            float4 a, bb;
+            asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                         : "=f"(a.x), "=f"(a.y), "=f"(a.z), "=f"(a.w)
+                         : "r"(src + r * 256 + ch * 32));
+            asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                         : "=f"(bb.x), "=f"(bb.y), "=f"(bb.z), "=f"(bb.w)
+                         : "r"(src + r * 256 + ch * 32 + 16));
+            f32_store8(dst, tstride, a, bb, r, ch);
+          }
+          repro::fence_async_smem();
+          if (u < 2 * NB) {
+            if (u % NB == NB - 1) mbar_arrive(q_full + 8 * (u / NB));
+          } else {
+            mbar_arrive(slot_full + 8 * (k % L::SLOTS));
+            ++k;
+          }
+          mbar_arrive(land_free + 8 * s);
+        }
+      }
     }
-    __syncthreads();  // the stage and P are rewritten next
+    return;
   }
 
-  float* const ob = o + b * st.s[9] + h * st.s[10];
+  // consumer warpgroup wg: query rows q0 + 64 wg .., warp w rows 16w ..
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 216;\n");
+  const int ct = tid & 127, lane = tid & 31, warp = ct >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t qsw = qs + wg * L::Q;  // term k, box cb at + (k NB + cb) BLK
+  float acc[NB][32];
+  float m_run[2], l_run[2];
+  int ring0 = 0;  // the ring index of the item's first K box
+  // ring box i: wait until it is written, its address, hand it back
+  auto take = [&](int i) {
+    mbar_wait(slot_full + 8 * (i % L::SLOTS), (i / L::SLOTS) & 1);
+  };
+  auto slot_of = [&](int i) { return slots + (i % L::SLOTS) * F32_SLOT; };
+  auto give = [&](int i) { mbar_arrive(slot_empty + 8 * (i % L::SLOTS)); };
+  // Q's A fragments (QREG), term k, D step kk: rows g and g + 8 of the
+  // warp at D pairs (2t, 2t+1) (a[0], a[1]) and (2t+8, 2t+9) (a[2], a[3])
+  uint32_t qa[3][L::QREG ? 4 : 1][4];
+  // S = Q . K^T of kv tile j into sc: one commit group
+  auto s_issue = [&](float (&sc)[FK / 2], int j) {
+    const int i0 = ring0 + 2 * NB * j;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    if (row >= Sq) continue;
-    const float den = fmaxf(l_run[i], 1e-30f);
+    for (int cb = 0; cb < NB; ++cb) take(i0 + cb);
+    wg_fence();
 #pragma unroll
-    for (int n = 0; n < NJ; ++n)
-      *reinterpret_cast<float4*>(ob + row * st.s[11] + 64 * n + 4 * tx) =
-          make_float4(acc[i][4 * n] / den, acc[i][4 * n + 1] / den,
-                      acc[i][4 * n + 2] / den, acc[i][4 * n + 3] / den);
+    for (int cb = 0; cb < NB; ++cb)
+#pragma unroll
+      for (int pr = 0; pr < 6; ++pr)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t db =
+              wg_desc(slot_of(i0 + cb) + term_b(pr) * BLK + kk * 32);
+          if constexpr (L::QREG)
+            wgmma_qk_r(sc, qa[term_a(pr)][L::QREG ? kk : 0], db,
+                       cb > 0 || pr > 0 || kk > 0);
+          else
+            wgmma_qk(sc,
+                     wg_desc(qsw + (term_a(pr) * NB + cb) * BLK + kk * 32),
+                     db, cb > 0 || pr > 0 || kk > 0);
+        }
+    wg_commit();
+  };
+  // P . V of kv tile j, O's 64-column box cb, into the zeroed tile sum t
+  // (the smallest terms first): the tensor cores' fp32 sums then cover one
+  // tile, and tiles add in float32 (acc = acc alpha + t, rounded once)
+  auto pv_box = [&](const uint32_t (&pa)[FK / 16][3][4], int j, int cb,
+                    float (&tile)[32]) {
+    const int i = ring0 + 2 * NB * j + NB + cb;
+    take(i);
+    wg_fence();
+#pragma unroll
+    for (int pr = 0; pr < 6; ++pr)
+#pragma unroll
+      for (int kk = 0; kk < FK / 16; ++kk)
+        wgmma_pv_z(tile, pa[kk][term_a(pr)],
+                   wg_desc_mn(slot_of(i) + term_b(pr) * BLK + kk * 2048, BLK),
+                   pr > 0 || kk > 0);
+    wg_commit();
+    wg_wait<0>();
+    wg_hold(tile);
+    give(i);
+  };
+  int local = 0;  // items so far
+  for (int it = blockIdx.x; it < items; it += gridDim.x, ++local) {
+    const int hb = it / n_q, h = hb % H, b = hb / H;
+    const int q0 = (n_q - 1 - it % n_q) * F32_ROWS;
+    const int n_kv = n_kv_of(q0);
+    const int qw = q0 + 64 * wg;  // the warpgroup's first row
+    const int row0 = qw + warp * 16 + g;
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[cb][i] = 0.f;
+    m_run[0] = m_run[1] = F32_NEG_INF;
+    l_run[0] = l_run[1] = 0.f;
+
+    // Softmax of kv tile j's scores in sc (Pallas's order): p into sc,
+    // l updated, and alpha, the factor of acc, returned.
+    // sc[4n + e]: row g + 8 (e / 2) of the warp, key k0 + 8 n + 2 t + e % 2
+    auto softmax = [&](float (&sc)[FK / 2], int j, float (&alpha)[2]) {
+      const int k0 = j * FK;
+      const bool edge = k0 + FK > Sk || (causal && k0 + FK - 1 > q_off + qw);
+#pragma unroll
+      for (int i = 0; i < FK / 2; ++i) sc[i] *= scale;
+      if (edge) {
+#pragma unroll
+        for (int n = 0; n < SN; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + 8 * n + 2 * t + (e & 1);
+            if (key >= Sk || (causal && key > q_off + row0 + 8 * (e >> 1)))
+              sc[4 * n + e] = F32_NEG_INF;
+          }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = F32_NEG_INF;
+#pragma unroll
+        for (int n = 0; n < SN; ++n)
+          mx = fmaxf(mx, fmaxf(sc[4 * n + 2 * r], sc[4 * n + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_run[r], mx);
+        alpha[r] = ex2((m_run[r] - m_new) * F32_LOG2E);
+        m_run[r] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < SN; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = ex2((sc[4 * n + 2 * r + e] - m_new) * F32_LOG2E);
+            sc[4 * n + 2 * r + e] = p;
+            sum += p;
+          }
+        l_run[r] = l_run[r] * alpha[r] + sum;
+      }
+    };
+    // P's A fragments, key step kk (key tiles 2kk and 2kk + 1), in terms
+    // hi, mid, lo
+    auto split_p = [&](const float (&sc)[FK / 2], uint32_t (&pa)[FK / 16][3][4]) {
+#pragma unroll
+      for (int kk = 0; kk < FK / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * (2 * kk + (e >> 1)) + 2 * (e & 1);
+          split3t(sc[i], sc[i + 1], pa[kk][0][e], pa[kk][1][e], pa[kk][2][e]);
+        }
+    };
+
+    mbar_wait(q_full + 8 * wg, local & 1);
+    if constexpr (L::QREG) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+#pragma unroll
+        for (int kk = 0; kk < (L::QREG ? 4 : 1); ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = 16 * warp + g + 8 * (e & 1), ch = 2 * kk + (e >> 1);
+            qa[k][kk][e] =
+                lds32(qsw + k * BLK + r * 128 + ((ch ^ (r & 7)) << 4) + 4 * t);
+          }
+      mbar_arrive(q_free + 8 * wg);  // the next item's Q may come
+    }
+    // S of tile 0; then for each tile P.V (a box at a time) and S of the
+    // next
+    float sc[FK / 2], alpha[2];
+    uint32_t pa[FK / 16][3][4];
+    s_issue(sc, 0);
+    for (int j = 0;; ++j) {
+      wg_wait<0>();
+      wg_hold(sc);
+#pragma unroll
+      for (int cb = 0; cb < NB; ++cb) give(ring0 + 2 * NB * j + cb);
+      if (!L::QREG && j + 1 == n_kv) mbar_arrive(q_free + 8 * wg);
+      softmax(sc, j, alpha);
+      split_p(sc, pa);
+#pragma unroll
+      for (int cb = 0; cb < NB; ++cb) {
+        float tile[32];
+        pv_box(pa, j, cb, tile);
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          acc[cb][i] = fmaf(acc[cb][i], alpha[(i >> 1) & 1], tile[i]);
+      }
+      if (j + 1 == n_kv) break;
+      s_issue(sc, j + 1);
+    }
+    ring0 += 2 * NB * n_kv;
+
+    // acc[cb][4n + e]: row g + 8 (e / 2), column 64 cb + 8 n + 2 t + e % 2
+    float den[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_run[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      den[r] = fmaxf(l, 1e-30f);
+    }
+    float* const ob = o + b * osb + h * osh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= Sq) continue;
+#pragma unroll
+      for (int cb = 0; cb < NB; ++cb)
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          *reinterpret_cast<float2*>(ob + row * oss + 64 * cb + 8 * n +
+                                     2 * t) =
+              make_float2(acc[cb][4 * n + 2 * r] / den[r],
+                          acc[cb][4 * n + 2 * r + 1] / den[r]);
+    }
   }
+}
+
+// A (D, S, heads, B) float32 tensor map with arbitrary strides (elements),
+// a box of 64 columns x 64 rows of one head, unswizzled
+int flash_map_f32(CUtensorMap* map, const void* p, int D, int S, int heads,
+                  int B, const long long* st) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(S),
+                            static_cast<uint64_t>(heads),
+                            static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {static_cast<uint64_t>(st[2]) * 4,
+                               static_cast<uint64_t>(st[1]) * 4,
+                               static_cast<uint64_t>(st[0]) * 4};
+  const uint32_t box[4] = {64, 64, 1, 1};
+  return repro::tensor_map(map, p, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, dims,
+                           strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 template <int D>
@@ -663,20 +949,21 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                int H, int Hkv, int Sq, int Sk, const long long* st,
                int causal, float scale, cudaStream_t stream) {
   if (Sk < Sq) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap qmap, kmap, vmap;
+  int e = flash_map_f32(&qmap, q, D, Sq, H, B, st);
+  if (e == 0) e = flash_map_f32(&kmap, k, D, Sk, Hkv, B, st + 3);
+  if (e == 0) e = flash_map_f32(&vmap, v, D, Sk, Hkv, B, st + 6);
+  if (e != 0) return e;
   constexpr int bytes = F32Layout<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       flash_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long n_q = (Sq + 63) / 64;
-  if (n_q * H * B > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  Strides s;
-  for (int i = 0; i < 12; ++i) s.s[i] = st[i];
-  flash_f32<D><<<dim3(static_cast<unsigned>(n_q * H * B)), G_THREADS, bytes,
-                 stream>>>(static_cast<const float*>(q),
-                           static_cast<const float*>(k),
-                           static_cast<const float*>(v),
-                           static_cast<float*>(o), B, H, Hkv, Sq, Sk, s,
-                           causal, scale);
+  const long long items = static_cast<long long>((Sq + F32_ROWS - 1) / F32_ROWS) * H * B;
+  if (items > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = static_cast<int>(items < repro::sm_count() ? items : repro::sm_count());
+  flash_f32<D><<<grid, F32_THREADS, bytes, stream>>>(
+      qmap, kmap, vmap, static_cast<float*>(o), B, H, Hkv, Sq, Sk, st[9],
+      st[10], st[11], causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

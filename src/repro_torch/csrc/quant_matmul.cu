@@ -85,9 +85,40 @@
 //       64 x 64, so x is re-read by N / 128 blocks instead of N / 64;
 //    4. the epilogue scales and stores straight from the accumulators,
 //       masked at the ragged edge; nothing passes through shared memory.
-//    x reaches the tensor cores as bf16; the wrapper rounds a float32 x to
-//    bf16 once (round to nearest even, the rounding of the Pallas kernel's
-//    astype) and the kernels then write float32.
+//    x reaches the tensor cores as bf16, rounded to nearest even (the
+//    rounding of the Pallas kernel's astype).  On float32 x (bert-base's
+//    packed forward) the wgmma route is qmm_wf, which reads float32 x
+//    itself and writes float32; the mma.sync route (N % 16 != 0, no model
+//    shape) keeps the wrapper's cast of x to bf16 ahead of qmm_tc.
+//  * qmm_wf, float32 x, where K % 4 == 0 and N % 16 == 0.  Bound at
+//    bert-base's up and down projections (M = 12288, K x N = 768 x 3072):
+//    58 GFLOP, 0.0586 ms at 989 TFLOP/s, against 189 MB of x and output
+//    (0.0563 ms at 3.35 TB/s).  Design:
+//    - a block computes 256 channels x 128 tokens (not qmm_wg's 128 x 256),
+//      so a float32 x tile is read by N / 256 blocks: the bytes from L2
+//      qmm_wg's bf16 tiles cost;
+//    - one producer thread keeps TMA loads of x (128 tokens x 64 K float32,
+//      unswizzled 256-byte rows) and of the codes (two 128-channel boxes)
+//      in flight in a 4-stage ring; three producer warps round each landed
+//      float32 tile to bf16 (cvt.rn.bf16x2.f32: ties to even, NaN stays
+//      NaN, +-inf and subnormals kept) into the stage's 128-byte-swizzled
+//      B tile, fence it for the async proxy and signal a second barrier;
+//    - two consumer warpgroups of 2 x 64 channels run wgmma.m64n128k16 in
+//      K order into one fp32 accumulator each, as qmm_wg does (the same
+//      bits as rounding x first), with the next stage's codes turned into
+//      A fragments and its wgmmas issued before the current ones are
+//      waited for;
+//    - A row 16 warp + g + 8 h of a warp's tile mt is channel 32 warp + 4 g
+//      + 2 mt + h, so a lane's four channels are one 32-bit code load and
+//      one 16-byte output store (a warp's store: 4 tokens x 128 bytes);
+//    - the block is persistent (one an SM, tiles in turn, neighbouring
+//      blocks on one token tile), so the next tile's stages land while a
+//      tile's output is stored.
+//    Shared memory: 4 x (32 KB float32 x + 16 KB bf16 x + 8 KB codes) =
+//    224 KB at int4 (208 KB at int2).  What is left (PERF.md §6): the
+//    rounding's shared-memory traffic (32 KB read, 16 KB written a stage,
+//    beside TMA's 40 KB and wgmma's 64 KB of B reads) costs about a third
+//    of the kernel's time.
 #include "common.cuh"
 
 namespace {
@@ -248,10 +279,6 @@ template <>
 __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p,
                                                       float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-template <>
-__device__ __forceinline__ void store2<float>(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
 template <int BITS, typename OT>
@@ -563,6 +590,289 @@ int launch_wg(const void* x, const void* wp, const void* scale, void* out,
   qmm_wg<BITS, OT><<<grid, WG_THREADS, S::SMEM, st>>>(
       xmap, wmap, static_cast<const float*>(scale), static_cast<OT*>(out), M,
       N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// qmm_wf: the Hopper route on float32 x (see the top of the file).
+constexpr int WF_CH = 256;      // channels a block: 2 warpgroups x 2 x 64
+constexpr int WF_TOK = 128;     // tokens a block: wgmma's N
+constexpr int WF_STAGES = 4;
+constexpr int WF_CONVERTERS = 96;  // producer warps 1-3
+constexpr int WF_FBYTES = WF_TOK * WG_K * 4;  // float32 x as TMA lands it
+constexpr int WF_XBYTES = WF_TOK * WG_K * 2;  // bf16 x as wgmma reads it
+
+template <int BITS>
+struct WfShape {
+  static constexpr int WROWS = WG_K / (8 / BITS);  // packed rows a stage
+  static constexpr int BOX = WROWS * 128;           // codes of 128 channels
+  // a stage: float32 x, bf16 x, two code boxes (each 1024-byte aligned)
+  static constexpr int STAGE = WF_FBYTES + WF_XBYTES + 2 * BOX;
+  static constexpr int SMEM = WF_STAGES * STAGE + 3 * WF_STAGES * 8 + 1024;
+};
+
+// d (64 x 128, fp32) += a (64 x 16 bf16, registers) * B (16 x 128, smem)
+#define WF_D8(i)                                                    \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),       \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : WF_D8(0), WF_D8(8), WF_D8(16), WF_D8(24), WF_D8(32), WF_D8(40),
+        WF_D8(48), WF_D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
+}
+#undef WF_D8
+
+// The A fragments of a warp's two 64-channel row tiles over a stage's 4 K
+// steps, from the packed codes box at `box` (128 channels, 128-byte
+// swizzled rows).  A row 16 warp + g + 8 h of tile mt is channel 32 warp +
+// 4 g + 2 mt + h of the box: a lane's four channels are one 32-bit word of
+// a packed row, in 16-byte chunk 2 warp + g / 4, bytes 4 (g % 4) ..
+template <int BITS>
+__device__ __forceinline__ void codes_a(uint32_t (&a)[2][4][4], uint32_t box,
+                                        int warp, int g, int t) {
+  const int chunk = 2 * warp + (g >> 2), boff = 4 * (g & 3);
+#pragma unroll
+  for (int kk = 0; kk < WG_K / 16; ++kk) {
+    int r0, r1, shift;
+    if (BITS == 4) {
+      r0 = kk * 8 + t;
+      r1 = r0 + 4;
+      shift = 0;
+    } else {
+      r0 = kk * 4 + (t >> 1);
+      r1 = r0 + 2;
+      shift = 4 * (t & 1);
+    }
+    const uint32_t w0 =
+        lds32(box + r0 * 128 + ((chunk ^ (r0 & 7)) << 4) + boff) >> shift;
+    const uint32_t w1 =
+        lds32(box + r1 * 128 + ((chunk ^ (r1 & 7)) << 4) + boff) >> shift;
+    constexpr uint32_t MASK = BITS == 4 ? 0x0F0F0F0Fu : 0x03030303u;
+    uint32_t b0[4], b1[4];
+    codes_to_bf16x2<BITS, 4>(w0 & MASK, (w0 >> BITS) & MASK, b0);
+    codes_to_bf16x2<BITS, 4>(w1 & MASK, (w1 >> BITS) & MASK, b1);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      a[mt][kk][0] = b0[2 * mt];      // row g, K pair (2t, 2t+1)
+      a[mt][kk][1] = b0[2 * mt + 1];  // row g + 8
+      a[mt][kk][2] = b1[2 * mt];      // row g, K pair (2t+8, 2t+9)
+      a[mt][kk][3] = b1[2 * mt + 1];
+    }
+  }
+}
+
+template <int BITS>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    qmm_wf(const __grid_constant__ CUtensorMap xmap,
+           const __grid_constant__ CUtensorMap wmap,
+           const float* __restrict__ scale, float* __restrict__ out, int M,
+           int N, int K) {
+  using S = WfShape<BITS>;
+  extern __shared__ uint8_t wf_smem_raw[];
+  const uint32_t base = (smem_addr(wf_smem_raw) + 1023u) & ~1023u;
+  // stage s at base + s STAGE: float32 x, bf16 x, codes boxes 0 and 1
+  const uint32_t load_full = base + WF_STAGES * S::STAGE;  // TMA landed
+  const uint32_t conv_full = load_full + 8 * WF_STAGES;    // bf16 x written
+  const uint32_t empty = conv_full + 8 * WF_STAGES;        // consumers done
+  const int tid = threadIdx.x, wg = tid >> 7;
+  // tile i: channels 256 (i % tiles_n), tokens 128 (i / tiles_n), so the
+  // blocks at work at once share token tiles; a block takes tiles
+  // blockIdx.x, + gridDim.x, ...  The ring runs on across its tiles.
+  const int tiles_n = (N + WF_CH - 1) / WF_CH;
+  const int tiles = tiles_n * ((M + WF_TOK - 1) / WF_TOK);
+  const int kt_n = (K + WG_K - 1) / WG_K;
+
+  if (tid == 0) {
+    for (int s = 0; s < WF_STAGES; ++s) {
+      mbar_init(load_full + 8 * s, 1);
+      mbar_init(conv_full + 8 * s, WF_CONVERTERS);
+      mbar_init(empty + 8 * s, 256);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer: warp 0 issues TMA, warps 1-3 round x to bf16
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    if (tid == 256) {
+      int it = 0;  // stages filled so far
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int n0 = (tile % tiles_n) * WF_CH, m0 = (tile / tiles_n) * WF_TOK;
+        for (int kt = 0; kt < kt_n; ++kt, ++it) {
+          const int s = it % WF_STAGES;
+          if (it >= WF_STAGES)
+            mbar_wait(empty + 8 * s, (it / WF_STAGES - 1) & 1);
+          const uint32_t st = base + s * S::STAGE, bar = load_full + 8 * s;
+          const uint32_t ws = st + WF_FBYTES + WF_XBYTES;
+          mbar_expect_tx(bar, WF_FBYTES + 2 * S::BOX);
+          tma_load_2d(st, &xmap, bar, kt * WG_K, m0);
+          tma_load_2d(ws, &wmap, bar, n0, kt * S::WROWS);
+          tma_load_2d(ws + S::BOX, &wmap, bar, n0 + 128, kt * S::WROWS);
+        }
+      }
+    } else if (tid >= 288) {
+      const int c = tid - 288;
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        for (int kt = 0; kt < kt_n; ++kt, ++it) {
+          const int s = it % WF_STAGES;
+          const uint32_t st = base + s * S::STAGE, xs = st + WF_FBYTES;
+          mbar_wait(load_full + 8 * s, (it / WF_STAGES) & 1);
+          // float4 f of the stage: token r = f / 16, K 4 (f % 16) .. + 3;
+          // it becomes 8 bytes of the token's 128-byte bf16 row, in chunk
+          // (f % 16) / 2 swizzled by r % 8.  A warp reads 512 contiguous
+          // bytes and writes two whole rows: no bank conflicts.
+          // 8 loads are issued before the first store waits on one
+          constexpr int F4 = WF_TOK * WG_K / 4, BATCH = 8;
+          for (int f0 = c; f0 < F4; f0 += BATCH * WF_CONVERTERS) {
+            float4 v[BATCH];
+#pragma unroll
+            for (int j = 0; j < BATCH; ++j) {
+              const int f = f0 + j * WF_CONVERTERS;
+              if (f < F4)
+                asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                             : "=f"(v[j].x), "=f"(v[j].y), "=f"(v[j].z),
+                               "=f"(v[j].w)
+                             : "r"(st + 16 * f));
+            }
+#pragma unroll
+            for (int j = 0; j < BATCH; ++j) {
+              const int f = f0 + j * WF_CONVERTERS, r = f >> 4, q = f & 15;
+              if (f >= F4) break;
+              const __nv_bfloat162 lo = __floats2bfloat162_rn(v[j].x, v[j].y);
+              const __nv_bfloat162 hi = __floats2bfloat162_rn(v[j].z, v[j].w);
+              asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(
+                               xs + r * 128 + (((q >> 1) ^ (r & 7)) << 4) +
+                               (q & 1) * 8),
+                           "r"(*reinterpret_cast<const uint32_t*>(&lo)),
+                           "r"(*reinterpret_cast<const uint32_t*>(&hi)));
+            }
+          }
+          repro::fence_async_smem();
+          mbar_arrive(conv_full + 8 * s);
+        }
+      }
+    }
+  } else {  // consumer warpgroup wg: channels n0 + 128 wg .. + 127
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
+    const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    float d[2][64];
+    uint32_t a0[2][4][4], a1[2][4][4];  // A fragments, two stages
+    int it = 0;  // stages taken so far
+    // the A fragments of stage `it` once its codes have landed
+    auto load_a = [&](uint32_t (&a)[2][4][4], int i) {
+      const int s = i % WF_STAGES;
+      mbar_wait(load_full + 8 * s, (i / WF_STAGES) & 1);
+      codes_a<BITS>(a, base + s * S::STAGE + WF_FBYTES + WF_XBYTES +
+                           wg * S::BOX, warp, g, t);
+    };
+    // stage i's products with A fragments `a`: one commit group
+    auto issue = [&](uint32_t (&a)[2][4][4], int i) {
+      const int s = i % WF_STAGES;
+      mbar_wait(conv_full + 8 * s, (i / WF_STAGES) & 1);
+      wg_fence();
+      const uint64_t desc = wg_desc(base + s * S::STAGE + WF_FBYTES);
+#pragma unroll
+      for (int kk = 0; kk < WG_K / 16; ++kk) {
+        wgmma_m64n128k16(d[0], a[0][kk], desc + 2 * kk);  // + 32 bytes of K
+        wgmma_m64n128k16(d[1], a[1][kk], desc + 2 * kk);
+      }
+      wg_commit();
+    };
+    // Two stages' products stay in flight: the next one is issued before
+    // the current one is waited for, so the tensor cores do not drain at
+    // a stage's end.
+    auto step = [&](uint32_t (&nx)[2][4][4], bool more) {
+      if (more) {
+        load_a(nx, it + 1);
+        issue(nx, it + 1);
+        wg_wait<1>();
+      } else {
+        wg_wait<0>();
+      }
+      mbar_arrive(empty + 8 * (it % WF_STAGES));
+      ++it;
+    };
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int n0 = (tile % tiles_n) * WF_CH, m0 = (tile / tiles_n) * WF_TOK;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) d[0][i] = d[1][i] = 0.f;
+      load_a(a0, it);
+      issue(a0, it);
+      for (int kt = 0; kt < kt_n; kt += 2) {
+        step(a1, kt + 1 < kt_n);  // stage kt (a0) done, kt + 1 (a1) issued
+        if (kt + 1 < kt_n) step(a0, kt + 2 < kt_n);
+      }
+      wg_hold(d[0]);
+      wg_hold(d[1]);
+
+      // d[mt][4 i + 2 h + v]: channel 128 wg + 32 warp + 4 g + 2 mt + h,
+      // token 8 i + 2 t + v: a lane stores 16 bytes of a token's row, and
+      // a warp's store is 4 tokens x 128 bytes.  The stores drain while the
+      // ring fills for the next tile.
+      const int ch = n0 + 128 * wg + 32 * warp + 4 * g;
+      if (ch < N) {  // N % 16 == 0: ch + 3 < N too
+        const float4 sc =
+            make_float4(scale[ch], scale[ch + 1], scale[ch + 2], scale[ch + 3]);
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+#pragma unroll
+          for (int v = 0; v < 2; ++v) {
+            const int m = m0 + 8 * i + 2 * t + v;
+            if (m < M)
+              *reinterpret_cast<float4*>(out + static_cast<size_t>(m) * N +
+                                         ch) =
+                  make_float4(d[0][4 * i + v] * sc.x,
+                              d[0][4 * i + 2 + v] * sc.y,
+                              d[1][4 * i + v] * sc.z,
+                              d[1][4 * i + 2 + v] * sc.w);
+          }
+      }
+    }
+  }
+}
+
+template <int BITS>
+int launch_wf(const void* x, const void* wp, const void* scale, void* out,
+              int M, int N, int K, cudaStream_t st) {
+  using S = WfShape<BITS>;
+  CUtensorMap xmap, wmap;
+  const int kp = K / (8 / BITS);
+  const uint64_t xdims[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(M)};
+  const uint64_t xstride[1] = {static_cast<uint64_t>(K) * 4};
+  const uint32_t xbox[2] = {WG_K, WF_TOK};  // 256-byte rows, unswizzled
+  const uint64_t wdims[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(kp)};
+  const uint64_t wstride[1] = {static_cast<uint64_t>(N)};
+  const uint32_t wbox[2] = {128, S::WROWS};
+  int e = repro::tensor_map(&xmap, x, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                            xdims, xstride, xbox, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (e == 0)
+    e = repro::tensor_map(&wmap, wp, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, wdims,
+                          wstride, wbox);
+  if (e != 0) return e;
+  const cudaError_t a = cudaFuncSetAttribute(
+      qmm_wf<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+  if (a != cudaSuccess) return static_cast<int>(a);
+  const long long tiles = static_cast<long long>((N + WF_CH - 1) / WF_CH) *
+                          ((M + WF_TOK - 1) / WF_TOK);
+  const int grid = static_cast<int>(tiles < repro::sm_count() ? tiles : repro::sm_count());
+  qmm_wf<BITS><<<grid, WG_THREADS, S::SMEM, st>>>(
+      xmap, wmap, static_cast<const float*>(scale), static_cast<float*>(out),
+      M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -931,8 +1241,10 @@ int launch_gemv_m(const void* x, const void* wp, const void* scale, void* out,
 //            workspace ws (slices, M, N) and ceil(N / 128) counters, zero
 //            on entry and left zero;
 //   kMmaSync bf16 x, 4-byte aligned;
-//   kWgmma   bf16 x, K % 8 == 0 and N % 16 == 0 (TMA's 16-byte row
-//            strides), 16-byte aligned x and wp.
+//   kWgmma   x and the output of one dtype; N % 16 == 0 and K % 8 == 0
+//            for bf16 x, K % 4 == 0 for float32 x (TMA's 16-byte row
+//            strides); 16-byte aligned x and wp.  bf16 x runs qmm_wg,
+//            float32 x qmm_wf, which rounds it to bf16 itself.
 // The tiled routes ignore ws, counters, slices and per_slice.
 enum Route { kGemv = 0, kMmaSync = 1, kWgmma = 2 };
 
@@ -968,17 +1280,19 @@ extern "C" int quant_matmul_launch(const void* x, const void* wp,
               : launch_gemv_m<2, float>(x, wp, scale, out, ws, counters, M, N,
                                         K, slices, per_slice, st);
   }
-  if (x_dtype != repro::kBFloat16 || xa % 4 != 0) return bad;
   if (route == kWgmma) {
-    if (K <= 0 || K % 8 != 0 || N % 16 != 0 || xa % 16 != 0 || wa % 16 != 0)
+    const int kvec = bf ? 8 : 4;  // x elements in 16 bytes
+    if (x_dtype != out_dtype || K <= 0 || K % kvec != 0 || N % 16 != 0 ||
+        xa % 16 != 0 || wa % 16 != 0)
       return bad;
     if (bits == 4)
       return bf ? launch_wg<4, __nv_bfloat16>(x, wp, scale, out, M, N, K, st)
-                : launch_wg<4, float>(x, wp, scale, out, M, N, K, st);
+                : launch_wf<4>(x, wp, scale, out, M, N, K, st);
     return bf ? launch_wg<2, __nv_bfloat16>(x, wp, scale, out, M, N, K, st)
-              : launch_wg<2, float>(x, wp, scale, out, M, N, K, st);
+              : launch_wf<2>(x, wp, scale, out, M, N, K, st);
   }
-  if (route != kMmaSync) return bad;
+  if (x_dtype != repro::kBFloat16 || xa % 4 != 0 || route != kMmaSync)
+    return bad;
   if (bits == 4)
     return bf ? launch_tc<4, __nv_bfloat16>(x, wp, scale, out, M, N, K, st)
               : launch_tc<4, float>(x, wp, scale, out, M, N, K, st);

@@ -277,10 +277,15 @@ def quant_matmul(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
                  bits: int) -> torch.Tensor:
     """x (M, K) @ K-major packed codes (K/pack, N) * scale (N,) -> (M, N)
     in x's dtype.  K must be the packed K (a multiple of 8 // bits).
-    ``quant_matmul_route`` picks the kernel: the GEMV on x as it is, or a
-    tensor-core kernel on bf16(x).  The GEMV splits K by ``gemv_plan``;
-    with more than one slice it takes an fp32 workspace for the slices'
-    partial sums, made here, and the stream's counters."""
+    ``quant_matmul_route`` picks the kernel by shape and x's dtype; every
+    route multiplies bf16(x), rounded to nearest even.  The GEMV and the
+    wgmma route read x as it is (the wgmma route on float32 x, ``qmm_wf``,
+    rounds it in the kernel); the mma.sync route reads bf16 x, so a float32
+    x is cast here first.  The tiled routes' copies need 16-byte aligned
+    bases: an x or wp that lies off one is copied once (``clone``), never
+    refused.  The GEMV splits K by ``gemv_plan``; with more than one slice
+    it takes an fp32 workspace for the slices' partial sums, made here, and
+    the stream's counters."""
     _on_card("quant_matmul", x, wp, scale)
     _require(bits in (2, 4), f"quant_matmul: bits must be 2 or 4, got {bits}")
     _require(x.dtype in _DTYPE_CODE, f"quant_matmul: x must be float32 or "
@@ -303,7 +308,7 @@ def quant_matmul(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
         return out
-    route = quant_matmul_route(m, n, k)
+    route = quant_matmul_route(m, n, k, x.dtype)
     ws = counters = None
     slices = per_slice = 0
     stream = _stream()
@@ -316,10 +321,8 @@ def quant_matmul(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
             ws = torch.empty((slices, m, n), dtype=torch.float32,
                              device=x.device)
     else:
-        # the tensor-core kernels read bf16 x (a float32 x rounds to
-        # nearest even here, once) and write x's dtype; their copies need
-        # 16-byte aligned bases, which a fresh copy has
-        x = x.to(torch.bfloat16)
+        if route == "mma.sync":
+            x = x.to(torch.bfloat16)   # qmm_tc reads bf16 x only
         if x.data_ptr() % 16:
             x = x.clone()
         if route == "wgmma" and wp.data_ptr() % 16:
@@ -346,13 +349,17 @@ def _split_counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
     return buf
 
 
-def quant_matmul_route(m: int, n: int, k: int) -> str:
-    """The kernel of a quant_matmul launch, by shape alone: "gemv" for
-    M <= GEMV_MAX_M; above it "wgmma" where TMA's 16-byte row strides hold
-    (K % 8 == 0 for bf16 x, N % 16 == 0 for the codes), else "mma.sync"."""
+def quant_matmul_route(m: int, n: int, k: int,
+                       dtype: torch.dtype = torch.bfloat16) -> str:
+    """The kernel of a quant_matmul launch, by shape and x's dtype alone:
+    "gemv" for M <= GEMV_MAX_M; above it "wgmma" where TMA's 16-byte row
+    strides hold (K % 8 == 0 for bf16 x, K % 4 == 0 for float32 x, N % 16
+    == 0 for the codes), else "mma.sync"."""
     if m <= GEMV_MAX_M:
         return "gemv"
-    return "wgmma" if k > 0 and k % 8 == 0 and n % 16 == 0 else "mma.sync"
+    per_16 = 16 // (4 if dtype == torch.float32 else 2)   # x in 16 bytes
+    return ("wgmma" if k > 0 and k % per_16 == 0 and n % 16 == 0
+            else "mma.sync")
 
 
 def gemv_plan(m: int, n: int, k: int, bits: int) -> Tuple[int, int]:
@@ -551,9 +558,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, H, Sq, D), k/v (B, Hkv, Sk, D), all bf16 or all float32, with
     Sk >= Sq, head_dim contiguous (any batch/head/sequence strides) -> (B,
     H, Sq, D) in their dtype with q's strides.  bf16 launches the wgmma
-    kernel (counter ``flash_attention``), float32 the FFMA kernel
-    (``flash_attention_f32``).  Causal rows are aligned bottom-right: query
-    row i sits at position Sk - Sq + i (the suffix prefill over shared
+    kernel (counter ``flash_attention``), float32 the wgmma kernel on three
+    exact bf16 terms of each operand (``flash_attention_f32``).  Both read
+    q, k and v by TMA: strides in multiples of 16 bytes and 16-byte
+    aligned bases, else ValueError.  Causal rows are aligned bottom-right:
+    query row i sits at position Sk - Sq + i (the suffix prefill over shared
     prefix rows; Sk = Sq for a whole prompt).  Prefill calls it once a
     layer, so its host work stays small: messages are formatted only when
     a check fails, and the array of strides is made once for each set of

@@ -435,7 +435,8 @@ def cpu_card(monkeypatch):
         fn(), {"wall_ms": 1.0, "device_ms": 0.5, "idle_share": 0.5,
                "dtoh_copies": 0, "device_ops": 1, "qmm_gemv_ms": 0.0,
                "decode_attention_ms": 0.0, "lsq_fakequant_ms": 0.0,
-               "lsq_fakequant_bwd_ms": 0.0, "top": []})[1])
+               "lsq_fakequant_bwd_ms": 0.0, "copy_kernel_ms": 0.0,
+               "copy_kernels": 0, "top": []})[1])
     for name, value in (("BERT_B", 2), ("BERT_S", 32), ("ALPS_B", 2),
                         ("ALPS_S", 32), ("FRONTIER_STEPS", 2)):
         monkeypatch.setattr(chip_smoke, name, value)

@@ -428,6 +428,58 @@ def test_cuda_quant_matmul_float32(card, bits, m):
     assert (got - want).abs().max() <= ulp
 
 
+# bert-base's projections (K, N): q/k/v, o, up, down (chip_smoke's)
+BERT_PROJECTIONS = [(768, 2304), (768, 768), (768, 3072), (3072, 768)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [12288, 4099])
+@pytest.mark.parametrize("k,n", BERT_PROJECTIONS)
+@pytest.mark.parametrize("bits", [4, 2])
+def test_cuda_quant_matmul_float32_wgmma(card, bits, k, n, m):
+    """float32 x on the wgmma route (qmm_wf, which rounds x to bf16 in the
+    kernel) at bert-base's four projections, M = 32 x 384 and a ragged
+    M = 4099: within 1e-5 of max|ref| (chip_smoke.QMM_F32_TOL; both sides
+    sum exact products of bf16(x) and codes in float32, in other
+    orders)."""
+    from repro_torch.kernels import cuda
+    assert cuda.quant_matmul_route(m, n, k, torch.float32) == "wgmma"
+    before = cuda.LAUNCHES["quant_matmul"]
+    got, want = _cuda_qmm_case(card, bits, m, k, n, torch.float32, 5)
+    assert cuda.LAUNCHES["quant_matmul"] == before + 1
+    assert got.dtype == torch.float32
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 2])
+def test_cuda_quant_matmul_rounding_probe(card, bits):
+    """float32 x on and around bf16 rounding ties (ties, their neighbours,
+    subnormal ties, +-0, values rounding to +-inf, +-inf, NaN rows) through
+    codes that pick one K position a channel at scale 1.0: the wgmma
+    route's outputs equal x.to(torch.bfloat16) bit for bit
+    (chip_smoke.qmm_rounding_probe)."""
+    import chip_smoke
+    got, want = chip_smoke.qmm_rounding_probe(card, bits)
+    assert chip_smoke.probe_equal(got, want)
+
+
+@pytest.mark.parametrize("bits", [4, 2])
+def test_qmm_rounding_probe_plain(monkeypatch, bits):
+    """The probe's expected values hold for the plain version on the CPU
+    (bf16(x) at the selected K position, NaN where 0 x inf enters the
+    sum), so a failure on the card is the kernel's."""
+    import chip_smoke
+    from repro_torch.kernels import cuda
+    plain = tref.quant_matmul_w4 if bits == 4 else tref.quant_matmul_w2
+    monkeypatch.setattr(cuda, "quant_matmul",
+                        lambda x, wp, scale, b: plain(x, wp, scale))
+    got, want = chip_smoke.qmm_rounding_probe(torch.device("cpu"), bits)
+    assert torch.isnan(want).any() and torch.isinf(want).any()
+    assert (want[0] != 0).any() and (want[0].abs() < 2.0 ** -126).any()
+    assert chip_smoke.probe_equal(got, want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [4, 2])
 def test_cuda_quant_matmul_identity_probe(card, bits):
@@ -645,6 +697,31 @@ def test_cuda_flash_f32(card, s, off, d, group, causal, layout):
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
     row = torch.linalg.vector_norm(got - want, dim=-1)
     assert (row <= 1e-5 * torch.linalg.vector_norm(want, dim=-1)).all()
+
+
+@pytest.mark.cuda
+def test_cuda_flash_f32_precision_probe(card):
+    """Inputs whose mantissas use all 24 bits: the kernel stays within
+    1e-5 of max|ref| and of every row's norm, where the hi terms alone
+    (the plain version on bf16 q, k, v) miss by far more than 10x."""
+    import chip_smoke
+    rec = chip_smoke.flash_f32_precision_probe(card)
+    print(f"precision probe: {rec}")
+    assert rec["ok"], rec
+    assert rec["control_rel_err"] > 10 * chip_smoke.FLASH_F32_TOL, rec
+
+
+@pytest.mark.cuda
+def test_cuda_flash_f32_issues_hgmma(card):
+    """Both instantiations of flash_f32 hold wgmma (HGMMA) instructions."""
+    import chip_smoke
+    from repro_torch.kernels import cuda
+    q = torch.zeros((1, 2, 64, 64), device=card)
+    cuda.flash_attention(q, q, q)  # builds and loads the library
+    hgmma = chip_smoke.sass_hgmma("flash_attention", "flash_f32")
+    if hgmma is None:
+        pytest.skip("the CUDA toolkit has no cuobjdump")
+    assert len(hgmma) == 2 and all(n > 0 for n in hgmma.values()), hgmma
 
 
 @pytest.mark.cuda
@@ -983,15 +1060,25 @@ def test_packed_matmul_pads_ragged_k(bits):
 
 def test_quant_matmul_route():
     """The GEMV for M <= 16; above it wgmma where TMA's 16-byte row strides
-    hold (K % 8 == 0 for bf16 x, N % 16 == 0 for the codes), mma.sync
-    elsewhere: every olmo-1b projection takes wgmma in prefill, and the
-    card tests' N = 200 and 37 and K = 66 take mma.sync."""
+    hold (K % 8 == 0 for bf16 x, K % 4 == 0 for float32 x, N % 16 == 0 for
+    the codes), mma.sync elsewhere: every olmo-1b projection takes wgmma in
+    prefill, so does every bert-base projection on float32 x, and the card
+    tests' N = 200 and 37 and K = 66 take mma.sync."""
     from repro_torch.kernels import cuda
+    f32 = torch.float32
     assert cuda.quant_matmul_route(16, 2048, 2048) == "gemv"
+    assert cuda.quant_matmul_route(16, 3072, 768, f32) == "gemv"
     for n, k in ((2048, 2048), (8192, 2048), (2048, 8192), (256, 520)):
         assert cuda.quant_matmul_route(4096, n, k) == "wgmma"
+        assert cuda.quant_matmul_route(4096, n, k, f32) == "wgmma"
     for n, k in ((200, 520), (37, 64), (256, 66), (2048, 0)):
         assert cuda.quant_matmul_route(17, n, k) == "mma.sync"
+        assert cuda.quant_matmul_route(17, n, k, f32) == "mma.sync"
+    for k, n in BERT_PROJECTIONS:
+        assert cuda.quant_matmul_route(32 * 384, n, k, f32) == "wgmma"
+    # K % 4 == 0 but K % 8 != 0: float32 rows keep TMA's 16-byte strides
+    assert cuda.quant_matmul_route(4096, 256, 516, f32) == "wgmma"
+    assert cuda.quant_matmul_route(4096, 256, 516) == "mma.sync"
 
 
 @pytest.mark.parametrize("bits,k,n", [
@@ -1199,3 +1286,77 @@ def test_nvcc_missing_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.nvcc_path()
+
+
+def _qmm_operands(m, k, n, dtype, bits=4):
+    wp = torch.zeros((k // (8 // bits), n), dtype=torch.uint8)
+    return torch.zeros((m, k), dtype=dtype), wp, torch.ones(n)
+
+
+def test_quant_matmul_float32_launch(fake_card):
+    """float32 x on the wgmma route is one launch of x itself (its pointer,
+    dtype code 0, no copy and no cast), writing float32; bf16 x launches as
+    before (its pointer, code 1).  A float32 x off a 16-byte boundary is
+    copied once, still float32; on the mma.sync route (N % 16 != 0) it is
+    cast to bf16 first."""
+    from repro_torch.kernels import cuda
+    wgmma = cuda.QMM_ROUTES.index("wgmma")
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        fake_card.clear()
+        x, wp, scale = _qmm_operands(300, 768, 512, dtype)
+        out = cuda.quant_matmul(x, wp, scale, 4)
+        (name, a), = fake_card
+        assert name == "quant_matmul" and out.dtype == dtype
+        assert a[:4] == (x.data_ptr(), wp.data_ptr(), scale.data_ptr(),
+                         out.data_ptr())
+        assert a[4:11] == (300, 512, 768, 4, code, code, wgmma)
+        assert a[11:15] == (None, None, 0, 0)
+    fake_card.clear()
+    x, wp, scale = _qmm_operands(300, 768, 512, torch.float32)
+    buf = torch.zeros(300 * 768 + 4)
+    xs = buf[1:1 + 300 * 768].view(300, 768)
+    assert xs.data_ptr() % 16
+    cuda.quant_matmul(xs, wp, scale, 4)
+    (_, a), = fake_card
+    assert a[0] % 16 == 0 and a[0] != xs.data_ptr() and a[8:11] == (0, 0, wgmma)
+    fake_card.clear()
+    x, wp, scale = _qmm_operands(300, 768, 200, torch.float32)
+    out = cuda.quant_matmul(x, wp, scale, 4)
+    (_, a), = fake_card
+    assert out.dtype == torch.float32 and a[0] != x.data_ptr()
+    assert a[8:11] == (1, 0, cuda.QMM_ROUTES.index("mma.sync"))
+
+
+def test_flash_float32_launch_and_refusals(fake_card):
+    """The float32 flash launch: counter flash_attention_f32, q, k, v and
+    out by pointer, (B, H, Hkv, Sq, Sk, D), the 12 strides (batch, head,
+    sequence of q, k, v, out), causal and D**-0.5; the model's (B, S, H, D)
+    projections pass as (B, H, S, D) views without a copy.  What TMA
+    cannot read raises before a launch: a stride off 16 bytes, a base off
+    16 bytes, head_dim 96, a non-contiguous head_dim, and mixed dtypes."""
+    from repro_torch.kernels import cuda
+    b, s, h, hkv, d = 2, 40, 4, 2, 64
+    q = torch.zeros((b, s, h, d)).transpose(1, 2)
+    k, v = (torch.zeros((b, s + 8, hkv, d)).transpose(1, 2) for _ in range(2))
+    out = cuda.flash_attention(q, k, v, causal=True)
+    (name, a), = fake_card
+    assert name == "flash_attention_f32"
+    assert out.shape == q.shape and out.stride() == q.stride()
+    assert a[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    assert a[4:10] == (b, h, hkv, s, s + 8, d)
+    st = q.stride()[:3] + k.stride()[:3] + v.stride()[:3] + out.stride()[:3]
+    assert tuple(a[10]) == st and a[11] == 1 and a[12] == d ** -0.5
+    fake_card.clear()
+    wide = torch.zeros((1, 2, 16, 66))[..., :64]      # rows 264 bytes apart
+    base = torch.zeros(2 * 16 * 64 + 1)[1:].view(1, 2, 16, 64)
+    ok = torch.zeros((1, 2, 16, 64))
+    for args, match in (((wide, wide, wide), "16 bytes"),
+                        ((base, ok, ok), "16 bytes"),
+                        ((torch.zeros((1, 2, 16, 96)),) * 3, "head_dim"),
+                        ((torch.zeros((1, 2, 64, 64)).transpose(2, 3),) * 3,
+                         "contiguous"),
+                        ((ok, ok.bfloat16(), ok), "all bfloat16 or all")):
+        with pytest.raises(ValueError, match=match):
+            cuda.flash_attention(*args)
+    assert not fake_card
+
