@@ -8,7 +8,12 @@ Phases, in order; any failure exits non-zero:
   2. build   - nvcc builds the kernels from src/repro_torch/csrc into
                build/kernels/ (parallel, one process per source).
   3. kernels - each of the eight kernels against its plain PyTorch version at
-               the main path's shapes, with its tolerance, kernel / plain /
+               the main paths' shapes (olmo-1b's and bert-base's, and the
+               zoo's: quant_matmul at granite-20b's and deepseek-7b's
+               projections, decode attention at granite's 48 query heads
+               on one KV head in both layouts, flash_attention at
+               granite's MQA prefill and hubert-xlarge's head_dim 80, not
+               causal), with its tolerance, kernel / plain /
                library times (CUDA events, warm-up excluded, L2 flushed) and
                bound; the decode GEMV's shapes also in device time alone
                (torch.profiler) beside cuBLAS's, both decode attentions
@@ -40,10 +45,15 @@ Phases, in order; any failure exits non-zero:
   4. serve   - that mix packed, 8 prompts of 128-512 tokens right-padded to
                512, 64 new tokens, max_seq 1024, over an int8 and an int4
                KV cache, contiguous and paged (page 16; the same tokens);
-               counts every kernel's launches (lsq_fakequant: 4 a layer
-               and the head's, per prefill and per decode step); a
-               torch.profiler breakdown of one prefill and 8 decode steps.
-  schedule   - the continuous-batching scheduler over that mix: 24
+               counts every kernel's launches (a decode step's and a
+               prefill's against ``step_launches``: 7 quant_matmul and
+               4 lsq_fakequant a layer, the head's lsq_fakequant, one
+               attention a layer); the decode steps timed apart, no
+               device-to-host copy in 8 decode steps (every run), and for
+               the int8 runs a torch.profiler breakdown of one prefill and
+               8 decode steps.
+  schedule   - the continuous-batching scheduler over that mix (the first
+               SCHED_DEPTH layers of olmo-1b, at full width): 24
                requests (12 sharing a 256-token system prompt, 4 repeats, 8
                unique; 8-32 new tokens) through 8 slots, paged full bf16,
                paged int8 and contiguous int4, pools of 160 pages; gates A
@@ -80,6 +90,16 @@ Phases, in order; any failure exits non-zero:
                32 x 384, EAGL, ALPS, HAWQ-v3, the frontier, and the packed
                forward of EAGL's take through the float32 flash kernel and
                quant_matmul; gates B2-B6 (see phase_bert).
+  zoo        - internlm2-1.8b, deepseek-7b and granite-20b (MQA, 48:1) in
+               turn, each at its published widths and depth from seed 0:
+               EAGL's take at 0.7 packed, 8 prompts with 32 new tokens over
+               contiguous int8 and int4 and paged int4 caches, the kernel
+               path teacher-forced against the plain path; gates Z1-Z4
+               (see phase_zoo).
+  hubert     - hubert-xlarge at its published widths and depth (bf16,
+               frame embeddings, no RoPE, head_dim 80): EAGL's take packed
+               and its forward of 8 x 1000 frames through flash_attention
+               at D = 80 (see phase_hubert).
 The second-to-last line is the kernels JSON, the last the device JSON.
 Details go to chiprun_out/chip_smoke.json and chiprun_out/build_log.txt.
 """
@@ -398,9 +418,16 @@ def identity_probe(timer, dev, gen, bits):
     return rec
 
 
+# the zoo's projection shapes (K, N) that olmo-1b's do not cover:
+# granite-20b's k/v (one KV head, N = 128) and down (K = 24576), and
+# deepseek-7b's up (N = 11008 = 256 x 43) and down
+ZOO_PROJECTIONS = ((6144, 128), (24576, 6144), (4096, 11008), (11008, 4096))
+
+
 def check_quant_matmul(timer, dev, gen):
     """The main path's twelve shapes (bits 4 and 2, the three projection
-    shapes of olmo-1b, decode M = 8 and prefill M = 4096), the identity
+    shapes of olmo-1b, decode M = 8 and prefill M = 4096) and the zoo's
+    (``ZOO_PROJECTIONS``, the same bits and M), the identity
     probe, and ragged tiled shapes: M = 4099 (a ragged M through the wgmma
     route), and M = 129 with N = 200 and K = 520 (ragged M, N and a partial
     last K step; N % 16 != 0 takes the mma.sync route).  Then the GEMV
@@ -410,6 +437,12 @@ def check_quant_matmul(timer, dev, gen):
         for (k, n) in ((2048, 2048), (2048, 8192), (8192, 2048)):
             for m in (8, 8 * 512):
                 cases.append(qmm_case(timer, dev, gen, bits, m, k, n)[0])
+    for bits in (4, 2):
+        for (k, n) in ZOO_PROJECTIONS:
+            for m in (8, 8 * 512):
+                rec = qmm_case(timer, dev, gen, bits, m, k, n)[0]
+                rec["zoo"] = True
+                cases.append(rec)
     for bits in (4, 2):
         cases.append(identity_probe(timer, dev, gen, bits))
         for (m, k, n) in ((4099, 2048, 2048), (129, 520, 200)):
@@ -588,7 +621,7 @@ def kv_decode_selector_probe(dev, bits, layout, b=4, h=16, hkv=16, s=1024,
     from repro_torch.kernels import cuda, kv_quant, ref
     g = torch.Generator(dev).manual_seed(7)
     group, dp = h // hkv, (d if bits == 8 else d // 2)
-    splits, c = cuda.decode_plan(b, hkv, group, s, bits)
+    splits, c, _ = cuda.decode_plan(b, hkv, group, s, bits)
     targets = sorted({min(r, s - 1) for k in range(splits)
                       for r in (k * c, k * c + c // 2, k * c + c - 1)}
                      | {s - 1})
@@ -655,18 +688,24 @@ def kv_decode_selector_probe(dev, bits, layout, b=4, h=16, hkv=16, s=1024,
     return calls, splits, c, ok
 
 
+# (H, Hkv) of the decode checks: olmo-1b's MHA, and granite-20b's MQA (48
+# query heads on one KV head: 12 blocks of 4 over each chunk)
+DECODE_HEADS = ((16, 16), (48, 1))
+
+
 def check_kv_decode(timer, dev, gen):
-    """The contiguous decode at B = 8, S = 1024, H = Hkv = 16, D = 128, one
-    slot past the end and the others spread over the cache, int8 and int4:
-    within 1e-4 * max|ref| of the plain version, timed on the timer and in
-    device time alone beside SDPA on the dequantized bf16 cache, and on
-    plans of other chunk sizes; two calls equal bit for bit; then the
-    selector probe, bit for bit, at MHA and GQA 16/4."""
+    """The contiguous decode at B = 8, S = 1024, D = 128, H = Hkv = 16 and
+    granite-20b's H = 48 on Hkv = 1, one slot past the end and the others
+    spread over the cache, int8 and int4: within 1e-4 * max|ref| of the
+    plain version, timed on the timer and in device time alone beside SDPA
+    on the dequantized bf16 cache, MHA also on plans of other chunk sizes;
+    two calls equal bit for bit; then the selector probe, bit for bit, at
+    MHA, GQA 16/4 and MQA 48/1."""
     from repro_torch.kernels import cuda, kv_quant, ref
-    b, s, h, d = 8, 1024, 16, 128
-    hkv = h
+    b, s, d = 8, 1024, 128
     cases = []
-    for bits in (8, 4):
+    for (h, hkv), bits in ((heads, bits) for heads in DECODE_HEADS
+                           for bits in (8, 4)):
         k = torch.randn((b, s, hkv, d), generator=gen, device=dev)
         v = torch.randn((b, s, hkv, d), generator=gen, device=dev)
         lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
@@ -694,7 +733,8 @@ def check_kv_decode(timer, dev, gen):
         sdpa = torch.nn.functional.scaled_dot_product_attention
 
         def library():
-            return sdpa(q[:, :, None], kd, vd, attn_mask=mask)
+            return sdpa(q[:, :, None], kd, vd, attn_mask=mask,
+                        enable_gqa=hkv != h)
 
         rec = {"bits": bits, "b": b, "s": s, "h": h, "hkv": hkv, "d": d,
                "plan": list(cuda.decode_plan(b, hkv, h // hkv, s, bits)),
@@ -713,12 +753,13 @@ def check_kv_decode(timer, dev, gen):
                      lambda: cuda.kv_decode_attention(*args, bits), library)
         # the same kernel on plans of other chunk sizes, for comparison
         rec["device_us_by_chunk"] = {}
-        for rows_cap in (64, 256):
+        for rows_cap in ((64, 256) if h == hkv else ()):
             with patched(cuda, "DECODE_CHUNK_ROWS", rows_cap):
                 c = cuda.decode_plan(b, hkv, h // hkv, s, bits)[1]
                 rec["device_us_by_chunk"][c], _ = device_us(
                     timer, lambda: cuda.kv_decode_attention(*args, bits))
-        log(f"  kv_decode_attention int{bits} B={b} S={s} H={h} D={d}: err "
+        log(f"  kv_decode_attention int{bits} B={b} S={s} H={h} Hkv={hkv} "
+            f"D={d}: err "
             f"{err:.3g} (tol {tol:.3g}), two calls equal: {repeat}; "
             f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}, SDPA on "
             f"dequantized bf16 {rec['library_ms']:.4f}, bound "
@@ -733,16 +774,16 @@ def check_kv_decode(timer, dev, gen):
         cases.append(rec)
         del k, v, qc, kd, vd, args
     for bits in (8, 4):
-        for hkv in (16, 4):
+        for h, hkv in ((16, 16), (16, 4), (48, 1)):
             calls, splits, c, same = kv_decode_selector_probe(
-                dev, bits, "contiguous", hkv=hkv)
+                dev, bits, "contiguous", h=h, hkv=hkv)
             cases.append({"kv_decode_selector_probe": True, "bits": bits,
-                          "layout": "contiguous", "h": 16, "hkv": hkv,
+                          "layout": "contiguous", "h": h, "hkv": hkv,
                           "s": 1024, "plan": [splits, c], "calls": calls,
                           "bit_equal": same, "ok": same})
-            log(f"    selector probe int{bits} Hkv={hkv}: rows in every one "
-                f"of {splits} chunks of {c}, {calls} call(s), outputs equal "
-                f"the selected V rows bit for bit: {same}")
+            log(f"    selector probe int{bits} H={h} Hkv={hkv}: rows in "
+                f"every one of {splits} chunks of {c}, {calls} call(s), "
+                f"outputs equal the selected V rows bit for bit: {same}")
     return cases[0], cases
 
 
@@ -787,26 +828,38 @@ def flash_selector_probe(dev, b, h, hkv, s, d=128, seed=0, causal=True):
     return q.bfloat16(), k.bfloat16(), v, want
 
 
+# (B, H, Hkv, S, D, causal, alone) of check_flash: olmo-1b's prefill, a
+# ragged GQA shape, granite-20b's MQA prefill of one 2048-token prompt, and
+# hubert-xlarge's 8 x 1000 frames (head_dim 80, not causal; 1000 is no
+# multiple of the 64-row tiles); ``alone``: also timed in device time alone
+# beside SDPA
+FLASH_CASES = ((8, 16, 16, 512, 128, True, False),
+               (2, 16, 4, 300, 128, True, True),
+               (1, 48, 1, 2048, 128, True, True),
+               (8, 16, 16, 1000, 80, False, True))
+
+
 def check_flash(timer, dev, gen):
-    """The prefill shape and a ragged GQA shape, causal, against the plain
+    """``FLASH_CASES`` against the plain
     version in float32 (max-abs and per-row tolerances), timed beside SDPA;
     the suffix prefill's offset shapes (``FLASH_OFFSET_CASES``) likewise,
     beside SDPA with a bottom-right mask; a digest of the Sk = Sq outputs;
     then the selector probe, bit for bit, at S = 128, 129, 300 and 513 with
     MHA and GQA 16/4, causal and with keys spread over every kv tile, and
-    causal with the queries cut to their last rows (q_offset > 0)."""
+    causal with the queries cut to their last rows (q_offset > 0); at D =
+    80 (S = 129 and 1000, both masks) and at MQA 48/1 (S = 300, both)."""
     from repro_torch.kernels import cuda, ops
     sdpa = torch.nn.functional.scaled_dot_product_attention
     cases = []
-    for (b, h, hkv, s, d) in ((8, 16, 16, 512, 128), (2, 16, 4, 300, 128)):
+    for (b, h, hkv, s, d, causal, alone) in FLASH_CASES:
         q = torch.randn((b, h, s, d), generator=gen, device=dev).bfloat16()
         k = torch.randn((b, hkv, s, d), generator=gen, device=dev).bfloat16()
         v = torch.randn((b, hkv, s, d), generator=gen, device=dev).bfloat16()
         # the plain version on the same inputs in float32: in bf16 it rounds
         # the scores to bf16 before the softmax, an error of its own
         qf, kf, vf = q.float(), k.float(), v.float()
-        out = cuda.flash_attention(q, k, v, causal=True)
-        want = ops.flash_attention(qf, kf, vf, causal=True, impl="ref")
+        out = cuda.flash_attention(q, k, v, causal=causal)
+        want = ops.flash_attention(qf, kf, vf, causal=causal, impl="ref")
         torch.cuda.synchronize()
         got = out.float()
         err = float((got - want).abs().max())
@@ -818,36 +871,49 @@ def check_flash(timer, dev, gen):
         # the share of outputs that round to another bf16 than the plain
         # version's: what the next activation fake-quant can see
         off = float((out != want.bfloat16()).float().mean())
-        rec = {"b": b, "h": h, "hkv": hkv, "s": s, "d": d,
+        rec = {"b": b, "h": h, "hkv": hkv, "s": s, "d": d, "causal": causal,
                "design": FLASH_DESIGN,
                "max_abs_err": err, "tol": tol, "max_row_rel_err": row_err,
                "row_tol": 1e-2, "off_bf16_share": off,
                "ok": err <= tol and row_err <= 1e-2,
-               "ms": timer(lambda: cuda.flash_attention(q, k, v)),
+               "ms": timer(lambda: cuda.flash_attention(q, k, v, causal)),
                "plain_ms": timer(lambda: ops.flash_attention(
-                   qf, kf, vf, causal=True, impl="ref")),
-               "library_ms": timer(lambda: sdpa(q, k, v, is_causal=True,
+                   qf, kf, vf, causal=causal, impl="ref")),
+               "library_ms": timer(lambda: sdpa(q, k, v, is_causal=causal,
                                                  enable_gqa=hkv != h))}
+        # the bytes of the caller's rows (D = 80 rows move 160 bytes: the
+        # kernel's zero columns are TMA's fill, not reads), the products
+        # of the mask's scores at that D
         nb = 2 * (2 * b * h * s * d) + 2 * (2 * b * hkv * s * d)
-        flop = 4.0 * b * h * d * s * (s + 1) / 2
+        flop = 4.0 * b * h * d * s * ((s + 1) / 2 if causal else s)
         rec["bound_ms"], rec["bound_by"] = bound_ms(nb, flop, BF16_OPS_PER_S)
         rec["tflops"] = flop / rec["ms"] * 1e-9
         rec["x_sdpa"] = rec["ms"] / rec["library_ms"]
         rec["x_bound"] = rec["ms"] / rec["bound_ms"]
-        rec["host_us"] = host_us(lambda: cuda.flash_attention(q, k, v))
+        rec["host_us"] = host_us(lambda: cuda.flash_attention(q, k, v,
+                                                              causal))
         rec["library_host_us"] = host_us(
-            lambda: sdpa(q, k, v, is_causal=True, enable_gqa=hkv != h))
-        log(f"  flash_attention B={b} H={h} Hkv={hkv} S={s} D={d} causal: "
+            lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=hkv != h))
+        if alone:
+            alone_device(timer, rec,
+                         lambda: cuda.flash_attention(q, k, v, causal),
+                         lambda: sdpa(q, k, v, is_causal=causal,
+                                      enable_gqa=hkv != h))
+        mask = "causal" if causal else "not causal"
+        log(f"  flash_attention B={b} H={h} Hkv={hkv} S={s} D={d} {mask}: "
             f"err {err:.3g} (tol {tol:.3g}), worst row |d|/|ref| "
             f"{row_err:.3g} (tol 0.01), {off:.3g} of outputs off the plain "
             f"bf16 rounding; {rec['ms']:.4f} ms, plain "
             f"{rec['plain_ms']:.4f}, SDPA {rec['library_ms']:.4f}, bound "
             f"{rec['bound_ms']:.4f} ({rec['bound_by']})")
         log(f"    design {FLASH_DESIGN}: {rec['tflops']:.1f} TFLOP/s (causal "
-            f"4BHDS(S+1)/2), {rec['x_sdpa']:.2f}x SDPA, {rec['x_bound']:.2f}x "
-            f"the bound; enqueue {rec['host_us']:.1f} us on the host (SDPA "
-            f"{rec['library_host_us']:.1f})")
+            f"4BHDS(S+1)/2, else 4BHDS^2), {rec['x_sdpa']:.2f}x SDPA, "
+            f"{rec['x_bound']:.2f}x the bound; enqueue {rec['host_us']:.1f} "
+            f"us on the host (SDPA {rec['library_host_us']:.1f})")
+        if "device_us" in rec:
+            log_alone(rec, "SDPA")
         cases.append(rec)
+        del q, k, v, qf, kf, vf, out, want, got
     for (s, s_k, hkv) in FLASH_OFFSET_CASES:
         cases.append(flash_offset_case(timer, dev, gen, s, s_k, hkv))
     digest = flash_digest(dev)
@@ -866,6 +932,19 @@ def check_flash(timer, dev, gen):
                               "bit_equal": same, "ok": same})
                 log(f"    selector probe S={s} Hkv={hkv} causal={causal}: "
                     f"output row i equals V[pos(pi(i))] bit for bit: {same}")
+    for causal in (True, False):
+        for (s, h, hkv, d) in ((129, 16, 16, 80), (1000, 16, 16, 80),
+                               (300, 48, 1, 128)):
+            q, k, v, want = flash_selector_probe(dev, 2, h, hkv, s, d=d,
+                                                 causal=causal)
+            got = cuda.flash_attention(q, k, v, causal=causal)
+            same = bool(torch.equal(got, want))
+            cases.append({"selector_probe": True, "b": 2, "h": h,
+                          "hkv": hkv, "s": s, "d": d, "causal": causal,
+                          "bit_equal": same, "ok": same})
+            log(f"    selector probe S={s} H={h} Hkv={hkv} D={d} causal="
+                f"{causal}: output row i equals V[pos(pi(i))] bit for bit: "
+                f"{same}")
     for (s, off) in ((16, 256), (37, 16), (200, 496), (1, 512)):
         for hkv in (16, 4):
             q, k, v, want = flash_selector_probe(dev, 2, 16, hkv, off + s)
@@ -1502,7 +1581,8 @@ def paged_case(gen, dev, bits, b, h, hkv, d, n, page, pos):
 
 def check_paged_kv_decode(timer, dev, gen):
     """The paged decode at the serve shapes (B = 8, D = 128, page 16, 64
-    pages a slot, positions up to 1023), int8 and int4, and GQA 16/4:
+    pages a slot, positions up to 1023), int8 and int4, GQA 16/4 and
+    granite-20b's MQA 48/1:
     bit for bit the contiguous kernel on the gathered cache and itself on
     a second call, within 1e-4 * max|ref| of the plain version, finite over
     NaN-poisoned free pages.  Timed against SDPA on the dequantized bf16
@@ -1515,7 +1595,8 @@ def check_paged_kv_decode(timer, dev, gen):
                        dtype=torch.int32, device=dev)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     cases = []
-    for bits, h, hkv in ((8, 16, 16), (4, 16, 16), (4, 16, 4)):
+    for bits, h, hkv in ((8, 16, 16), (4, 16, 16), (4, 16, 4), (8, 48, 1),
+                         (4, 48, 1)):
         q, qc, (kqp, vqp, vsp), tbl = paged_case(gen, dev, bits, b, h, hkv,
                                                  d, n, page, pos)
         args = (q, kqp, qc["k_scale"], vqp, vsp, tbl, pos)
@@ -1587,14 +1668,14 @@ def check_paged_kv_decode(timer, dev, gen):
         cases.append(rec)
         del q, qc, kqp, vqp, vsp, tbl, args, gathered, kd, vd
     for bits in (8, 4):
-        for hkv in (16, 4):
+        for h, hkv in ((16, 16), (16, 4), (48, 1)):
             calls, splits, c, same = kv_decode_selector_probe(
-                dev, bits, "paged", hkv=hkv)
+                dev, bits, "paged", h=h, hkv=hkv)
             cases.append({"kv_decode_selector_probe": True, "bits": bits,
-                          "layout": "paged", "h": 16, "hkv": hkv, "s": 1024,
+                          "layout": "paged", "h": h, "hkv": hkv, "s": 1024,
                           "plan": [splits, c], "calls": calls,
                           "bit_equal": same, "ok": same})
-            log(f"    selector probe int{bits} Hkv={hkv} paged: rows in "
+            log(f"    selector probe int{bits} H={h} Hkv={hkv} paged: rows in "
                 f"every one of {splits} chunks of {c}, {calls} call(s), "
                 f"outputs equal the selected V rows bit for bit: {same}")
     return cases[0], cases
@@ -1622,16 +1703,25 @@ def device_rows(fn) -> dict:
 
 
 def device_table(prof) -> dict:
+    """{kernel: (device us, launches)} of a finished torch.profiler run: its
+    raw device events summed by name, spans over kernels (user annotations
+    such as Optimizer.step) left out.  ``key_averages`` gives the same
+    sums, but parses every host and device event first: seconds over the
+    tens of thousands of kernels of a large model's 8 decode steps."""
     rows = {}
-    for e in prof.key_averages():
-        if getattr(e, "is_user_annotation", False):
-            continue   # a span over kernels (Optimizer.step), not one
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            rows[e.key] = (us, e.count)
-    return rows
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != torch.autograd.DeviceType.CUDA
+                or e.is_user_annotation()):
+            continue
+        us, n = rows.get(e.name(), (0.0, 0))
+        rows[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    out = {}
+    for name, (us, n) in rows.items():
+        if us > 0:
+            key = torch._C._demangle(name)
+            was = out.get(key, (0.0, 0))
+            out[key] = (was[0] + us, was[1] + n)
+    return out
 
 
 def device_breakdown(fn, top: int = 20) -> dict:
@@ -1669,6 +1759,21 @@ def device_breakdown(fn, top: int = 20) -> dict:
             "copy_kernels": sum(n for k, _, n in rows if "copy_kernel" in k),
             "top": [{"kernel": k[:90], "ms": us / 1e3, "count": n}
                     for k, us, n in rows[:top]]}
+
+
+def dtoh_copies(fn, dev) -> int:
+    """The device-to-host copies ``fn`` makes on ``dev`` (to pageable or
+    pinned memory, blocking or not): torch.profiler with device activity
+    only, cheap enough for every run."""
+    from torch.profiler import ProfilerActivity, profile
+    act = ProfilerActivity.CUDA if dev.type == "cuda" else \
+        ProfilerActivity.CPU
+    sync(dev)
+    with profile(activities=[act]) as prof:
+        fn()
+        sync(dev)
+    return sum(n for k, (_, n) in device_table(prof).items()
+               if k.startswith("Memcpy DtoH"))
 
 
 def log_breakdown(what: str, rec: dict) -> None:
@@ -1755,99 +1860,131 @@ SERVE_PATHS = {
 }
 
 
+def step_launches(cfg) -> dict:
+    """The launches one decode step makes, from the config: a packed
+    matmul a projection (q, k, v, o, and gate, up and down for SwiGLU or
+    up and down for GeLU) a layer; one grouped LSQ fake-quant for q/k/v,
+    o, the FFN's input and down a layer, and the head's; one attention a
+    layer (``"attention"``): the decode attention in a decode step, one
+    flash_attention in a prefill or an encoder's forward, which make the
+    same launches otherwise."""
+    layers = cfg.n_repeats * len(cfg.pattern)
+    proj = sum(4 + (3 if b.ffn == "swiglu" else 2) for b in cfg.pattern)
+    return {"quant_matmul": cfg.n_repeats * proj,
+            "lsq_fakequant": 4 * layers + 1, "attention": layers}
+
+
 def log_serve_run(what: str, rec: dict) -> None:
     res = rec["residency"]
-    log(f"  {what}: generate 8x64 in {rec['generate_s']:.3f} s "
+    log(f"  {what}: generate 8x{rec['new_tokens']} in "
+        f"{rec['generate_s']:.3f} s "
         f"({rec['tokens_per_s']:.1f} tok/s), prefill "
-        f"{rec['prefill_ms']:.1f} ms, decode {rec['decode_ms_per_step']:.2f}"
-        f" ms/step, weights {res['resident_weight_bytes'] / 1e6:.1f} MB "
-        f"resident vs {rec['weight_bytes_bf16'] / 1e6:.1f} MB bf16, KV "
+        f"{rec['prefill_ms']:.1f} ms, decode "
+        f"{rec['decode_ms_per_step']:.2f} ms/step, weights "
+        f"{res['resident_weight_bytes'] / 1e6:.1f} MB resident vs "
+        f"{rec['weight_bytes_bf16'] / 1e6:.1f} MB bf16, KV "
         f"{res['resident_kv_bytes'] / 1e6:.1f} MB, peak "
-        f"{rec['max_memory_allocated'] / 1e9:.2f} GB")
+        f"{rec['max_memory_allocated'] / 1e9:.2f} GB; "
+        f"{rec['dtoh_copies_8_steps']} device-to-host copies in 8 decode "
+        f"steps")
 
 
-def phase_serve(cfg, packed, pa, dev, tokens, lengths):
+SERVE_RUNS = tuple((layout, bits) for layout in SERVE_PATHS
+                   for bits in (8, 4))
+
+
+def phase_serve(cfg, packed, pa, dev, tokens, lengths, runs_of=SERVE_RUNS,
+                n_new=64):
+    """``generate`` of the prompts, ``n_new`` tokens, over each (layout,
+    bits) quantized cache of ``runs_of`` (a paged run after the contiguous
+    run of its bits), with its launches, bytes and timings (``serve_run``),
+    and for the int8 runs a torch.profiler breakdown of a prefill and 8
+    decode steps (``serve_breakdown``; the summaries take seconds a run).
+    Gates: the kernels of each path launched and no other decode kernel;
+    no device-to-host copy in 8 decode steps (``serve_run``, every run);
+    the launches a decode step and a prefill that ``step_launches`` works
+    out from the config; paged tokens equal to the contiguous run's."""
     from repro_torch.serve import EngineSpec, ServeEngine, packing
     runs = {}
     tok_t = torch.as_tensor(tokens, device=dev)
     len_t = torch.as_tensor(lengths, device=dev)
-    for layout, (need, never) in SERVE_PATHS.items():
-        for bits in (8, 4):
-            name = f"{layout}-int{bits}"
-            engine = ServeEngine(cfg, packed, pa, max_seq=1024,
-                                 spec=EngineSpec(cache="quantized",
-                                                 cache_bits=bits,
-                                                 cache_layout=layout,
-                                                 page_size=PAGE),
-                                 device=dev)
-            rec = serve_run(engine, cfg, tok_t, len_t, lengths)
-            launches = rec["launches"]
-            missing = sorted(k for k in need if launches[k] == 0)
-            stray = sorted(k for k in never if launches[k] != 0)
-            if missing or stray:
-                raise RuntimeError(f"{name}: the path launched no {missing}"
-                                   f" and launched {stray}")
-            copies = rec["profile"]["decode_8_steps"]["dtoh_copies"]
-            if copies:
-                raise RuntimeError(f"{name}: {copies} device-to-host copies "
-                                   f"in 8 decode steps")
-            step = rec["launches_per_decode_step"]
-            decode_kernel = ("paged_kv_decode_attention" if layout == "paged"
-                             else "kv_decode_attention")
-            if step[decode_kernel] != cfg.n_repeats:
-                raise RuntimeError(f"{name}: {step[decode_kernel]} "
-                                   f"{decode_kernel} launches per decode "
-                                   f"step, expected {cfg.n_repeats}")
-            # one grouped fake-quant for q/k/v, o, gate/up and down a layer,
-            # and the head's
-            lsq = (rec["launches_per_prefill"]["lsq_fakequant"],
-                   step["lsq_fakequant"])
-            if lsq != (4 * cfg.n_repeats + 1,) * 2:
-                raise RuntimeError(f"{name}: lsq_fakequant launched {lsq} "
-                                   f"times per prefill and decode step, "
-                                   f"expected {4 * cfg.n_repeats + 1}")
-            if layout == "paged":
-                base = runs[f"contiguous-int{bits}"]
-                if rec["tokens"] != base["tokens"]:
-                    raise RuntimeError(f"{name}: tokens differ from the "
-                                       f"contiguous run's")
-            rec["weight_bytes_bf16"] = packing.bf16_weight_bytes(packed)
-            log_serve_run(f"serve {name} cache", rec)
-            log(f"    launches in generate: {launches}")
-            log(f"    per prefill: {rec['launches_per_prefill']}; per decode "
-                f"step: {step}")
+    want = step_launches(cfg)
+    for layout, bits in runs_of:
+        need, never = SERVE_PATHS[layout]
+        name = f"{layout}-int{bits}"
+        engine = ServeEngine(cfg, packed, pa, max_seq=1024,
+                             spec=EngineSpec(cache="quantized",
+                                             cache_bits=bits,
+                                             cache_layout=layout,
+                                             page_size=PAGE),
+                             device=dev)
+        rec = serve_run(engine, cfg, tok_t, len_t, lengths, n_new)
+        launches = rec["launches"]
+        missing = sorted(k for k in need if launches[k] == 0)
+        stray = sorted(k for k in never if launches[k] != 0)
+        if missing or stray:
+            raise RuntimeError(f"{name}: the path launched no {missing}"
+                               f" and launched {stray}")
+        step, pre = rec["launches_per_decode_step"], \
+            rec["launches_per_prefill"]
+        decode_kernel = ("paged_kv_decode_attention" if layout == "paged"
+                         else "kv_decode_attention")
+        got = {"attention": (step[decode_kernel],
+                                    pre["flash_attention"])}
+        for k in ("quant_matmul", "lsq_fakequant"):
+            got[k] = (step[k], pre[k])
+        wrong = {k: v for k, v in got.items() if v != (want[k],) * 2}
+        if wrong:
+            raise RuntimeError(f"{name}: launches (a decode step, a "
+                               f"prefill) {wrong}, expected {want} each")
+        if layout == "paged":
+            base = runs[f"contiguous-int{bits}"]
+            if rec["tokens"] != base["tokens"]:
+                raise RuntimeError(f"{name}: tokens differ from the "
+                                   f"contiguous run's")
+        rec["weight_bytes_bf16"] = packing.bf16_weight_bytes(packed)
+        log_serve_run(f"serve {name} cache", rec)
+        log(f"    launches in generate: {launches}")
+        log(f"    per prefill: {pre}; per decode step: {step}")
+        if bits == 8:
+            rec["profile"] = serve_breakdown(engine, tok_t, len_t)
             for what, brk in rec["profile"].items():
                 log_breakdown(what, brk)
-            if layout == "paged":
-                log(f"    tokens equal to the contiguous int{bits} run's")
-            runs[name] = rec
-            # free this run's cache before the next run's peak is taken
-            del engine
-            torch.cuda.empty_cache()
+        if layout == "paged":
+            log(f"    tokens equal to the contiguous int{bits} run's")
+        runs[name] = rec
+        # free this run's cache before the next run's peak is taken
+        del engine
+        torch.cuda.empty_cache()
     return runs
 
 
-def serve_run(engine, cfg, tok_t, len_t, lengths):
-    """One engine: generate 8 x 64 with the launches counted, then one
-    prefill and the decode steps timed apart, and their profiles."""
+def serve_run(engine, cfg, tok_t, len_t, lengths, n_new=64):
+    """One engine: generate 8 x ``n_new`` with the launches counted, then
+    one prefill timed apart and one decode step, their launches counted,
+    the other decode steps timed apart, and the device-to-host copies of 8
+    more decode steps counted (``dtoh_copies``); RuntimeError if there is
+    one."""
     from repro_torch.kernels import cuda
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda.reset_launches()
     t0 = time.perf_counter()
-    out = engine.generate(tok_t, 64, lengths=lengths)
+    out = engine.generate(tok_t, n_new, lengths=lengths)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(cuda.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    if tuple(out.shape) != (8, 64) or out.dtype != torch.int32:
+    if tuple(out.shape) != (8, n_new) or out.dtype != torch.int32:
         raise RuntimeError(f"generate returned {tuple(out.shape)} "
                            f"{out.dtype}")
     if int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
         raise RuntimeError("generated token ids out of the vocabulary")
     torch.cuda.synchronize()
+    cuda.reset_launches()
     t0 = time.perf_counter()
     last, pre = engine.prefill(tok_t, len_t)
+    per_prefill = dict(cuda.LAUNCHES)
     cache = engine.splice_prefill(pre, len_t)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
@@ -1857,28 +1994,42 @@ def serve_run(engine, cfg, tok_t, len_t, lengths):
     per_step = dict(cuda.LAUNCHES)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    cache, tok, _ = engine.decode_chunk_step(cache, tok, n_steps=62)
+    cache, tok, _ = engine.decode_chunk_step(cache, tok, n_steps=n_new - 2)
     torch.cuda.synchronize()
-    decode_s = (time.perf_counter() - t0) / 62
-    cuda.reset_launches()
-    engine.prefill(tok_t, len_t)
-    per_prefill = dict(cuda.LAUNCHES)
-    prof = {"prefill": device_breakdown(
-                lambda: engine.prefill(tok_t, len_t)),
-            "decode_8_steps": device_breakdown(
-                lambda: engine.decode_chunk_step(cache, tok, n_steps=8))}
-    return {"generate_s": wall, "tokens_per_s": 8 * 64 / wall,
+    decode_ms = (time.perf_counter() - t0) / (n_new - 2) * 1e3
+    copies = dtoh_copies(
+        lambda: engine.decode_chunk_step(cache, tok, n_steps=8), tok.device)
+    if copies:
+        raise RuntimeError(f"{copies} device-to-host copies in 8 decode "
+                           f"steps")
+    return {"new_tokens": n_new, "generate_s": wall,
+            "tokens_per_s": 8 * n_new / wall,
             "prefill_ms": prefill_s * 1e3,
-            "decode_ms_per_step": decode_s * 1e3, "launches": launches,
-            "launches_per_prefill": per_prefill,
+            "decode_ms_per_step": decode_ms, "dtoh_copies_8_steps": copies,
+            "launches": launches, "launches_per_prefill": per_prefill,
             "launches_per_decode_step": per_step,
             "residency": engine.residency(cache),
-            "max_memory_allocated": peak, "profile": prof,
-            "tokens": out.tolist()}
+            "max_memory_allocated": peak, "tokens": out.tolist()}
+
+
+def serve_breakdown(engine, tok_t, len_t) -> dict:
+    """torch.profiler breakdowns (``device_breakdown``) of one prefill and
+    of the 8 decode steps after it."""
+    got = []
+    prefill = device_breakdown(
+        lambda: got.append(engine.prefill(tok_t, len_t)))
+    last, pre = got[0]
+    cache = engine.splice_prefill(pre, len_t)
+    tok = last.argmax(-1, keepdim=True)
+    return {"prefill": prefill, "decode_8_steps": device_breakdown(
+        lambda: engine.decode_chunk_step(cache, tok, n_steps=8))}
 
 
 # ------------------------------------------------------------- schedule
 SCHED_SLOTS = 8
+SCHED_DEPTH = 2                  # olmo-1b's first layers: gates A, B and D
+                                 # hold at any depth, and the script's time
+                                 # limit holds the zoo's phases too
 SCHED_MAX_SEQ = 1024
 SCHED_POOL = 160                 # pages; 8 slots' worst case is 512
 GATE_A_MIN = 18                  # of 24 requests equal to their serial run
@@ -2477,10 +2628,11 @@ def teacher_forced(cfg, packed, pa, dev, tok_t, len_t, bits, n_decode,
             logits[name].append(last)
 
 
-def phase_check(cfg, packed, pa, dev, tokens, lengths, n_decode=16):
+def phase_check(cfg, packed, pa, dev, tokens, lengths, n_decode=16,
+                cache_bits=(8, 4)):
     """Kernel path against the plain path (impl="ref") on the same weights,
-    teacher-forced over the prefill and 16 decode steps, with three
-    readings:
+    teacher-forced over the prefill and ``n_decode`` decode steps, over
+    each cache width of ``cache_bits``, with three readings:
 
       all blocks - max|dlogit|/max|logit| over the steps, bounded by
         CONTROL_FACTOR times the control's: the plain path with its prefill
@@ -2501,7 +2653,7 @@ def phase_check(cfg, packed, pa, dev, tokens, lengths, n_decode=16):
     one = cfg.replace(n_repeats=1)
     one_block = dict(packed, pat=packed["pat"][:1])
     res, bad = {}, {}
-    for bits in (8, 4):
+    for bits in cache_bits:
         logits, blocks = teacher_forced(cfg, packed, pa, dev, tok_t, len_t,
                                         bits, n_decode)
         first, _ = teacher_forced(one, one_block, pa, dev, tok_t, len_t,
@@ -3251,8 +3403,10 @@ def phase_joint(cfg, dev, raw, take, smi_line):
         log_serve_run(f"joint {name}", rec)
         log(f"    per prefill: {got['prefill']}; per decode step: "
             f"{got['decode step']}")
-        for what, brk in rec["profile"].items():
-            log_breakdown(what, brk)
+        if layout == "contiguous":   # phase 4 profiles paged decode
+            rec["profile"] = serve_breakdown(eng, tok_t, len_t)
+            for what, brk in rec["profile"].items():
+                log_breakdown(what, brk)
         runs[name] = rec
         del eng
         torch.cuda.empty_cache()
@@ -3342,39 +3496,39 @@ def selection_methods(policy, alps, hawq) -> dict:
             "first_to_last": None, "last_to_first": None}
 
 
-BERT_FORWARD_LAUNCHES = {"quant_matmul": 6, "lsq_fakequant": 4,
-                         "flash_attention_f32": 1}   # a layer's, + the head's
-                                                     # lsq_fakequant
-
-
-def bert_forward(cfg, dev, raw, mixed, smi_line):
-    """B5: the packed forward of ``mixed`` (EAGL's take at 0.7) over
-    BERT_B x BERT_S tokens, ``transformer.apply(..., mode="prefill")``:
-    its launches (BERT_FORWARD_LAUNCHES a layer, one more lsq_fakequant for
-    the head, nothing else), finite logits of the expected shape, and the
+def encoder_forward(cfg, dev, raw, mixed, smi_line, inputs, tag):
+    """The packed forward of an encoder (bert-base's B5, hubert-xlarge's
+    H3): ``mixed`` (EAGL's take at 0.7) packed, then
+    ``transformer.apply(..., mode="prefill")`` over ``inputs`` ({"tokens":
+    (B, S)} or {"embeds": (B, S, d)}): its launches (``step_launches``: 6
+    packed matmuls and 4 LSQ fake-quants a layer, one more for the head,
+    and one flash_attention a layer, the float32 kernel's for a float32
+    model; nothing else), finite logits of the expected shape, and the
     kernel path against impl="ref" within CONTROL_FACTOR times the
     control's drift: the plain path with its attention in float64 (as in
     phase_check: a whole code step of some activation fake-quant follows
-    any rounding difference, and 12 blocks amplify it).  Readings: host
+    any rounding difference, and the blocks amplify it).  Readings: host
     ms (synchronized, median of 3), tokens/s, the profiled forward (device
     ms, idle share, top 10) and the resident weight bytes beside the same
     weights in float32 and bf16."""
-    from repro_torch.data.synthetic import make_batch
     from repro_torch.kernels import cuda
     from repro_torch.models import attention as attn
     from repro_torch.models import transformer as tf
     from repro_torch.serve import pack_params, packing, residency
     pa = mixed.as_arrays()
     packed = pack_params(raw, pa, cfg, device=dev)
-    tokens = make_batch(21, 0, BERT_B, BERT_S, cfg.vocab,
-                        device=dev)["tokens"]
-    layers = cfg.n_repeats * len(cfg.pattern)
-    want = {k: n * layers for k, n in BERT_FORWARD_LAUNCHES.items()}
-    want["lsq_fakequant"] += 1
+    tokens, embeds = inputs.get("tokens"), inputs.get("embeds")
+    b, s = (tokens if tokens is not None else embeds).shape[:2]
+    per = step_launches(cfg)
+    flash = ("flash_attention_f32" if cfg.compute_dtype == torch.float32
+             else "flash_attention")
+    want = {"quant_matmul": per["quant_matmul"],
+            "lsq_fakequant": per["lsq_fakequant"],
+            flash: per["attention"]}
 
     def forward(impl="auto"):
-        return tf.apply(packed, pa, tokens, cfg, mode="prefill",
-                        impl=impl)[0]
+        return tf.apply(packed, pa, tokens, cfg, mode="prefill", impl=impl,
+                        embeds=embeds)[0]
 
     with torch.no_grad():
         forward()
@@ -3395,7 +3549,8 @@ def bert_forward(cfg, dev, raw, mixed, smi_line):
             control = forward("ref")
     ms = float(np.median(walls)) * 1e3
     weights_f32 = 2 * packing.bf16_weight_bytes(packed)
-    rec = {"device": smi_line, "batch": [BERT_B, BERT_S],
+    rec = {"device": smi_line, "batch": [b, s],
+           "inputs": "tokens" if tokens is not None else "embeds",
            "launches": launches, "expected_launches": want,
            "shape": list(got.shape), "finite": bool(torch.isfinite(got).all()),
            "rel_logit_err": rel_err(got, plain),
@@ -3406,13 +3561,13 @@ def bert_forward(cfg, dev, raw, mixed, smi_line):
            "top1_agreement": float((got.argmax(-1) == plain.argmax(-1))
                                    .float().mean()),
            "host_ms": ms, "host_ms_runs": [w * 1e3 for w in walls],
-           "tokens_per_s": BERT_B * BERT_S / (ms / 1e3), "profile": prof,
+           "tokens_per_s": b * s / (ms / 1e3), "profile": prof,
            "resident_weight_bytes": residency.resident_bytes(packed),
            "weight_bytes_bf16": packing.bf16_weight_bytes(packed),
            "weight_bytes_f32": weights_f32}
     rec["bound"] = CONTROL_FACTOR * rec["control_rel_logit_err"]
-    log(f"  B5 packed forward of EAGL's 0.7 take, {BERT_B} x {BERT_S} "
-        f"tokens (mode='prefill'): {ms:.2f} ms host (median of 3), "
+    log(f"  {tag} packed forward of EAGL's 0.7 take, {b} x {s} "
+        f"{rec['inputs']} (mode='prefill'): {ms:.2f} ms host (median of 3), "
         f"{rec['tokens_per_s']:.0f} tokens/s; logits {rec['shape']} finite "
         f"{rec['finite']}; launches {launches} (expected {want})")
     log(f"    kernel vs plain max|dlogit|/max|logit| "
@@ -3429,10 +3584,9 @@ def bert_forward(cfg, dev, raw, mixed, smi_line):
     for row in prof["top"][6:]:
         log(f"      {row['ms']:9.3f} ms  x{row['count']:<5d} {row['kernel']}")
     log(f"    copy kernels (dtype casts among them): "
-        f"{prof['copy_kernel_ms']:.3f} ms in {prof['copy_kernels']} launches "
-        f"(quant_matmul reads float32 x itself)")
+        f"{prof['copy_kernel_ms']:.3f} ms in {prof['copy_kernels']} launches")
     bad = []
-    if rec["shape"] != [BERT_B, BERT_S, cfg.vocab] or not rec["finite"]:
+    if rec["shape"] != [b, s, cfg.vocab] or not rec["finite"]:
         bad.append(f"logits of shape {rec['shape']}, finite {rec['finite']}")
     wrong = {k: n for k, n in launches.items() if n != want.get(k, 0)}
     if wrong:
@@ -3442,7 +3596,7 @@ def bert_forward(cfg, dev, raw, mixed, smi_line):
                    f"{rec['bound']}")
     del packed, got, plain, control
     if bad:
-        raise RuntimeError(f"bert phase B5: {bad}")
+        raise RuntimeError(f"{tag}: {bad}")
     return rec
 
 
@@ -3458,7 +3612,7 @@ def phase_bert(cfg, dev, smi_line):
     ``phase_hawq`` (H1-H4) over its 48 selectable units.  B4:
     ``phase_frontier`` (F1-F4; the losses reported, not gated: the
     synthetic task's next-token labels are visible to a bidirectional
-    model).  B5: ``bert_forward`` of EAGL's take."""
+    model).  B5: ``encoder_forward`` of EAGL's take."""
     from repro_torch.models import transformer as tf
     from repro_torch.serve import EngineSpec
     log(f"  {cfg.name} d_model={cfg.d_model} layers={cfg.n_repeats} heads="
@@ -3489,8 +3643,133 @@ def phase_bert(cfg, dev, smi_line):
         tf.build_policy(cfg), alps, hawq), smi_line)
     log(f"  B4 frontier {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    rec["forward"] = bert_forward(cfg, dev, state.params, mixed, smi_line)
+    from repro_torch.data.synthetic import make_batch
+    tokens = make_batch(21, 0, BERT_B, BERT_S, cfg.vocab,
+                        device=dev)["tokens"]
+    rec["forward"] = encoder_forward(cfg, dev, state.params, mixed, smi_line,
+                                     {"tokens": tokens}, "bert phase B5")
     log(f"  B5 forward {time.perf_counter() - t0:.1f} s")
+    return rec
+
+
+ZOO = ("internlm2-1.8b", "deepseek-7b", "granite-20b")
+ZOO_RUNS = (("contiguous", 8), ("contiguous", 4), ("paged", 4))
+ZOO_NEW = 32            # new tokens of a zoo run
+ZOO_CHECK_DECODE = 8    # decode steps of the zoo's teacher-forced check
+
+
+def phase_zoo(cfg, dev, smi_line):
+    """One decoder of the dense zoo at its published widths and depth,
+    weights drawn on the card from seed 0.  Z1: EAGL through the histogram
+    kernel (one launch a tensor) takes what impl="ref" takes at 0.7
+    (``phase_select``); the take is packed and the raw weights freed.  Z2:
+    ``phase_serve`` of phase 4's prompts, ZOO_NEW new tokens over
+    contiguous int8, contiguous int4 and paged int4 caches: each path's
+    kernels, the launches a decode step and a prefill that
+    ``step_launches`` works out, no device-to-host copy in 8 decode steps
+    (every run), paged tokens
+    equal to contiguous.  Z3: ``phase_check`` over the
+    prefill and ZOO_CHECK_DECODE decode steps on the int8 cache, kernel
+    path against plain within CONTROL_FACTOR x the float64-attention
+    control.  Z4: the peak of device memory (init, selection and packing,
+    and every run) below the card's.  Readings: init, select and pack
+    seconds, raw and packed weight bytes, and phase_serve's."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import pack_params, residency
+    log(f"  {cfg.name} d_model={cfg.d_model} layers={cfg.n_repeats} heads="
+        f"{cfg.n_heads}/{cfg.n_kv_heads} head_dim={cfg.head_dim} d_ff="
+        f"{cfg.d_ff} vocab={cfg.vocab} norm={cfg.norm} "
+        f"ffn={cfg.pattern[0].ffn} rope_base={cfg.rope_base:g}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    raw = tf.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    rec = {"config": cfg.name, "device": smi_line,
+           "init_s": time.perf_counter() - t0,
+           "raw_weight_bytes": residency.resident_bytes(raw)}
+    t0 = time.perf_counter()
+    mixed, rec["select"] = phase_select(cfg, raw, dev)
+    if rec["select"]["launches"]["histogram"] != rec["select"]["tensors"]:
+        raise RuntimeError(f"{cfg.name} Z1: EAGL launched the histogram "
+                           f"kernel {rec['select']['launches']['histogram']}"
+                           f" times for {rec['select']['tensors']} tensors")
+    pa = mixed.as_arrays()
+    packed = pack_params(raw, pa, cfg, device=dev)
+    del raw
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rec["select_pack_s"] = time.perf_counter() - t0
+    rec["build_peak_bytes"] = torch.cuda.max_memory_allocated()
+    rec["packed_weight_bytes"] = residency.resident_bytes(packed)
+    log(f"  Z1 init {rec['init_s']:.1f} s ({rec['raw_weight_bytes'] / 1e9:.2f}"
+        f" GB raw), select + pack {rec['select_pack_s']:.1f} s "
+        f"({rec['packed_weight_bytes'] / 1e9:.3f} GB packed); peak "
+        f"{rec['build_peak_bytes'] / 2**30:.2f} GiB")
+    tokens, lengths = make_prompts(cfg, np.random.default_rng(0))
+    t0 = time.perf_counter()
+    rec["serve"] = phase_serve(cfg, packed, pa, dev, tokens, lengths,
+                               ZOO_RUNS, ZOO_NEW)
+    log(f"  Z2 serve {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rec["check"] = phase_check(cfg, packed, pa, dev, tokens, lengths,
+                               n_decode=ZOO_CHECK_DECODE, cache_bits=(8,))
+    log(f"  Z3 check {time.perf_counter() - t0:.1f} s")
+    rec["peak_bytes"] = max([rec["build_peak_bytes"]]
+                            + [r["max_memory_allocated"]
+                               for r in rec["serve"].values()])
+    card = torch.cuda.get_device_properties(dev).total_memory
+    log(f"  Z4 peak device memory {rec['peak_bytes'] / 2**30:.2f} GiB of the "
+        f"card's {card / 2**30:.2f} GiB")
+    del packed
+    torch.cuda.empty_cache()
+    if not rec["peak_bytes"] < card:
+        raise RuntimeError(f"{cfg.name} Z4: peak {rec['peak_bytes']} bytes")
+    return rec
+
+
+HUBERT_B, HUBERT_S = 8, 1000   # 8 clips of 20 s at HuBERT's 20 ms frames
+
+
+def phase_hubert(cfg, dev, smi_line):
+    """hubert-xlarge at its published widths and depth (48 layers, d 1280,
+    16 heads of 80, d_ff 5120, 504 cluster targets; bidirectional, no RoPE,
+    bf16, frame embeddings in place of a token table), weights drawn on
+    the card from seed 0.  ``EngineSpec.validate`` refuses it (no
+    autoregressive decode); EAGL through the histogram kernel takes what
+    impl="ref" takes at 0.7; ``encoder_forward`` of HUBERT_B x HUBERT_S
+    frame embeddings (normal, from seed 0; 1000 rows leave a ragged last
+    tile in flash_attention at D = 80, not causal)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import EngineSpec
+    log(f"  {cfg.name} d_model={cfg.d_model} layers={cfg.n_repeats} heads="
+        f"{cfg.n_heads} head_dim={cfg.head_dim} d_ff={cfg.d_ff} vocab="
+        f"{cfg.vocab} rope={cfg.rope} causal={cfg.causal} "
+        f"embed_input={cfg.embed_input}")
+    try:
+        EngineSpec().validate(cfg)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    if refused is None or "autoregressive" not in refused:
+        raise RuntimeError("hubert phase: EngineSpec.validate accepted a "
+                           "non-causal config")
+    raw = tf.init_params(cfg, seed=0, device=dev)
+    if "embed" in raw:
+        raise RuntimeError("hubert phase: an embed_input model made a token "
+                           "table")
+    rec = {"config": cfg.name, "device": smi_line, "refused": refused}
+    mixed, rec["select"] = phase_select(cfg, raw, dev)
+    if rec["select"]["launches"]["histogram"] != rec["select"]["tensors"]:
+        raise RuntimeError("hubert phase: EAGL's histogram launches")
+    g = torch.Generator(dev).manual_seed(0)
+    embeds = torch.randn((HUBERT_B, HUBERT_S, cfg.d_model), generator=g,
+                         device=dev).to(cfg.compute_dtype)
+    rec["forward"] = encoder_forward(cfg, dev, raw, mixed, smi_line,
+                                     {"embeds": embeds}, "hubert phase")
+    del raw, embeds
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -3542,11 +3821,20 @@ def main():
     log(f"  init + select + pack {time.perf_counter() - t0:.1f} s")
     tokens, lengths = make_prompts(cfg, np.random.default_rng(0))
     log("serve:")
+    t0 = time.perf_counter()
     runs = phase_serve(cfg, packed, pa, dev, tokens, lengths)
-    log("schedule (continuous batching, prefix sharing):")
-    schedule = phase_schedule(cfg, packed, pa, dev, smi_line)
+    log(f"  serve phase {time.perf_counter() - t0:.1f} s")
+    log(f"schedule (continuous batching, prefix sharing; the first "
+        f"{SCHED_DEPTH} of {cfg.n_repeats} layers):")
+    t0 = time.perf_counter()
+    schedule = phase_schedule(cfg.replace(n_repeats=SCHED_DEPTH),
+                              dict(packed, pat=packed["pat"][:SCHED_DEPTH]),
+                              pa, dev, smi_line)
+    log(f"  schedule phase {time.perf_counter() - t0:.1f} s")
     log("check (kernel path vs plain path):")
+    t0 = time.perf_counter()
     check = phase_check(cfg, packed, pa, dev, tokens, lengths)
+    log(f"  check phase {time.perf_counter() - t0:.1f} s")
     del packed       # the serve state: the train phase starts from none
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -3579,6 +3867,17 @@ def main():
     t0 = time.perf_counter()
     bert = phase_bert(get_config("bert-base"), dev, smi_line)
     log(f"  bert phase {time.perf_counter() - t0:.1f} s")
+    zoo = {}
+    for name in ZOO:
+        log(f"zoo ({name}: select, pack, serve, check):")
+        t0 = time.perf_counter()
+        zoo[name] = phase_zoo(get_config(name), dev, smi_line)
+        zoo[name]["phase_s"] = time.perf_counter() - t0
+        log(f"  zoo {name} phase {zoo[name]['phase_s']:.1f} s")
+    log("hubert (hubert-xlarge: select, packed forward of frames):")
+    t0 = time.perf_counter()
+    hubert = phase_hubert(get_config("hubert-xlarge"), dev, smi_line)
+    log(f"  hubert phase {time.perf_counter() - t0:.1f} s")
 
     # each kernel's launches on the path that runs it
     launches = dict(runs["contiguous-int8"]["launches"])
@@ -3614,6 +3913,8 @@ def main():
                    "schedule": schedule, "check": check,
                    "train": train, "alps": alps, "hawq": hawq,
                    "frontier": front, "joint": joint, "bert": bert,
+                   "zoo": zoo, "hubert": hubert,
+                   "total_s": time.perf_counter() - t_start,
                    "launch_counts_after": dict(cuda.LAUNCHES)}, f, indent=1)
     log(f"chip_smoke: {time.perf_counter() - t_start:.0f} s in all")
     log(smi_line)

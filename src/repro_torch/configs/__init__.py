@@ -1,9 +1,11 @@
 """Architecture registry of the port: ``get_config(name)`` (port of
 ``repro/configs/__init__.py``).
 
-olmo-1b and the paper's bert-base are ported; every other name of the
-reference's registry raises ``NotImplementedError`` naming ROADMAP Queue 1
-item 13, which ports the rest of the zoo.
+The dense architectures are ported: olmo-1b, internlm2-1.8b, deepseek-7b,
+granite-20b, the paper's bert-base and hubert-xlarge.  Every other name of
+the reference's registry (MoE, MLA, the SSMs, M-RoPE) raises
+``NotImplementedError`` naming ROADMAP Queue 1 item 13, which ports the
+rest of the zoo.
 """
 from __future__ import annotations
 
@@ -13,12 +15,15 @@ from repro_torch.configs.base import ArchConfig, BlockDef
 
 _MODULES = {
     "olmo-1b": "repro_torch.configs.olmo_1b",
+    "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
+    "deepseek-7b": "repro_torch.configs.deepseek_7b",
+    "granite-20b": "repro_torch.configs.granite_20b",
     "bert-base": "repro_torch.configs.bert_base",
+    "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
 }
 # the reference's other architectures, not ported yet
-_PENDING = ("deepseek-7b", "internlm2-1.8b", "granite-20b", "qwen2-vl-7b",
-            "deepseek-v3-671b", "dbrx-132b", "jamba-1.5-large-398b",
-            "xlstm-1.3b", "hubert-xlarge")
+_PENDING = ("qwen2-vl-7b", "deepseek-v3-671b", "dbrx-132b",
+            "jamba-1.5-large-398b", "xlstm-1.3b")
 
 
 def get_config(name: str) -> ArchConfig:

@@ -1,10 +1,11 @@
 """ArchConfig: declarative architecture description (port of
 ``repro/configs/base.py`` and ``BlockDef`` from ``repro/models/common.py``).
 
-The port covers the olmo family (GQA mixer, SwiGLU FFN) and the encoder
-blocks of bert-base (bidirectional GQA, GeLU FFN, parametric LayerNorm, an
-untied head); the fields for the rest of the zoo (MoE, MLA, SSMs) arrive
-with ROADMAP Queue 1 item 13.
+The port covers the dense zoo: causal GQA (MHA to MQA) with a SwiGLU or
+GeLU FFN, and the encoders' bidirectional GQA, with RMSNorm or LayerNorm,
+RoPE or none, tied or untied heads, and frame embeddings in place of a
+token table (``embed_input``); the fields for the rest of the zoo (MoE,
+MLA, SSMs, M-RoPE) arrive with ROADMAP Queue 1 item 13.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ class ArchConfig:
     rope: str = "rope"                   # 'rope' | 'none'
     rope_base: float = 10_000.0
     causal: bool = True
+    embed_input: bool = False            # modality stub: takes (B,S,d) embeds
     tie_embeddings: bool = False
 
     param_dtype: torch.dtype = torch.float32

@@ -66,6 +66,18 @@
 // the kernel computes what it computed before the offset existed.
 // Inputs take arbitrary batch/head/sequence strides (D contiguous; strides
 // multiples of 8 elements, 16-byte aligned bases: TMA's rules).
+//
+// Head dim 80 (hubert-xlarge) runs the D = 128 instantiation on tensor maps
+// whose inner extent is the caller's 80 columns: a 160-byte row is no
+// multiple of the 128-byte swizzle span, so a row still arrives as two
+// 64-column boxes, and TMA fills the second box's columns 80-127 with
+// zeros (its transaction count is the whole box, as for rows past S).  Q
+// and K are zero there, so S = Q.K^T is exact and takes 5 of the 8 16-deep
+// steps; V is zero there, so O's columns 80-127 are zero and P.V still runs
+// m64n128 (a 128-column accumulator, 60% of it wasted); the store writes
+// columns 0-79 only, 10 16-byte chunks a row.  The scale is the caller's
+// (80^-0.5).  The kernel moves the bytes of the 80-column rows: the bound
+// counts those.
 #include <math.h>
 
 #include "common.cuh"
@@ -253,7 +265,8 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
   return r * (D * 2) + ((c ^ (r & 7)) << 4);
 }
 
-template <int D>
+// D: the tile layout (64 or 128 columns); DV <= D: the caller's head dim
+template <int D, int DV>
 __global__ void __launch_bounds__(F_THREADS, 2)
     flash_wg(const __grid_constant__ CUtensorMap qmap,
              const __grid_constant__ CUtensorMap kmap,
@@ -262,7 +275,7 @@ __global__ void __launch_bounds__(F_THREADS, 2)
              long long osh, long long oss, int causal, float scale_log2) {
   using L = Layout<D>;
   constexpr int NB = D / 64;   // 64-column boxes of a row
-  constexpr int KD = D / 16;   // 16-deep steps over D
+  constexpr int KD = DV / 16;  // 16-deep steps over the caller's columns
   constexpr int SN = FK / 8;   // 8-key tiles of S
   constexpr int NT = D / 8;    // 8-column tiles of O
   extern __shared__ uint8_t smem_raw[];
@@ -412,7 +425,8 @@ __global__ void __launch_bounds__(F_THREADS, 2)
 
   // acc[4n + e]: row g + 8 (e / 2), column 8 n + 2 t + e % 2.  The Q tile
   // is free (the last S product has completed): each warp stages its own
-  // 16 rows there and stores them as 16-byte chunks.
+  // 16 rows there (the caller's DV columns) and stores them as 16-byte
+  // chunks.
   float den[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -422,7 +436,7 @@ __global__ void __launch_bounds__(F_THREADS, 2)
     den[r] = __frcp_rn(fmaxf(l, 1e-30f));  // one reciprocal, not 64 divisions
   }
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
+  for (int n = 0; n < DV / 8; ++n)
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       *reinterpret_cast<__nv_bfloat162*>(
@@ -430,7 +444,8 @@ __global__ void __launch_bounds__(F_THREADS, 2)
           __floats2bfloat162_rn(acc[4 * n + 2 * r] * den[r],
                                 acc[4 * n + 2 * r + 1] * den[r]);
   __syncwarp();
-  constexpr int CPR = D / 8;
+  constexpr int CPR = DV / 8;  // 16-byte chunks of an output row
+  static_assert(16 * CPR % 32 == 0, "a warp's rows split evenly over lanes");
   bf16* op = o + b * osb + h * osh;
 #pragma unroll
   for (int i = 0; i < 16 * CPR / 32; ++i) {
@@ -457,24 +472,25 @@ int flash_map(CUtensorMap* map, const void* p, int D, int S, int heads,
                            strides, box);
 }
 
-template <int D>
+// D: the tile layout; DV: the caller's head dim, the tensor maps' extent
+template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
            int Hkv, int Sq, int Sk, const long long* st, int causal,
            float scale, cudaStream_t stream) {
   if (Sk < Sq) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap qmap, kmap, vmap;
-  int e = flash_map(&qmap, q, D, Sq, H, B, st);
-  if (e == 0) e = flash_map(&kmap, k, D, Sk, Hkv, B, st + 3);
-  if (e == 0) e = flash_map(&vmap, v, D, Sk, Hkv, B, st + 6);
+  int e = flash_map(&qmap, q, DV, Sq, H, B, st);
+  if (e == 0) e = flash_map(&kmap, k, DV, Sk, Hkv, B, st + 3);
+  if (e == 0) e = flash_map(&vmap, v, DV, Sk, Hkv, B, st + 6);
   if (e != 0) return e;
   constexpr int bytes = Layout<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_wg<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_wg<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long n_q = (Sq + FQ - 1) / FQ;
   if (n_q * H * B > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(n_q * H * B));
-  flash_wg<D><<<grid, F_THREADS, bytes, stream>>>(
+  flash_wg<D, DV><<<grid, F_THREADS, bytes, stream>>>(
       qmap, kmap, vmap, static_cast<bf16*>(o), B, H, Hkv, Sq, Sk, st[9],
       st[10], st[11], causal, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
@@ -976,11 +992,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 128)
-    return launch<128>(q, k, v, o, B, H, Hkv, Sq, Sk, strides, causal, scale,
-                       st);
+    return launch<128, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, strides, causal,
+                            scale, st);
+  if (D == 80)  // hubert-xlarge: the D = 128 tiles, zeros past column 80
+    return launch<128, 80>(q, k, v, o, B, H, Hkv, Sq, Sk, strides, causal,
+                           scale, st);
   if (D == 64)
-    return launch<64>(q, k, v, o, B, H, Hkv, Sq, Sk, strides, causal, scale,
-                      st);
+    return launch<64, 64>(q, k, v, o, B, H, Hkv, Sq, Sk, strides, causal,
+                          scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

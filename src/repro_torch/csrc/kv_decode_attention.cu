@@ -44,10 +44,15 @@
 //    whose chunk starts past the slot's last row exits at once; the merge
 //    counts the n_act = last / C + 1 live splits, a number every block of
 //    the slot reads alike;
-//  * one block serves the whole GQA group of its KV head: its 4 warps hold
-//    the group's query rows (warps split a query row's rows between them
-//    when the group is smaller than 4; groups above 4 take rounds), so K
-//    and V bytes come from HBM once per KV head;
+//  * one block serves up to 4 query heads of its KV head's GQA group: its
+//    4 warps hold the query rows (warps split a query row's rows between
+//    them when the group is smaller than 4), so K and V bytes come from
+//    HBM once per KV head.  A larger group is split evenly over blocks of
+//    at most 4 (`gblocks`, cuda.py's decode_group_blocks: granite-20b's 48
+//    query heads on one KV head take 12 blocks a chunk), which read the
+//    KV head's rows each (from L2 after the first): a block that ran such
+//    a group in rounds on chunks cut by them left its last block a merge
+//    of 48 x 64 partial rows, 8 loads in flight a thread (PERF.md §6);
 //  * a ring of up to KV_STAGES = 4 stages of KV_TILE = 64 rows (K codes, V
 //    codes and V scales: 16,640 bytes a stage at int8, D = 128; 8,448 at
 //    int4) in shared memory, filled by 16-byte cp.async (4-byte for the
@@ -232,11 +237,12 @@ struct PagedRows {
   }
 };
 
-// Block (hk, b, split): rows [split * chunk, + chunk) of slot b, KV head
-// hk, for every query head of the group.  The split is the slowest grid
+// Block (hk * gblocks + gb, b, split): rows [split * chunk, + chunk) of
+// slot b, KV head hk, for query heads gb * G .. gb * G + G - 1 of the
+// group (G = H / Hkv / gblocks <= KV_WARPS).  The split is the slowest grid
 // dimension, so every slot's first chunks are dispatched before the later,
 // mostly empty ones.  Shared memory: the ring (slots stages), the warps'
-// sums (KV_WARPS x D), the (m, l) of each query row of a round, the tile's
+// sums (KV_WARPS x D), the (m, l) of each query row, the tile's
 // logits (KV_WARPS x KV_TILE), the paged table entries.
 template <int BITS, int D, typename QT, typename Rows>
 __global__ void __launch_bounds__(KV_THREADS, KV_MIN_BLOCKS)
@@ -246,12 +252,14 @@ __global__ void __launch_bounds__(KV_THREADS, KV_MIN_BLOCKS)
                     const float* __restrict__ v_scale,
                     const int* __restrict__ positions, float* __restrict__ out,
                     float* __restrict__ ws, unsigned int* __restrict__ counters,
-                    int H, int Hkv, int chunk, int slots, float scale, Rows rows) {
+                    int H, int Hkv, int gblocks, int chunk, int slots, float scale,
+                    Rows rows) {
   using G = Geo<BITS, D>;
   constexpr int DP = G::DP, LPR = G::LPR, RPW = G::RPW, CH = G::CH, CPR = G::CPR;
   constexpr int BPL = DP / LPR;  // code bytes a lane reads of a row
-  const int hk = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
-  const int splits = gridDim.z, group = H / Hkv;
+  const int hk = blockIdx.x / gblocks, b = blockIdx.y, split = blockIdx.z;
+  const int splits = gridDim.z, group = H / Hkv / gblocks;  // this block's
+  const int head0 = hk * (H / Hkv) + (blockIdx.x % gblocks) * group;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   extern __shared__ __align__(16) uint8_t kv_smem[];
   uint8_t* ring = kv_smem;
@@ -261,15 +269,14 @@ __global__ void __launch_bounds__(KV_THREADS, KV_MIN_BLOCKS)
   int* ent = reinterpret_cast<int*>(logit + KV_WARPS * KV_TILE);
   __shared__ int last_block;
 
-  // warps of a query row, query rows a round, this warp's place
+  // warps of a query row, query rows a block, this warp's place
   const int wpg = KV_WARPS % group == 0 ? KV_WARPS / group : 1;
   const int gslots = KV_WARPS / wpg;
   const int gs = warp % gslots, wj = warp / gslots;
-  const int rounds = (group + gslots - 1) / gslots;
   const int lrow = lane / LPR, part = lane % LPR;
 
   // The loads that need no position go out with the position's: the
-  // chunk's table entries, and the first round's q and k_scale (their
+  // chunk's table entries, and q and k_scale (their
   // product is taken after the ring's first copies are issued).
   const int c0 = split * chunk;
   const int j0 = rows.stage(b, c0, chunk, ent);
@@ -281,7 +288,7 @@ __global__ void __launch_bounds__(KV_THREADS, KV_MIN_BLOCKS)
       qk[i] = kscale[i] = 0.f;
       if (g < group) {
         const int d = chan<BITS>(part, i);
-        qk[i] = repro::to_f32(q[(static_cast<size_t>(b) * H + hk * group + g) * D + d]);
+        qk[i] = repro::to_f32(q[(static_cast<size_t>(b) * H + head0 + g) * D + d]);
         kscale[i] = __ldg(k_scale + (static_cast<size_t>(b) * Hkv + hk) * D + d);
       }
     }
@@ -331,13 +338,11 @@ __global__ void __launch_bounds__(KV_THREADS, KV_MIN_BLOCKS)
     }
   };
 
-  for (int round = 0; round < rounds; ++round) {
-    const int g = round * gslots + gs;
-    const bool busy = g < group;
+  {  // warp gs holds query row gs of the block's group (<= KV_WARPS rows)
+    const bool busy = gs < group;
 #pragma unroll 1
     for (int s = 0; s < KV_STAGES - 1; ++s) issue_tile(s);
     // q with k_scale and D^-0.5 folded in, in the order of the lane's codes
-    if (round > 0) load_q(g);
     float acc[CH];
 #pragma unroll
     for (int i = 0; i < CH; ++i) {
@@ -427,11 +432,11 @@ __global__ void __launch_bounds__(KV_THREADS, KV_MIN_BLOCKS)
     __syncthreads();
     for (int idx = tid; idx < gslots * D; idx += KV_THREADS) {
       const int s = idx / D, d = idx - s * D;
-      const int gg = round * gslots + s;
+      const int gg = s;
       if (gg >= group) continue;
       float a = red[s * wpg * D + d];
       for (int j = 1; j < wpg; ++j) a += red[(s * wpg + j) * D + d];
-      const size_t hh = static_cast<size_t>(b) * H + hk * group + gg;
+      const size_t hh = static_cast<size_t>(b) * H + head0 + gg;
       if (n_act == 1) {
         out[hh * D + d] = a / fmaxf(ml[2 * s + 1], 1e-30f);
       } else {
@@ -443,13 +448,13 @@ __global__ void __launch_bounds__(KV_THREADS, KV_MIN_BLOCKS)
         }
       }
     }
-    __syncthreads();  // red, ml and the ring are free for the next round
+    __syncthreads();  // the partials are written
   }
   if (n_act == 1) return;
 
   // the block's partials, ordered by the barrier, are released by thread
   // 0's add; the last block's add acquires every other block's
-  unsigned int* counter = counters + static_cast<size_t>(b) * Hkv + hk;
+  unsigned int* counter = counters + static_cast<size_t>(b) * gridDim.x + blockIdx.x;
   if (tid == 0)
     last_block = repro::arrive(counter) == static_cast<unsigned int>(n_act - 1);
   __syncthreads();
@@ -460,7 +465,7 @@ __global__ void __launch_bounds__(KV_THREADS, KV_MIN_BLOCKS)
   // rescaling the running sums to each batch's max.
   for (int idx = tid; idx < group * D; idx += KV_THREADS) {
     const int g = idx / D, d = idx - g * D;
-    const size_t hh = static_cast<size_t>(b) * H + hk * group + g;
+    const size_t hh = static_cast<size_t>(b) * H + head0 + g;
     const float* base = ws + hh * splits * (D + 4);
     float mx = NEG_INF, o = 0.f, den = 0.f;
     for (int s0 = 0; s0 < n_act; s0 += KV_MERGE) {
@@ -501,8 +506,8 @@ __global__ void __launch_bounds__(KV_THREADS, KV_MIN_BLOCKS)
 template <int BITS, int D, typename QT, typename Rows>
 int launch(const void* q, const void* kq, const void* k_scale, const void* vq,
            const void* v_scale, const void* positions, void* out, void* ws,
-           void* counters, int B, int H, int Hkv, int chunk, int splits,
-           float scale, Rows rows, cudaStream_t st) {
+           void* counters, int B, int H, int Hkv, int gblocks, int chunk,
+           int splits, float scale, Rows rows, cudaStream_t st) {
   using G = Geo<BITS, D>;
   const int tiles = (chunk + KV_TILE - 1) / KV_TILE;
   const int slots = tiles < KV_STAGES ? tiles : KV_STAGES;
@@ -517,13 +522,15 @@ int launch(const void* q, const void* kq, const void* k_scale, const void* vq,
     if (e != cudaSuccess) return static_cast<int>(e);
     opted = smem;
   }
-  const dim3 grid(Hkv, B, splits);  // split slowest: live chunks go out first
+  // split slowest: live chunks go out first
+  const dim3 grid(Hkv * gblocks, B, splits);
   kern<<<grid, KV_THREADS, smem, st>>>(
       static_cast<const QT*>(q), static_cast<const uint8_t*>(kq),
       static_cast<const float*>(k_scale), static_cast<const uint8_t*>(vq),
       static_cast<const float*>(v_scale), static_cast<const int*>(positions),
       static_cast<float*>(out), static_cast<float*>(ws),
-      static_cast<unsigned int*>(counters), H, Hkv, chunk, slots, scale, rows);
+      static_cast<unsigned int*>(counters), H, Hkv, gblocks, chunk, slots, scale,
+      rows);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -531,24 +538,30 @@ template <int BITS, int D, typename Rows>
 int launch_q(const void* q, int q_dtype, const void* kq, const void* k_scale,
              const void* vq, const void* v_scale, const void* positions,
              void* out, void* ws, void* counters, int B, int H, int Hkv,
-             int chunk, int splits, float scale, Rows rows, cudaStream_t st) {
+             int gblocks, int chunk, int splits, float scale, Rows rows,
+             cudaStream_t st) {
   if (q_dtype == repro::kBFloat16)
     return launch<BITS, D, __nv_bfloat16>(q, kq, k_scale, vq, v_scale, positions, out, ws,
-                                          counters, B, H, Hkv, chunk, splits, scale, rows, st);
+                                          counters, B, H, Hkv, gblocks, chunk, splits, scale,
+                                          rows, st);
   return launch<BITS, D, float>(q, kq, k_scale, vq, v_scale, positions, out, ws, counters, B,
-                                H, Hkv, chunk, splits, scale, rows, st);
+                                H, Hkv, gblocks, chunk, splits, scale, rows, st);
 }
 
 template <typename Rows>
 int dispatch(const void* q, int q_dtype, const void* kq, const void* k_scale,
              const void* vq, const void* v_scale, const void* positions,
              void* out, void* ws, void* counters, int B, int H, int Hkv, int D,
-             int bits, int n_rows, int chunk, int splits, float scale, Rows rows,
-             void* stream) {
+             int bits, int n_rows, int gblocks, int chunk, int splits,
+             float scale, Rows rows, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_dtype != repro::kBFloat16 && q_dtype != repro::kFloat32)
     return static_cast<int>(cudaErrorInvalidValue);
   // the plan: whole 16-row units, covering the rows with no empty split
+  // a block holds at most KV_WARPS query heads of a group, evenly split
+  if (gblocks < 1 || Hkv < 1 || H % Hkv != 0 || (H / Hkv) % gblocks != 0 ||
+      H / Hkv / gblocks > KV_WARPS || static_cast<long long>(Hkv) * gblocks > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B < 1 || Hkv < 1 || H % Hkv != 0 || n_rows < 1 || chunk < 16 || chunk % 16 != 0 ||
       B > 65535 || splits < 1 || splits > KV_MAX_SPLITS ||
       static_cast<long long>(splits) * chunk < n_rows ||
@@ -557,16 +570,16 @@ int dispatch(const void* q, int q_dtype, const void* kq, const void* k_scale,
     return static_cast<int>(cudaErrorInvalidValue);
   if (bits == 8 && D == 128)
     return launch_q<8, 128>(q, q_dtype, kq, k_scale, vq, v_scale, positions, out, ws, counters,
-                            B, H, Hkv, chunk, splits, scale, rows, st);
+                            B, H, Hkv, gblocks, chunk, splits, scale, rows, st);
   if (bits == 4 && D == 128)
     return launch_q<4, 128>(q, q_dtype, kq, k_scale, vq, v_scale, positions, out, ws, counters,
-                            B, H, Hkv, chunk, splits, scale, rows, st);
+                            B, H, Hkv, gblocks, chunk, splits, scale, rows, st);
   if (bits == 8 && D == 64)
     return launch_q<8, 64>(q, q_dtype, kq, k_scale, vq, v_scale, positions, out, ws, counters,
-                           B, H, Hkv, chunk, splits, scale, rows, st);
+                            B, H, Hkv, gblocks, chunk, splits, scale, rows, st);
   if (bits == 4 && D == 64)
     return launch_q<4, 64>(q, q_dtype, kq, k_scale, vq, v_scale, positions, out, ws, counters,
-                           B, H, Hkv, chunk, splits, scale, rows, st);
+                            B, H, Hkv, gblocks, chunk, splits, scale, rows, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -577,15 +590,16 @@ int dispatch(const void* q, int q_dtype, const void* kq, const void* k_scale,
 // f32; positions: (B,) int32, each >= 0; out: (B, H, D) f32.  D is 64 or
 // 128, B at most 65535.  The plan (cuda.py's decode_plan): `splits` chunks
 // of `chunk` rows (a multiple of 16) cover S, none empty; with splits > 1,
-// ws holds B * H * splits * (D + 4) floats and counters B * Hkv zero int32s
-// (left zero).
+// ws holds B * H * splits * (D + 4) floats and counters B * Hkv * gblocks
+// zero int32s (left zero).  gblocks: the blocks each KV head's group of H /
+// Hkv query heads is split over, evenly, at most 4 heads a block.
 extern "C" int kv_decode_attention_launch(
     const void* q, int q_dtype, const void* kq, const void* k_scale,
     const void* vq, const void* v_scale, const void* positions, void* out,
     void* ws, void* counters, int B, int H, int S, int Hkv, int D, int bits,
-    int chunk, int splits, float scale, void* stream) {
+    int gblocks, int chunk, int splits, float scale, void* stream) {
   return dispatch(q, q_dtype, kq, k_scale, vq, v_scale, positions, out, ws, counters, B, H,
-                  Hkv, D, bits, S, chunk, splits, scale, ContiguousRows{S}, stream);
+                  Hkv, D, bits, S, gblocks, chunk, splits, scale, ContiguousRows{S}, stream);
 }
 
 // As above over pools: kq/vq (P, page, Hkv, D or D/2); v_scale (P, page,
@@ -595,11 +609,12 @@ extern "C" int paged_kv_decode_attention_launch(
     const void* q, int q_dtype, const void* kq, const void* k_scale,
     const void* vq, const void* v_scale, const void* tbl, const void* positions,
     void* out, void* ws, void* counters, int B, int H, int P, int page, int n,
-    int Hkv, int D, int bits, int chunk, int splits, float scale, void* stream) {
+    int Hkv, int D, int bits, int gblocks, int chunk, int splits, float scale,
+    void* stream) {
   if (n < 1 || page < 1 || P < 1 || static_cast<long long>(n) * page > (1LL << 30))
     return static_cast<int>(cudaErrorInvalidValue);
   const int shift = (page & (page - 1)) == 0 ? __builtin_ctz(page) : -1;
   return dispatch(q, q_dtype, kq, k_scale, vq, v_scale, positions, out, ws, counters, B, H,
-                  Hkv, D, bits, n * page, chunk, splits, scale,
+                  Hkv, D, bits, n * page, gblocks, chunk, splits, scale,
                   PagedRows{static_cast<const int*>(tbl), n, page, P, shift}, stream);
 }

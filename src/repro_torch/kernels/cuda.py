@@ -38,11 +38,16 @@ GEMV_MIN_STEPS = 4              # K steps a slice at least
 GEMV_TARGET_BLOCKS = 132        # one block on each of an H100's 132 SMs
 QMM_ROUTES = ("gemv", "mma.sync", "wgmma")   # the C launcher's route codes
 DECODE_UNIT_ROWS = 16           # a decode chunk is whole units (and pages)
-DECODE_CHUNK_ROWS = 128         # rows a decode block at most, group <= 4
+DECODE_CHUNK_ROWS = 128         # rows a decode block at most
 DECODE_MIN_BLOCKS = 2 * 132     # two waves over an H100's 132 SMs
 DECODE_MAX_SPLITS = 256         # the kernel's merge holds this many
-DECODE_WARPS = 4                # query rows a decode block holds at once
+DECODE_WARPS = 4                # query rows a decode block holds: a larger
+                                # GQA group is split over blocks
+                                # (decode_group_blocks)
 
+# head dims of the flash kernels: bf16 (flash_wg; 80 on the D = 128 tiles,
+# zero-filled past column 80) and float32 (flash_f32)
+FLASH_HEAD_DIMS = {False: (64, 80, 128), True: (64, 128)}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,7 +61,7 @@ _SIGNATURES = {
                       _I, _I, _P]),
     "kv_decode_attention": ("kv_decode_attention_launch",
                             [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                             _I, _I, _I, _I, _I, _I, _F, _P]),
+                             _I, _I, _I, _I, _I, _I, _I, _F, _P]),
     "flash_attention": ("flash_attention_launch",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          ctypes.POINTER(_LL), _I, _F, _P]),
@@ -73,7 +78,7 @@ _SIGNATURES = {
     "paged_kv_decode_attention": ("paged_kv_decode_attention_launch",
                                   [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                   _I, _F, _P]),
+                                   _I, _I, _F, _P]),
 }
 _SHARED_SOURCE = {"histogram": "entropy_hist",
                   "paged_kv_decode_attention": "kv_decode_attention",
@@ -405,35 +410,49 @@ def histogram(codes: torch.Tensor, n_bins: int) -> torch.Tensor:
     return out
 
 
+def decode_group_blocks(group: int) -> int:
+    """The blocks a KV head's GQA group of ``group`` query heads is split
+    over: the fewest that divide it evenly into blocks of at most
+    DECODE_WARPS query heads (1 up to 4; granite-20b's 48 on one KV head
+    take 12).  Each block reads the KV head's rows (from L2 after the
+    first).  On the H100 one block running a group of 48 in 12 rounds of 4
+    over 16-row chunks, its last block merging 48 x 64 partial rows, took
+    520 us a call at B = 8, S = 1024; 12 blocks of 4 on 128-row chunks take
+    31 (PERF.md)."""
+    return next(n for n in range(1, group + 1)
+                if group % n == 0 and group // n <= DECODE_WARPS)
+
+
 def decode_plan(b: int, hkv: int, group: int, rows: int,
-                bits: int) -> Tuple[int, int]:
-    """Decode attention's split of a slot's rows: (splits, C).  Block
-    (kv head, slot, split) takes rows [split C, split C + C).
+                bits: int) -> Tuple[int, int, int]:
+    """Decode attention's split of a slot's rows and of a KV head's group:
+    (splits, C, group blocks).  Block (kv head, slot, split, group block)
+    takes rows [split C, split C + C) for its ``group / group blocks``
+    query heads (``decode_group_blocks``).
 
     ``rows`` is the cache's row count, S for the contiguous cache and
     n * page for the paged one, so equal lengths plan alike; the plan reads
     shapes alone, never the positions (a decode step makes no device-to-
     host copy).  C is whole DECODE_UNIT_ROWS units (a paged chunk is whole
     pages of 16), as small as two waves of blocks (DECODE_MIN_BLOCKS) over
-    the B * Hkv heads allow, at most DECODE_CHUNK_ROWS (divided by the
-    rounds a group of more than DECODE_WARPS query rows takes over a
-    chunk), and at least rows / DECODE_MAX_SPLITS.  At the serve shapes
-    (B = 8, Hkv = 16, max_seq 1024) that is 8 splits of 128 rows: 1,024
-    blocks, of which the prompts' 128-576 live rows fill about 400.  Larger
-    chunks mean fewer partial sums for the last block to merge and fewer
-    blocks' fixed costs (a position, a counter, a merge); on the H100 64 and
-    256 rows read slower than 128 at the serve shapes (PERF.md).  Bits do
-    not change the plan."""
+    the B * Hkv heads (times the group blocks) allow, at most
+    DECODE_CHUNK_ROWS, and at least rows / DECODE_MAX_SPLITS.  At the
+    serve shapes (B = 8, Hkv = 16, max_seq 1024) that is 8 splits of 128
+    rows: 1,024 blocks, of which the prompts' 128-576 live rows fill about
+    400.  Larger chunks mean fewer partial sums for the last block to merge
+    and fewer blocks' fixed costs (a position, a counter, a merge); on the
+    H100 64 and 256 rows read slower than 128 at the serve shapes
+    (PERF.md).  Bits do not change the plan."""
     if min(b, hkv, group, rows) < 1 or bits not in (4, 8):
         raise ValueError(f"decode_plan: need B, Hkv, group, rows >= 1 and "
                          f"bits 4 or 8, got {(b, hkv, group, rows, bits)}")
     unit = DECODE_UNIT_ROWS
-    rounds = -(-group // DECODE_WARPS)
-    cap = max(DECODE_CHUNK_ROWS // rounds, unit)
-    c = min(-(-rows * b * hkv // DECODE_MIN_BLOCKS), cap)
+    gblocks = decode_group_blocks(group)
+    heads = b * hkv * gblocks
+    c = min(-(-rows * heads // DECODE_MIN_BLOCKS), DECODE_CHUNK_ROWS)
     c = max(c, -(-rows // DECODE_MAX_SPLITS))
     c = unit * -(-c // unit)
-    return -(-rows // c), c
+    return -(-rows // c), c, gblocks
 
 
 def _check_decode_operands(name, q, kq, vq, k_scale, bits):
@@ -464,14 +483,15 @@ def _check_decode_operands(name, q, kq, vq, k_scale, bits):
     return b, h, d, hkv
 
 
-def _decode_scratch(dev, stream, b, h, d, hkv, splits):
+def _decode_scratch(dev, stream, b, h, d, hkv, splits, gblocks):
     """The split merge's fp32 workspace (made for each call) and the
-    stream's counters; none for a plan of one split."""
+    stream's counters, one a (slot, block of a KV head's group); none for
+    a plan of one split."""
     if splits == 1:
         return None, None
     ws = torch.empty((b * h * splits * (d + 4),), dtype=torch.float32,
                      device=dev)
-    return ws, _split_counters(dev, stream, b * hkv)
+    return ws, _split_counters(dev, stream, b * hkv * gblocks)
 
 
 def kv_decode_attention(q: torch.Tensor, kq: torch.Tensor,
@@ -498,15 +518,17 @@ def kv_decode_attention(q: torch.Tensor, kq: torch.Tensor,
     out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
     if b == 0 or s == 0:
         return out.zero_()
-    splits, chunk = decode_plan(b, hkv, h // hkv, s, bits)
+    splits, chunk, gblocks = decode_plan(b, hkv, h // hkv, s, bits)
     stream = _stream()
-    ws, counters = _decode_scratch(q.device, stream, b, h, d, hkv, splits)
+    ws, counters = _decode_scratch(q.device, stream, b, h, d, hkv, splits,
+                                   gblocks)
     _launch(name, q.data_ptr(), _DTYPE_CODE[q.dtype], kq.data_ptr(),
             k_scale.data_ptr(), vq.data_ptr(), v_scale.data_ptr(),
             positions.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(),
             None if counters is None else counters.data_ptr(),
-            b, h, s, hkv, d, bits, chunk, splits, d ** -0.5, stream)
+            b, h, s, hkv, d, bits, gblocks, chunk,
+            splits, d ** -0.5, stream)
     return out
 
 
@@ -541,21 +563,24 @@ def paged_kv_decode_attention(q: torch.Tensor, kq_pool: torch.Tensor,
     n = tbl.shape[1]
     if b == 0 or n == 0 or p == 0 or page == 0:
         return out.zero_()
-    splits, chunk = decode_plan(b, hkv, h // hkv, n * page, bits)
+    splits, chunk, gblocks = decode_plan(b, hkv, h // hkv, n * page, bits)
     stream = _stream()
-    ws, counters = _decode_scratch(q.device, stream, b, h, d, hkv, splits)
+    ws, counters = _decode_scratch(q.device, stream, b, h, d, hkv, splits,
+                                   gblocks)
     _launch(name, q.data_ptr(), _DTYPE_CODE[q.dtype], kq_pool.data_ptr(),
             k_scale.data_ptr(), vq_pool.data_ptr(), v_scale_pool.data_ptr(),
             tbl.data_ptr(), positions.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(),
             None if counters is None else counters.data_ptr(), b, h, p,
-            page, n, hkv, d, bits, chunk, splits, d ** -0.5, stream)
+            page, n, hkv, d, bits, gblocks, chunk,
+            splits, d ** -0.5, stream)
     return out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
-    """q (B, H, Sq, D), k/v (B, Hkv, Sk, D), all bf16 or all float32, with
+    """q (B, H, Sq, D), k/v (B, Hkv, Sk, D), all bf16 (D 64, 80 or 128) or
+    all float32 (D 64 or 128), with
     Sk >= Sq, head_dim contiguous (any batch/head/sequence strides) -> (B,
     H, Sq, D) in their dtype with q's strides.  bf16 launches the wgmma
     kernel (counter ``flash_attention``), float32 the wgmma kernel on three
@@ -585,8 +610,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"Sq)")
     if not (hkv > 0 and h % hkv == 0):
         raise ValueError(f"{name}: H={h} is not a multiple of Hkv={hkv}")
-    if d != 64 and d != 128:
-        raise ValueError(f"{name}: head_dim must be 64 or 128, got {d}")
+    if d not in FLASH_HEAD_DIMS[f32]:
+        raise ValueError(f"{name}: head_dim must be one of "
+                         f"{FLASH_HEAD_DIMS[f32]} for {q.dtype}, got {d}"
+                         + (" (float32 at 80 is ROADMAP Queue 1 item 13)"
+                            if f32 and d == 80 else ""))
     out = torch.empty_like(q)
     st = q.stride() + k.stride() + v.stride() + out.stride()
     _require(st[3] == st[7] == st[11] == st[15] == 1,

@@ -41,8 +41,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q: (B, S, H, D); k, v: (B, Sk, H, D) at the query head count; query
     row i sits at position ``q_offset + i``.  Rows past Sk in the last
-    chunk are zero-padded and causally masked.  Returns (B, S, H, D) in
-    q's dtype.
+    chunk are zero-padded and masked: causally, or, not causal, as the
+    padding they are.  (The reference refuses a bidirectional S that is
+    not a multiple of the chunk; hubert-xlarge's 1000 frames are one, and
+    the flash kernel takes them, so its plain version does too.)  Returns
+    (B, S, H, D) in q's dtype.
     """
     b, s, h, d = q.shape
     s_k = k.shape[1]
@@ -50,8 +53,6 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = d ** -0.5
     n_chunks = -(-s_k // chunk)
     pad = n_chunks * chunk - s_k
-    if pad and not causal:
-        raise ValueError("bidirectional attention requires S % chunk == 0")
     if pad:
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
@@ -64,9 +65,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kf = k[:, i * chunk:(i + 1) * chunk].float()
         vf = v[:, i * chunk:(i + 1) * chunk].float()
         logits = torch.einsum("bshd,bchd->bhsc", qf, kf)
-        if causal:
+        if causal or (pad and i == n_chunks - 1):
             k_pos = i * chunk + torch.arange(chunk, device=q.device)
-            mask = q_pos[:, None] >= k_pos[None, :]
+            mask = (q_pos[:, None] >= k_pos[None, :] if causal
+                    else (k_pos < s_k)[None, :])
             logits = torch.where(mask[None, None], logits, NEG_INF)
         m_new = torch.maximum(m, torch.amax(logits, dim=-1, keepdim=True))
         p = torch.exp(logits - m_new)
@@ -196,7 +198,7 @@ def gqa_apply(p: dict, x: torch.Tensor, bits: dict, cfg, mode: str, cache,
     q = q.reshape(b, s, h, dh)
     k = k.reshape(b, s, hkv, dh)
     v = v.reshape(b, s, hkv, dh)
-    if cfg.rope == "rope":
+    if cfg.rope == "rope":      # rope="none" (hubert-xlarge): no rotation
         cos, sin = common.rope_angles(positions, dh, cfg.rope_base)
         q, k = common.apply_rope(q, cos, sin), common.apply_rope(k, cos, sin)
 

@@ -1,5 +1,6 @@
-"""Model stack and LM loss for the olmo family and bert-base's encoder —
-port of ``repro/models/transformer.py``.
+"""Model stack and LM loss of the dense zoo (the olmo family,
+internlm2, deepseek, granite, and the encoders bert-base and
+hubert-xlarge) — port of ``repro/models/transformer.py``.
 
 The JAX model stacks the repeat pattern and runs it under ``lax.scan`` (or
 bucketed scans) to bound XLA compile time; eager PyTorch needs neither, so
@@ -41,6 +42,9 @@ def _check_supported(cfg) -> None:
     if cfg.prefix or cfg.activation not in ("silu", "gelu"):
         raise NotImplementedError("prefix blocks and activations other than "
                                   "SiLU and GeLU are ROADMAP Queue 1 item 13")
+    if cfg.rope not in ("rope", "none"):
+        raise NotImplementedError(f"rope={cfg.rope!r} (M-RoPE) is ROADMAP "
+                                  f"Queue 1 item 13")
 
 
 def init_block(gen: torch.Generator, cfg, bdef, device) -> dict:
@@ -65,10 +69,12 @@ def init_params(cfg, seed: int = 0, device="cuda") -> dict:
     _check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(dev).manual_seed(seed)
-    table = torch.randn((cfg.vocab, cfg.d_model), generator=gen,
-                        dtype=cfg.param_dtype, device=dev) * 0.02
-    params: dict = {"embed": {"w": table,
-                              "sw": quant.init_step_from_tensor(table, 8.0)}}
+    params: dict = {}
+    if not cfg.embed_input:     # frame embeddings come in: no token table
+        table = torch.randn((cfg.vocab, cfg.d_model), generator=gen,
+                            dtype=cfg.param_dtype, device=dev) * 0.02
+        params["embed"] = {"w": table,
+                           "sw": quant.init_step_from_tensor(table, 8.0)}
     params["pat"] = [{f"p{j}": init_block(gen, cfg, bdef, dev)
                       for j, bdef in enumerate(cfg.pattern)}
                      for _ in range(cfg.n_repeats)]
@@ -156,8 +162,14 @@ def init_caches(cfg, batch: int, max_seq: int, cache_dtype, device,
                     for r in range(cfg.n_repeats)]}
 
 
-def _embed(params: dict, cfg, tokens: torch.Tensor, impl: str = "auto",
+def _embed(params: dict, cfg, tokens: Optional[torch.Tensor],
+           embeds: Optional[torch.Tensor], impl: str = "auto",
            hvp: bool = False) -> torch.Tensor:
+    if embeds is not None:      # frame embeddings (the reference's batch
+        return embeds.to(cfg.compute_dtype)      # "embeds"), as they are
+    if tokens is None:
+        raise ValueError(f"{cfg.name} takes tokens: pass tokens (B, S), or "
+                         f"embeds= (B, S, d_model) for an embed_input model")
     p = params["embed"]
     if "wq" in p:               # serve layout: int8 codes, gather first
         rows = p["wq"][tokens]
@@ -199,13 +211,17 @@ def layer_bits(policy_arrays: dict, cfg, r: int) -> List[Dict[str, float]]:
             for j in range(len(cfg.pattern))]
 
 
-def apply(params: dict, policy_arrays: dict, tokens: torch.Tensor, cfg,
-          mode: str = "train", caches: Optional[dict] = None,
+def apply(params: dict, policy_arrays: dict, tokens: Optional[torch.Tensor],
+          cfg, mode: str = "train", caches: Optional[dict] = None,
           positions: Optional[torch.Tensor] = None, impl: str = "auto",
-          logits_at: Optional[torch.Tensor] = None, hvp: bool = False):
+          logits_at: Optional[torch.Tensor] = None, hvp: bool = False,
+          embeds: Optional[torch.Tensor] = None):
     """Returns (logits, new_caches).
 
-    tokens (B, S) int; positions (B, S) absolute positions (default
+    tokens (B, S) int, or None with ``embeds`` (B, S, d_model): frame
+    embeddings that take the token table's place (the reference's
+    ``batch["embeds"]``; hubert-xlarge's ``embed_input``), cast to the
+    compute dtype; positions (B, S) absolute positions (default
     arange); ``logits_at`` (B,) picks one position per row before the LM
     head (prefill needs only each request's last valid logits).  Prefill
     returns the per-layer K/V; decode updates ``caches`` in place.
@@ -223,7 +239,7 @@ def apply(params: dict, policy_arrays: dict, tokens: torch.Tensor, cfg,
     checkpoints and keeps the backward kernel.
     """
     _check_supported(cfg)
-    x = _embed(params, cfg, tokens, impl, hvp)
+    x = _embed(params, cfg, tokens, embeds, impl, hvp)
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
@@ -270,14 +286,16 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def loss_fn(params: dict, policy_arrays: dict, batch: dict, cfg,
             impl: str = "auto", hvp: bool = False):
-    """Next-token LM loss of ``batch`` ({'tokens', 'labels'[, 'loss_mask']},
-    (B, S) tensors): (loss, metrics) with metrics {'loss', 'accuracy',
-    'aux_loss'} (0-d tensors, no host sync).  The olmo family has no
-    auxiliary loss and no multi-token head, so aux_loss is 0 and the loss
-    is the cross entropy, as in ``repro/models/transformer.py:584-612``.
+    """Next-token LM loss of ``batch`` ({'tokens' or 'embeds', 'labels'[,
+    'loss_mask']}, (B, S) tensors, embeds (B, S, d)): (loss, metrics) with
+    metrics {'loss', 'accuracy', 'aux_loss'} (0-d tensors, no host sync).
+    The dense zoo has no auxiliary loss and no multi-token head, so
+    aux_loss is 0 and the loss is the cross entropy, as in
+    ``repro/models/transformer.py:584-612``.
     ``hvp`` as in ``apply``."""
-    logits, _ = apply(params, policy_arrays, batch["tokens"], cfg,
-                      mode="train", impl=impl, hvp=hvp)
+    logits, _ = apply(params, policy_arrays, batch.get("tokens"), cfg,
+                      mode="train", impl=impl, hvp=hvp,
+                      embeds=batch.get("embeds"))
     loss, acc = cross_entropy(logits, batch["labels"],
                               batch.get("loss_mask"))
     aux = torch.zeros((), dtype=torch.float32, device=loss.device)
@@ -318,14 +336,16 @@ def _block_units(cfg, bdef, group: str, layer: int, base: tuple):
 
 def build_policy(cfg, b_hi: float = 4.0, b_lo: float = 2.0
                  ) -> PrecisionPolicy:
-    """Every quant unit of the model (the pinned 8-bit embedding first and,
-    untied, the pinned 8-bit head last) and a KV-cache unit for each causal
-    GQA layer (a bidirectional block keeps no cache), named as in the
-    reference."""
+    """Every quant unit of the model (the pinned 8-bit embedding first,
+    where the model has a token table, and, untied, the pinned 8-bit head
+    last) and a KV-cache unit for each causal GQA layer (a bidirectional
+    block keeps no cache), named as in the reference."""
     _check_supported(cfg)
-    units = [_unit("embed", 0, "embed", [("embed", "w")],
-                   cfg.vocab * cfg.d_model, 0.0, cfg.vocab,
-                   pinned=PIN_EDGE_BITS)]
+    units = []
+    if not cfg.embed_input:
+        units.append(_unit("embed", 0, "embed", [("embed", "w")],
+                           cfg.vocab * cfg.d_model, 0.0, cfg.vocab,
+                           pinned=PIN_EDGE_BITS))
     cache_units = []
     for r in range(cfg.n_repeats):
         for j, bdef in enumerate(cfg.pattern):

@@ -46,7 +46,9 @@ class EngineSpec:
             raise ValueError(f"{cfg.name} is not causal: an encoder has no "
                              f"autoregressive decode to serve (DESIGN.md "
                              f"§4); its forward is transformer.apply(packed, "
-                             f"policy_arrays, tokens, cfg, mode='prefill')")
+                             f"policy_arrays, tokens, cfg, mode='prefill'), "
+                             f"with embeds= in place of tokens for frame "
+                             f"embeddings")
         if self.cache_layout not in ("contiguous", "paged"):
             raise ValueError(f"cache_layout must be 'contiguous' or "
                              f"'paged', got {self.cache_layout!r}")

@@ -115,7 +115,7 @@ def test_config_registry():
     assert want.param_dtype == want.compute_dtype == jnp.float32
     assert get_config("olmo-1b").name == "olmo-1b"
     with pytest.raises(NotImplementedError, match="item 13"):
-        get_config("deepseek-7b")
+        get_config("xlstm-1.3b")
     with pytest.raises(KeyError):
         get_config("bert-huge")
 

@@ -565,21 +565,22 @@ def _decode_positions(s, c):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", DECODE_SHAPES)
+@pytest.mark.parametrize("group,shape", [(g, s) for g in (1, 2, 3, 4, 8)
+                                         for s in DECODE_SHAPES]
+                         + [(48, (6, 1024, 1))])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("group", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("bits", [8, 4])
 def test_cuda_kv_decode(card, bits, d, group, dtype, shape):
     """Within 1e-4 * max|ref| of the plain version at positions around the
     plan's first chunk boundary, the last row and past it; two calls equal
     bit for bit (the splits merge in a fixed order).  A group of 3 leaves
-    one of a block's 4 warps idle; a group of 8 takes two rounds over the
-    chunk."""
+    one of a block's 4 warps idle; a group of 8 is split over two blocks,
+    granite-20b's 48 query heads on one KV head over 12."""
     from repro_torch.kernels import cuda, kv_quant
     b, s, hkv = shape
     g = torch.Generator(card).manual_seed(5)
-    splits, c = cuda.decode_plan(b, hkv, group, s, bits)
+    splits, c, _ = cuda.decode_plan(b, hkv, group, s, bits)
     assert (splits == 1) == (s <= c)
     k = torch.randn((b, s, hkv, d), generator=g, device=card)
     v = torch.randn((b, s, hkv, d), generator=g, device=card)
@@ -599,15 +600,39 @@ def test_cuda_kv_decode(card, bits, d, group, dtype, shape):
 @pytest.mark.parametrize("layout", ["bhsd", "model"])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("group", [1, 2, 4])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 129, 300, 513])
 def test_cuda_flash(card, s, d, group, causal, layout):
-    """Ragged S around the 64-row tiles, both head dims, GQA groups, and
+    """Ragged S around the 64-row tiles, the head dims (80, hubert-xlarge's,
+    on the 128-column tiles zero-filled past column 80), GQA groups, and
     the model's own (B, S, H, D) projections passed as (B, H, S, D) views
     (non-contiguous in S), as attention.py's prefill does."""
+    _flash_case(card, 2, 2, group, s, d, causal, layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["bhsd", "model"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [1, 65, 300, 2048])
+def test_cuda_flash_mqa(card, s, causal, layout):
+    """granite-20b's attention: 48 query heads on one KV head, D = 128."""
+    _flash_case(card, 1, 1, 48, s, 128, causal, layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["bhsd", "model"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_cuda_flash_hubert(card, causal, layout):
+    """hubert-xlarge's prefill: B = 8, H = 16, S = 1000 (a ragged last
+    tile), D = 80, not causal (and causal)."""
+    _flash_case(card, 8, 16, 1, 1000, 80, causal, layout)
+
+
+def _flash_case(card, b, hkv, group, s, d, causal, layout):
+    """The kernel against its plain version in float32 (max-abs and per
+    row, within 1e-2 of max|ref| and of each row's norm)."""
     from repro_torch.kernels import cuda
     g = torch.Generator(card).manual_seed(1)
-    b, hkv = 2, 2
 
     def make(heads):
         if layout == "model":
@@ -812,6 +837,21 @@ def test_cuda_flash_selector_probe_spread(card, h, hkv, s):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h,hkv,s,d", [(16, 16, 129, 80), (16, 16, 1000, 80),
+                                       (48, 1, 300, 128)])
+def test_cuda_flash_selector_probe_zoo(card, h, hkv, s, d, causal):
+    """The selector probe at hubert-xlarge's head_dim 80 (keys one-hot in
+    all 80 columns, 64-79 in the second, zero-filled box) and at
+    granite-20b's 48 query heads on one KV head, bit for bit."""
+    import chip_smoke
+    from repro_torch.kernels import cuda
+    q, k, v, want = chip_smoke.flash_selector_probe(card, 2, h, hkv, s, d=d,
+                                                    causal=causal)
+    assert torch.equal(cuda.flash_attention(q, k, v, causal=causal), want)
+
+
+@pytest.mark.cuda
 def test_cuda_lsq_exact(card):
     """The random case, then the chip_smoke probe: NaN, +-inf, ties and
     near ties, clamp edges, lengths 1, 7 and 8k + 3, bf16 and float32,
@@ -948,7 +988,7 @@ def test_cuda_histogram_exact(card, n, n_bins):
 @pytest.mark.parametrize("n", [64, 19])
 @pytest.mark.parametrize("d", [128, 64])
 @pytest.mark.parametrize("bits,h,hkv", [(8, 16, 16), (4, 16, 16), (4, 16, 4),
-                                        (8, 4, 2)])
+                                        (8, 4, 2), (8, 48, 1), (4, 48, 1)])
 def test_cuda_paged_kv_decode(card, bits, h, hkv, d, n):
     """Bit for bit the contiguous kernel on the gathered cache, within
     1e-4 * max|ref| of the plain version, over a shuffled table with stale
@@ -1120,7 +1160,8 @@ DECODE_PLAN_CASES = [  # (B, Hkv, group, rows)
     (8, 16, 1, 19 * 16),
     (1, 16, 1, 1024),
     (6, 2, 2, 300), (6, 2, 1, 16), (6, 4, 4, 1000), (3, 2, 2, 24),
-    (2, 2, 8, 300),       # a group of 8 takes two rounds over a chunk
+    (2, 2, 8, 300),       # a group of 8 is split over two blocks
+    (8, 1, 48, 1024),     # granite-20b's MQA: 12 blocks of 4 query heads
     (8, 16, 1, 8192), (1, 1, 1, 200_000), (1, 1, 1, 1)]
 
 
@@ -1132,14 +1173,16 @@ def test_decode_plan(b, hkv, group, rows, bits):
     DECODE_MAX_SPLITS of them; the same at both widths.  At the serve
     shapes, C = 128 and at least two waves of blocks over 132 SMs."""
     from repro_torch.kernels import cuda
-    splits, c = cuda.decode_plan(b, hkv, group, rows, bits)
+    splits, c, gblocks = cuda.decode_plan(b, hkv, group, rows, bits)
+    assert gblocks == cuda.decode_group_blocks(group)
     assert c % 16 == 0 and c >= 16
     assert 1 <= splits <= cuda.DECODE_MAX_SPLITS
     bounds = [(k * c, min((k + 1) * c, rows)) for k in range(splits)]
     assert all(hi > lo for lo, hi in bounds)
     assert [r for lo, hi in bounds for r in range(lo, hi)] == list(
         range(rows))
-    assert cuda.decode_plan(b, hkv, group, rows, 12 - bits) == (splits, c)
+    assert cuda.decode_plan(b, hkv, group, rows, 12 - bits) == (
+        splits, c, gblocks)
     if (b, hkv, rows) == (8, 16, 1024):
         assert c == 128 and b * hkv * splits >= 2 * 132
     if rows <= 16:
@@ -1193,8 +1236,9 @@ def test_decode_wrappers_plan_equal_rows(fake_card):
         out = fn(*_decode_args(layout), 8)
         assert out.shape == (2, 4, 64) and out.dtype == torch.float32
     (_, a), (_, p) = fake_card
-    # chunk and splits are the 3rd and 2nd arguments from the end
-    assert a[-4:-2] == p[-4:-2] == tuple(reversed(cuda.decode_plan(
+    # group blocks, chunk and splits are the 5th to 3rd arguments from the
+    # end
+    assert a[-5:-2] == p[-5:-2] == tuple(reversed(cuda.decode_plan(
         2, 2, 2, 1024, 8)))
     assert a[-4:-2][1] > 1 and a[8] is not None and a[9] is not None
     fake_card.clear()
@@ -1358,5 +1402,28 @@ def test_flash_float32_launch_and_refusals(fake_card):
                         ((ok, ok.bfloat16(), ok), "all bfloat16 or all")):
         with pytest.raises(ValueError, match=match):
             cuda.flash_attention(*args)
+    assert not fake_card
+
+
+def test_flash_head_dims(fake_card):
+    """bf16 takes head_dim 80 (hubert-xlarge; the D = 128 tiles zero-filled
+    past column 80) beside 64 and 128, one launch with D = 80 and the
+    scale 80**-0.5; bf16 at 96 and float32 at 80 raise, naming what they
+    take."""
+    from repro_torch.kernels import cuda
+    q = torch.zeros((1, 1000, 16, 80), dtype=torch.bfloat16).transpose(1, 2)
+    out = cuda.flash_attention(q, q, q, causal=False)
+    (name, a), = fake_card
+    assert name == "flash_attention" and out.shape == q.shape
+    assert a[4:10] == (1, 16, 16, 1000, 1000, 80)
+    assert a[11] == 0 and a[12] == 80 ** -0.5
+    fake_card.clear()
+    with pytest.raises(ValueError, match=r"one of \(64, 80, 128\) for "
+                       r"torch.bfloat16, got 96"):
+        cuda.flash_attention(*(torch.zeros((1, 2, 16, 96),
+                                           dtype=torch.bfloat16),) * 3)
+    with pytest.raises(ValueError, match=r"one of \(64, 128\) for "
+                       r"torch.float32, got 80 \(float32 at 80 is ROADMAP"):
+        cuda.flash_attention(*(torch.zeros((1, 2, 16, 80)),) * 3)
     assert not fake_card
 

@@ -1,0 +1,173 @@
+"""The zoo's serving paths on the CPU: the int4 KV cache of
+internlm2-1.8b, deepseek-7b and granite-20b (and of granite's blocks with
+12 query heads on one KV head) against the JAX packed engine step by step,
+and ``chip_smoke.py``'s zoo and hubert phases rehearsed at smoke size.
+
+Free-running, an int4 (or int8) cache parts from JAX's tokens on rounding
+ties of the KV quantizer (ROADMAP Queue 3 entry 1), so it is held in the
+step-isolation form of ``test_torch_serve.py``: before every step JAX's
+cache is carried into the port, every code the port writes must be JAX's
+or a tie within 1e-5 code steps of a rounding boundary, and every step
+without a tie must give JAX's logits within 1e-4 * max|logit|.  Three
+prompts of 8 steps each, the mixed 4/2 policy, contiguous cache.
+
+The rehearsals run each phase with every kernel wrapper stood in for by
+its plain version (counted as the launch it makes on the card), so the
+kernel path and the plain path are one code path and the teacher-forced
+drifts read 0; what they hold is the control flow, the launches a step
+worked out from each config, and the records.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+from repro_torch.configs import get_config  # noqa: E402
+from test_torch_serve import _step_isolation  # noqa: E402
+from test_torch_serve_mixed import _short_prompts  # noqa: E402
+from test_torch_zoo import DECODERS, MQA, _make  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the suite runs in several test processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("name,over", [(n, {}) for n in DECODERS]
+                         + [("granite-20b", MQA)],
+                         ids=list(DECODERS) + ["granite-20b-group12"])
+def test_int4_cache_step_isolation(name, over, monkeypatch):
+    ties, steps, tied = _step_isolation(_make(name, **over), "mixed",
+                                        "contiguous", monkeypatch,
+                                        seeds=range(1, 4), n_steps=8)
+    assert steps == 24 and tied <= ties
+
+
+# ------------------------------------------- chip_smoke's zoo and hubert
+class _Card:
+    total_memory = 80 << 30
+
+
+@pytest.fixture
+def cpu_card(monkeypatch):
+    """The "auto" path on CPU tensors: every kernel wrapper runs its plain
+    version (flash_attention the plain path's chunked attention), each
+    call counted in cuda.LAUNCHES as the launch it makes on the card (a
+    packed 4/2-bit matmul as quant_matmul, a flash call by its dtype's
+    kernel), decode on the packed codes as there; the card's clocks,
+    memory and profiler are stood in for."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.kernels import cuda, ops, ref
+    from repro_torch.models import attention as attn
+    from repro_torch.serve import ServeEngine
+    monkeypatch.setattr(ops, "use_kernel", lambda t, impl: impl == "auto")
+
+    def counted(name, fn):
+        def run(*a, **k):
+            cuda.LAUNCHES[name] += 1
+            return fn(*a, **k)
+        return run
+    monkeypatch.setattr(cuda, "lsq_fakequant", counted(
+        "lsq_fakequant", lambda x, s, b: ref.lsq_fakequant_grouped(x, s, b)
+        if isinstance(s, list) else ref.lsq_fakequant(x, s, b)))
+    monkeypatch.setattr(cuda, "kv_decode_attention", counted(
+        "kv_decode_attention", ref.kv_cache_attention))
+    monkeypatch.setattr(cuda, "paged_kv_decode_attention", counted(
+        "paged_kv_decode_attention", ref.paged_kv_cache_attention))
+    monkeypatch.setattr(cuda, "histogram", counted("histogram",
+                                                   ref.histogram))
+
+    def flash(q, k, v, causal=True):
+        # the plain path's own prefill attention, so that the kernel path
+        # is the plain path to the bit, in bf16 too
+        name = ("flash_attention_f32" if q.dtype == torch.float32
+                else "flash_attention")
+        cuda.LAUNCHES[name] += 1
+        group = q.shape[1] // k.shape[1]
+        return attn.chunked_attention(
+            q.transpose(1, 2), attn._repeat_kv(k.transpose(1, 2), group),
+            attn._repeat_kv(v.transpose(1, 2), group),
+            min(attn.DEFAULT_CHUNK, q.shape[2]), causal).transpose(1, 2)
+    monkeypatch.setattr(cuda, "flash_attention", flash)
+    real = ops.packed_matmul
+
+    def packed_matmul(x, p, impl="auto"):
+        if p.bits != 8 and impl == "auto":
+            cuda.LAUNCHES["quant_matmul"] += 1
+        return real(x, p, impl)
+    monkeypatch.setattr(ops, "packed_matmul", packed_matmul)
+    monkeypatch.setattr(ServeEngine, "decode_params", lambda self:
+                        self.params)
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda *a: _Card)
+    monkeypatch.setattr(chip_smoke, "device_breakdown", lambda fn, top=20: (
+        fn(), {"wall_ms": 1.0, "device_ms": 0.5, "idle_share": 0.5,
+               "dtoh_copies": 0, "device_ops": 1, "qmm_gemv_ms": 0.0,
+               "decode_attention_ms": 0.0, "lsq_fakequant_ms": 0.0,
+               "lsq_fakequant_bwd_ms": 0.0, "copy_kernel_ms": 0.0,
+               "copy_kernels": 0, "top": []})[1])
+    monkeypatch.setattr(chip_smoke, "make_prompts", _short_prompts)
+    return chip_smoke
+
+
+BF16 = {"param_dtype": torch.bfloat16, "compute_dtype": torch.bfloat16}
+
+
+def test_chip_smoke_zoo_phase_runs_on_cpu(cpu_card):
+    """granite-20b's zoo phase at smoke size in bf16, as on the card (MQA,
+    GeLU, LayerNorm, an untied head): Z1-Z4 hold; a decode step launches 6
+    quant_matmul and 4 lsq_fakequant a layer, one more for the head, and
+    one decode attention a layer, on each run's layout; the check reads 0
+    over the prefill and 8 decode steps."""
+    cfg = get_config("granite-20b").smoke().replace(**BF16)
+    rec = cpu_card.phase_zoo(cfg, torch.device("cpu"), "cpu rehearsal")
+    layers = cfg.n_repeats
+    assert rec["select"]["take_equal"] and rec["select"]["n2"]
+    assert set(rec["serve"]) == {"contiguous-int8", "contiguous-int4",
+                                 "paged-int4"}
+    for name, run in rec["serve"].items():
+        step = run["launches_per_decode_step"]
+        attention = ("paged_kv_decode_attention" if name.startswith("paged")
+                     else "kv_decode_attention")
+        assert (step["quant_matmul"], step["lsq_fakequant"],
+                step[attention]) == (6 * layers, 4 * layers + 1, layers)
+        assert run["new_tokens"] == cpu_card.ZOO_NEW
+    assert rec["serve"]["paged-int4"]["tokens"] == \
+        rec["serve"]["contiguous-int4"]["tokens"]
+    check = rec["check"][8]
+    assert len(check["rel_logit_err"]) == cpu_card.ZOO_CHECK_DECODE + 1
+    assert max(check["rel_logit_err"]) == 0.0
+    assert rec["peak_bytes"] == 0 and rec["packed_weight_bytes"] > 0
+
+
+def test_chip_smoke_hubert_phase_runs_on_cpu(cpu_card, monkeypatch):
+    """hubert-xlarge's phase at smoke size in bf16, as on the card (2 x 100
+    frames: a ragged last chunk of the plain attention, not causal): the
+    engine refuses it, EAGL takes impl="ref"'s take, and the packed
+    forward launches 6 quant_matmul, 4 lsq_fakequant and 1 bf16
+    flash_attention a layer and one more lsq_fakequant for the head, with
+    finite (2, 100, 512) logits."""
+    monkeypatch.setattr(cpu_card, "HUBERT_B", 2)
+    monkeypatch.setattr(cpu_card, "HUBERT_S", 100)
+    cfg = get_config("hubert-xlarge").smoke().replace(**BF16)
+    rec = cpu_card.phase_hubert(cfg, torch.device("cpu"), "cpu rehearsal")
+    fwd, layers = rec["forward"], cfg.n_repeats
+    assert "autoregressive" in rec["refused"]
+    assert rec["select"]["take_equal"] and rec["select"]["n2"]
+    assert fwd["inputs"] == "embeds" and fwd["finite"]
+    assert fwd["shape"] == [2, 100, cfg.vocab]
+    assert {k: v for k, v in fwd["launches"].items() if v} == {
+        "quant_matmul": 6 * layers, "lsq_fakequant": 4 * layers + 1,
+        "flash_attention": layers}
+    assert fwd["rel_logit_err"] == 0.0
