@@ -10,10 +10,11 @@ Phases, in order; any failure exits non-zero:
   3. kernels - each of the eight kernels against its plain PyTorch version at
                the main paths' shapes (olmo-1b's and bert-base's, and the
                zoo's: quant_matmul at granite-20b's and deepseek-7b's
-               projections, decode attention at granite's 48 query heads
-               on one KV head in both layouts, flash_attention at
-               granite's MQA prefill and hubert-xlarge's head_dim 80, not
-               causal), with its tolerance, kernel / plain /
+               projections and dbrx-132b's experts at M = 8 and 1280,
+               decode attention at granite's 48 query heads on one KV
+               head and dbrx's 48 on 8 in both layouts, flash_attention at
+               granite's MQA prefill, dbrx's GQA 48/8 and hubert-xlarge's
+               head_dim 80, not causal), with its tolerance, kernel / plain /
                library times (CUDA events, warm-up excluded, L2 flushed) and
                bound; the decode GEMV's shapes also in device time alone
                (torch.profiler) beside cuBLAS's, both decode attentions
@@ -100,6 +101,12 @@ Phases, in order; any failure exits non-zero:
                frame embeddings, no RoPE, head_dim 80): EAGL's take packed
                and its forward of 8 x 1000 frames through flash_attention
                at D = 80 (see phase_hubert).
+  dbrx       - dbrx-132b's mixture of experts (16 experts, top-4, GQA
+               48/8, LayerNorm) at its published widths, its first
+               DBRX_DEPTH layers: the zoo's phase and gates Z1-Z4, each
+               expert its own 4/2-bit unit, every expert projection through
+               quant_matmul and every expert activation through
+               lsq_fakequant (phase_zoo).
 The second-to-last line is the kernels JSON, the last the device JSON.
 Details go to chiprun_out/chip_smoke.json and chiprun_out/build_log.txt.
 """
@@ -247,7 +254,8 @@ def qmm_case(timer, dev, gen, bits, m, k, n, wp=None, x=None,
     a code off by one moves an output by |x| x scale, typically 3e-4 to
     6e-4 of max|ref| at bert-base's shapes).  A GEMV shape (M <= 16) is
     also read in device time alone (``device_us``); so is, where ``alone``,
-    a float32 x beside the library's same function."""
+    a tiled shape beside the library's same function (on bf16 x cuBLAS
+    bf16)."""
     from repro_torch.kernels import cuda, ref
     unpack = ref.unpack_w4 if bits == 4 else ref.unpack_w2
     if wp is None:
@@ -298,12 +306,13 @@ def qmm_case(timer, dev, gen, bits, m, k, n, wp=None, x=None,
         f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}, cuBLAS bf16 "
         f"{rec['cublas_bf16_ms']:.4f}{same}, bound {rec['bound_ms']:.4f} "
         f"({rec['bound_by']}){rate}")
-    if alone and x.dtype == torch.float32:
+    if alone and rec["route"] != "gemv":
         # the timer's window holds the wrapper's host work past the flush:
         # the kernel and the library's same function in device time alone
         alone_device(timer, rec, lambda: cuda.quant_matmul(x, wp, scale, bits),
-                     lambda: fn(x, w_bf16))
-        log_alone(rec, rec["library"])
+                     (lambda: fn(x, w_bf16)) if x.dtype == torch.float32
+                     else (lambda: torch.matmul(x_bf16, w_bf16)))
+        log_alone(rec, rec.get("library", "cuBLAS bf16"))
     if rec["route"] == "gemv":
         rec["plan"] = list(cuda.gemv_plan(m, n, k, bits))
         rec["device_us"], rec["device_kernels"] = device_us(
@@ -422,12 +431,19 @@ def identity_probe(timer, dev, gen, bits):
 # granite-20b's k/v (one KV head, N = 128) and down (K = 24576), and
 # deepseek-7b's up (N = 11008 = 256 x 43) and down
 ZOO_PROJECTIONS = ((6144, 128), (24576, 6144), (4096, 11008), (11008, 4096))
+# dbrx-132b's expert projections (K, N), gate and up, and down, at the rows
+# of an expert's capacity buffer: 8 in a decode step at B = 8, 1280 in an
+# 8 x 512 prefill (round_up(t k / E x 1.25, 8))
+MOE_PROJECTIONS = ((6144, 10752), (10752, 6144))
+MOE_ROWS = (8, 1280)
 
 
 def check_quant_matmul(timer, dev, gen):
     """The main path's twelve shapes (bits 4 and 2, the three projection
-    shapes of olmo-1b, decode M = 8 and prefill M = 4096) and the zoo's
-    (``ZOO_PROJECTIONS``, the same bits and M), the identity
+    shapes of olmo-1b, decode M = 8 and prefill M = 4096), the zoo's
+    (``ZOO_PROJECTIONS``, the same bits and M), dbrx-132b's experts
+    (``MOE_PROJECTIONS`` at ``MOE_ROWS``, the tiled ones also in device
+    time alone beside cuBLAS bf16), the identity
     probe, and ragged tiled shapes: M = 4099 (a ragged M through the wgmma
     route), and M = 129 with N = 200 and K = 520 (ragged M, N and a partial
     last K step; N % 16 != 0 takes the mma.sync route).  Then the GEMV
@@ -442,6 +458,12 @@ def check_quant_matmul(timer, dev, gen):
             for m in (8, 8 * 512):
                 rec = qmm_case(timer, dev, gen, bits, m, k, n)[0]
                 rec["zoo"] = True
+                cases.append(rec)
+    for bits in (4, 2):
+        for (k, n) in MOE_PROJECTIONS:
+            for m in MOE_ROWS:
+                rec = qmm_case(timer, dev, gen, bits, m, k, n, alone=True)[0]
+                rec["moe"] = True
                 cases.append(rec)
     for bits in (4, 2):
         cases.append(identity_probe(timer, dev, gen, bits))
@@ -688,19 +710,21 @@ def kv_decode_selector_probe(dev, bits, layout, b=4, h=16, hkv=16, s=1024,
     return calls, splits, c, ok
 
 
-# (H, Hkv) of the decode checks: olmo-1b's MHA, and granite-20b's MQA (48
-# query heads on one KV head: 12 blocks of 4 over each chunk)
-DECODE_HEADS = ((16, 16), (48, 1))
+# (H, Hkv) of the decode checks: olmo-1b's MHA, granite-20b's MQA (48
+# query heads on one KV head: 12 blocks of 4 over each chunk) and dbrx-132b's
+# GQA 48/8 (groups of 6: 2 blocks of 3)
+DECODE_HEADS = ((16, 16), (48, 1), (48, 8))
 
 
 def check_kv_decode(timer, dev, gen):
-    """The contiguous decode at B = 8, S = 1024, D = 128, H = Hkv = 16 and
-    granite-20b's H = 48 on Hkv = 1, one slot past the end and the others
+    """The contiguous decode at B = 8, S = 1024, D = 128, H = Hkv = 16,
+    granite-20b's H = 48 on Hkv = 1 and dbrx-132b's 48 on 8, one slot past
+    the end and the others
     spread over the cache, int8 and int4: within 1e-4 * max|ref| of the
     plain version, timed on the timer and in device time alone beside SDPA
     on the dequantized bf16 cache, MHA also on plans of other chunk sizes;
     two calls equal bit for bit; then the selector probe, bit for bit, at
-    MHA, GQA 16/4 and MQA 48/1."""
+    MHA, GQA 16/4, MQA 48/1 and GQA 48/8."""
     from repro_torch.kernels import cuda, kv_quant, ref
     b, s, d = 8, 1024, 128
     cases = []
@@ -774,7 +798,7 @@ def check_kv_decode(timer, dev, gen):
         cases.append(rec)
         del k, v, qc, kd, vd, args
     for bits in (8, 4):
-        for h, hkv in ((16, 16), (16, 4), (48, 1)):
+        for h, hkv in ((16, 16), (16, 4), (48, 1), (48, 8)):
             calls, splits, c, same = kv_decode_selector_probe(
                 dev, bits, "contiguous", h=h, hkv=hkv)
             cases.append({"kv_decode_selector_probe": True, "bits": bits,
@@ -836,7 +860,8 @@ def flash_selector_probe(dev, b, h, hkv, s, d=128, seed=0, causal=True):
 FLASH_CASES = ((8, 16, 16, 512, 128, True, False),
                (2, 16, 4, 300, 128, True, True),
                (1, 48, 1, 2048, 128, True, True),
-               (8, 16, 16, 1000, 80, False, True))
+               (8, 16, 16, 1000, 80, False, True),
+               (8, 48, 8, 512, 128, True, True))
 
 
 def check_flash(timer, dev, gen):
@@ -847,7 +872,8 @@ def check_flash(timer, dev, gen):
     then the selector probe, bit for bit, at S = 128, 129, 300 and 513 with
     MHA and GQA 16/4, causal and with keys spread over every kv tile, and
     causal with the queries cut to their last rows (q_offset > 0); at D =
-    80 (S = 129 and 1000, both masks) and at MQA 48/1 (S = 300, both)."""
+    80 (S = 129 and 1000, both masks), at MQA 48/1 (S = 300, both) and at
+    dbrx-132b's GQA 48/8 (S = 512, both)."""
     from repro_torch.kernels import cuda, ops
     sdpa = torch.nn.functional.scaled_dot_product_attention
     cases = []
@@ -934,7 +960,7 @@ def check_flash(timer, dev, gen):
                     f"output row i equals V[pos(pi(i))] bit for bit: {same}")
     for causal in (True, False):
         for (s, h, hkv, d) in ((129, 16, 16, 80), (1000, 16, 16, 80),
-                               (300, 48, 1, 128)):
+                               (300, 48, 1, 128), (512, 48, 8, 128)):
             q, k, v, want = flash_selector_probe(dev, 2, h, hkv, s, d=d,
                                                  causal=causal)
             got = cuda.flash_attention(q, k, v, causal=causal)
@@ -1581,8 +1607,8 @@ def paged_case(gen, dev, bits, b, h, hkv, d, n, page, pos):
 
 def check_paged_kv_decode(timer, dev, gen):
     """The paged decode at the serve shapes (B = 8, D = 128, page 16, 64
-    pages a slot, positions up to 1023), int8 and int4, GQA 16/4 and
-    granite-20b's MQA 48/1:
+    pages a slot, positions up to 1023), int8 and int4, GQA 16/4,
+    granite-20b's MQA 48/1 and dbrx-132b's GQA 48/8:
     bit for bit the contiguous kernel on the gathered cache and itself on
     a second call, within 1e-4 * max|ref| of the plain version, finite over
     NaN-poisoned free pages.  Timed against SDPA on the dequantized bf16
@@ -1596,7 +1622,7 @@ def check_paged_kv_decode(timer, dev, gen):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     cases = []
     for bits, h, hkv in ((8, 16, 16), (4, 16, 16), (4, 16, 4), (8, 48, 1),
-                         (4, 48, 1)):
+                         (4, 48, 1), (8, 48, 8), (4, 48, 8)):
         q, qc, (kqp, vqp, vsp), tbl = paged_case(gen, dev, bits, b, h, hkv,
                                                  d, n, page, pos)
         args = (q, kqp, qc["k_scale"], vqp, vsp, tbl, pos)
@@ -1668,7 +1694,7 @@ def check_paged_kv_decode(timer, dev, gen):
         cases.append(rec)
         del q, qc, kqp, vqp, vsp, tbl, args, gathered, kd, vd
     for bits in (8, 4):
-        for h, hkv in ((16, 16), (16, 4), (48, 1)):
+        for h, hkv in ((16, 16), (16, 4), (48, 1), (48, 8)):
             calls, splits, c, same = kv_decode_selector_probe(
                 dev, bits, "paged", h=h, hkv=hkv)
             cases.append({"kv_decode_selector_probe": True, "bits": bits,
@@ -1867,11 +1893,22 @@ def step_launches(cfg) -> dict:
     o, the FFN's input and down a layer, and the head's; one attention a
     layer (``"attention"``): the decode attention in a decode step, one
     flash_attention in a prefill or an encoder's forward, which make the
-    same launches otherwise."""
+    same launches otherwise.  A MoE layer makes q, k, v, o and each
+    expert's gate, up and down (4 + 3 E packed matmuls; the pinned 8-bit
+    router is a plain matmul) and fake-quantizes q/k/v, o, the router's
+    input and each expert's buffer and hidden (3 + 2 E): every expert runs
+    its capacity rows in every step, whether a token chose it or not."""
     layers = cfg.n_repeats * len(cfg.pattern)
-    proj = sum(4 + (3 if b.ffn == "swiglu" else 2) for b in cfg.pattern)
-    return {"quant_matmul": cfg.n_repeats * proj,
-            "lsq_fakequant": 4 * layers + 1, "attention": layers}
+    qmm = lsq = 0
+    for b in cfg.pattern:
+        if b.ffn == "moe":
+            qmm += 4 + 3 * cfg.n_experts
+            lsq += 3 + 2 * cfg.n_experts
+        else:
+            qmm += 4 + (3 if b.ffn == "swiglu" else 2)
+            lsq += 4
+    return {"quant_matmul": cfg.n_repeats * qmm,
+            "lsq_fakequant": cfg.n_repeats * lsq + 1, "attention": layers}
 
 
 def log_serve_run(what: str, rec: dict) -> None:
@@ -2561,12 +2598,12 @@ def shadowed(block_apply, errs: list):
              hvp=False):
         copy = None if cache is None else {k: v.clone()
                                            for k, v in cache.items()}
-        want, _ = block_apply(p, x, bits, cfg, bdef, mode, copy, positions,
-                              "ref", hvp)
-        got, new = block_apply(p, x, bits, cfg, bdef, mode, cache, positions,
-                               impl, hvp)
+        want, _, _ = block_apply(p, x, bits, cfg, bdef, mode, copy,
+                                 positions, "ref", hvp)
+        got, new, aux = block_apply(p, x, bits, cfg, bdef, mode, cache,
+                                    positions, impl, hvp)
         errs.append((rel_rms_err(got, want), rel_err(got, want)))
-        return got, new
+        return got, new, aux
     return both
 
 
@@ -3673,13 +3710,17 @@ def phase_zoo(cfg, dev, smi_line):
     path against plain within CONTROL_FACTOR x the float64-attention
     control.  Z4: the peak of device memory (init, selection and packing,
     and every run) below the card's.  Readings: init, select and pack
-    seconds, raw and packed weight bytes, and phase_serve's."""
+    seconds, raw weight bytes (in all, and of the token table, the head,
+    the attention and the FFNs or experts over the layers), packed weight
+    bytes, and phase_serve's."""
     from repro_torch.models import transformer as tf
     from repro_torch.serve import pack_params, residency
+    moe = (f" experts={cfg.n_experts} top_k={cfg.top_k} capacity_factor="
+           f"{cfg.capacity_factor:g}" if cfg.n_experts else "")
     log(f"  {cfg.name} d_model={cfg.d_model} layers={cfg.n_repeats} heads="
         f"{cfg.n_heads}/{cfg.n_kv_heads} head_dim={cfg.head_dim} d_ff="
         f"{cfg.d_ff} vocab={cfg.vocab} norm={cfg.norm} "
-        f"ffn={cfg.pattern[0].ffn} rope_base={cfg.rope_base:g}")
+        f"ffn={cfg.pattern[0].ffn}{moe} rope_base={cfg.rope_base:g}")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3688,7 +3729,10 @@ def phase_zoo(cfg, dev, smi_line):
     torch.cuda.synchronize()
     rec = {"config": cfg.name, "device": smi_line,
            "init_s": time.perf_counter() - t0,
-           "raw_weight_bytes": residency.resident_bytes(raw)}
+           "raw_weight_bytes": residency.resident_bytes(raw),
+           "raw_bytes_of": raw_parts(raw)}
+    log("  raw bytes: " + ", ".join(f"{k} {v / 1e9:.3f} GB"
+                                    for k, v in rec["raw_bytes_of"].items()))
     t0 = time.perf_counter()
     mixed, rec["select"] = phase_select(cfg, raw, dev)
     if rec["select"]["launches"]["histogram"] != rec["select"]["tensors"]:
@@ -3727,6 +3771,29 @@ def phase_zoo(cfg, dev, smi_line):
     if not rec["peak_bytes"] < card:
         raise RuntimeError(f"{cfg.name} Z4: peak {rec['peak_bytes']} bytes")
     return rec
+
+
+def raw_parts(raw) -> dict:
+    """Bytes of a raw param tree by part: the token table, the head, over
+    the layers the attention and the FFNs (``mlp``) or experts (``moe``:
+    router and banks), and the norms (the rest)."""
+    from repro_torch.serve import residency
+    out = {k: residency.resident_bytes(raw[k]) for k in ("embed", "head")
+           if k in raw}
+    for layer in raw["pat"]:
+        for block in layer.values():
+            for part in ("attn", "mlp", "moe"):
+                if part in block:
+                    out[part] = (out.get(part, 0)
+                                 + residency.resident_bytes(block[part]))
+    out["norms"] = residency.resident_bytes(raw) - sum(out.values())
+    return out
+
+
+# dbrx-132b's first layers at full width: 4 x 6.34 GB of experts and the
+# 1.23 GB token table and head keep the raw build near 28.5 GB; all 40
+# layers would take about 260 GB
+DBRX_DEPTH = 4
 
 
 HUBERT_B, HUBERT_S = 8, 1000   # 8 clips of 20 s at HuBERT's 20 ms frames
@@ -3878,6 +3945,13 @@ def main():
     t0 = time.perf_counter()
     hubert = phase_hubert(get_config("hubert-xlarge"), dev, smi_line)
     log(f"  hubert phase {time.perf_counter() - t0:.1f} s")
+    log(f"dbrx (dbrx-132b's mixture of experts, the first {DBRX_DEPTH} of "
+        f"40 layers: select, pack, serve, check):")
+    t0 = time.perf_counter()
+    dbrx = phase_zoo(get_config("dbrx-132b").replace(n_repeats=DBRX_DEPTH),
+                     dev, smi_line)
+    dbrx["phase_s"] = time.perf_counter() - t0
+    log(f"  dbrx phase {dbrx['phase_s']:.1f} s")
 
     # each kernel's launches on the path that runs it
     launches = dict(runs["contiguous-int8"]["launches"])
@@ -3913,7 +3987,7 @@ def main():
                    "schedule": schedule, "check": check,
                    "train": train, "alps": alps, "hawq": hawq,
                    "frontier": front, "joint": joint, "bert": bert,
-                   "zoo": zoo, "hubert": hubert,
+                   "zoo": zoo, "hubert": hubert, "dbrx": dbrx,
                    "total_s": time.perf_counter() - t_start,
                    "launch_counts_after": dict(cuda.LAUNCHES)}, f, indent=1)
     log(f"chip_smoke: {time.perf_counter() - t_start:.0f} s in all")

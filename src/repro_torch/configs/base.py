@@ -4,8 +4,10 @@
 The port covers the dense zoo: causal GQA (MHA to MQA) with a SwiGLU or
 GeLU FFN, and the encoders' bidirectional GQA, with RMSNorm or LayerNorm,
 RoPE or none, tied or untied heads, and frame embeddings in place of a
-token table (``embed_input``); the fields for the rest of the zoo (MoE,
-MLA, SSMs, M-RoPE) arrive with ROADMAP Queue 1 item 13.
+token table (``embed_input``); and the routed mixture of experts
+(``BlockDef(..., "moe")``: ``n_experts``, ``top_k``, ``capacity_factor``,
+``moe_aux_weight``).  The fields for the rest of the zoo (the shared
+expert, MLA, SSMs, M-RoPE) arrive with ROADMAP Queue 1 item 13.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch
 class BlockDef:
     """One layer of the repeating pattern."""
     mixer: str      # 'gqa' | 'bidir' (GQA under cfg.causal=False)
-    ffn: str        # 'swiglu' | 'gelu' (non-gated)
+    ffn: str        # 'swiglu' | 'gelu' (non-gated) | 'moe' (routed experts)
     d_ff: Optional[int] = None
 
 
@@ -44,6 +46,13 @@ class ArchConfig:
     embed_input: bool = False            # modality stub: takes (B,S,d) embeds
     tie_embeddings: bool = False
 
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
     cache_dtype: torch.dtype = torch.bfloat16
@@ -52,8 +61,10 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
     def smoke(self) -> "ArchConfig":
-        """Reduced same-family config for CPU tests (the JAX ``smoke()``)."""
-        return self.replace(
+        """Reduced same-family config for CPU tests (the JAX ``smoke()``):
+        an MoE config keeps at least 4 experts (and top_k of them) and
+        routes to at most 2."""
+        scale = dict(
             d_model=128, n_heads=4, head_dim=32,
             n_kv_heads=max(1, (4 * self.n_kv_heads) // max(self.n_heads, 1)),
             d_ff=256 if self.d_ff else 0,
@@ -63,3 +74,7 @@ class ArchConfig:
             param_dtype=torch.float32,
             compute_dtype=torch.float32,
         )
+        if self.n_experts:
+            scale.update(n_experts=max(4, self.top_k),
+                         top_k=min(self.top_k, 2))
+        return self.replace(**scale)

@@ -9,8 +9,8 @@ carries per-layer KV-cache bits (int8 or int4, or full), which
 ``knapsack.select_weights_and_cache`` trades against the weights in one
 byte budget.  The bucket plan of the JAX package has no counterpart: the
 port runs the pattern as a Python loop over per-layer params, so there is
-no scan whose compile time it would bound.  Per-expert units (MoE) follow
-with the parts of the zoo that use them (ROADMAP Queue 1 item 13).
+no scan whose compile time it would bound.  A per-expert unit (MoE) carries
+its expert index in ``sub``, and its slot's bits array gains an expert axis.
 """
 from __future__ import annotations
 
@@ -53,6 +53,7 @@ class QuantUnit:
     n_params: int
     macs_per_token: float
     in_features: int
+    sub: Optional[int] = None     # expert index (the bits array gains a dim)
     pinned_bits: Optional[float] = None   # None => selectable
 
     @property
@@ -179,18 +180,27 @@ class PrecisionPolicy:
 
     # -------------------------------------------------------------- exports
     def as_arrays(self) -> Dict[str, Dict[str, np.ndarray]]:
-        """{group: {slot: float32 (n_layers,)}} per-layer bits."""
+        """{group: {slot: float32 (n_layers,) or (n_layers, n_sub)}}
+        per-layer bits; a per-expert slot has a row a layer."""
         lens: Dict[Tuple[str, str], int] = {}
+        subs: Dict[Tuple[str, str], int] = {}
         for u in self.units:
             key = (u.group, u.slot)
             lens[key] = max(lens.get(key, 0), u.layer + 1)
+            if u.sub is not None:
+                subs[key] = max(subs.get(key, 0), u.sub + 1)
         out: Dict[str, Dict[str, np.ndarray]] = {}
         for u in self.units:
+            key = (u.group, u.slot)
             grp = out.setdefault(u.group, {})
             if u.slot not in grp:
-                grp[u.slot] = np.full((lens[(u.group, u.slot)],), self.b_hi,
-                                      np.float32)
-            grp[u.slot][u.layer] = self._bits[u.name]
+                shape = ((lens[key], subs[key]) if key in subs
+                         else (lens[key],))
+                grp[u.slot] = np.full(shape, self.b_hi, np.float32)
+            if u.sub is not None:
+                grp[u.slot][u.layer, u.sub] = self._bits[u.name]
+            else:
+                grp[u.slot][u.layer] = self._bits[u.name]
         return out
 
     # ------------------------------------------------------------ accounting

@@ -149,6 +149,19 @@ def qproj_group(x: torch.Tensor, ps, bits, impl: str = "auto",
             for xq, p in zip(xqs, ps)]
 
 
+def fake_quant_bank(w: torch.Tensor, sw: torch.Tensor, bits,
+                    impl: str = "auto", hvp: bool = False, grad_qmax=None
+                    ) -> torch.Tensor:
+    """LSQ fake-quant of an expert bank (E, d_in, d_out), each expert at
+    its own step ``sw[e]`` and bits ``bits[e]``: the reference's one
+    fake-quant of the bank with (E, 1, 1) steps and bits, expert by
+    expert (``grad_qmax``: the mean qmax of the reference's stacked
+    call)."""
+    return torch.stack([quant.fake_quant(w[e], sw[e], float(bits[e]), impl,
+                                         hvp, grad_qmax)
+                        for e in range(w.shape[0])])
+
+
 def prequantize_params(params, policy_arrays, slot_of, impl: str = "auto",
                        hvp: bool = False):
     """Fake-quantize every projection weight once, before the layers run
@@ -157,19 +170,25 @@ def prequantize_params(params, policy_arrays, slot_of, impl: str = "auto",
     gradient reaches w and sw through ``LsqFakeQuant``.  ``params["pat"]``
     is the per-layer list; ``slot_of`` maps a node's path to its (group,
     slot) (``transformer.slot_index``), whose bits ``policy_arrays`` gives
-    per layer (a node with no unit gets 4, as in the reference).  The
-    reference quantizes a slot's layers stacked, so every layer's step
-    gradient takes the slot's mean qmax (``quant.mean_qmax``)."""
+    per layer (a node with no unit gets 4, as in the reference).  An
+    expert bank (E, d_in, d_out) takes its layer's row of per-expert bits
+    and steps (``fake_quant_bank``).  The reference quantizes a slot's
+    layers stacked, so every layer's step gradient takes the slot's mean
+    qmax (``quant.mean_qmax``), over the experts too."""
     def walk(node, path, layer):
         if isinstance(node, dict) and {"w", "sw", "sa"} <= node.keys():
             key = slot_of.get(path)
             bits, grad_qmax = 4.0, None
             if key is not None:
                 slot = np.asarray(policy_arrays[key[0]][key[1]])
-                bits, grad_qmax = float(slot[layer]), quant.mean_qmax(slot)
-            return {"wpre": quant.fake_quant(node["w"], node["sw"], bits,
-                                             impl, hvp, grad_qmax),
-                    "sa": node["sa"]}
+                bits, grad_qmax = slot[layer], quant.mean_qmax(slot)
+            if node["w"].ndim == 3:
+                wpre = fake_quant_bank(node["w"], node["sw"], np.broadcast_to(
+                    bits, node["w"].shape[:1]), impl, hvp, grad_qmax)
+            else:
+                wpre = quant.fake_quant(node["w"], node["sw"], float(bits),
+                                        impl, hvp, grad_qmax)
+            return {"wpre": wpre, "sa": node["sa"]}
         if isinstance(node, dict):
             return {k: walk(v, path + (k,), layer) for k, v in node.items()}
         return node

@@ -1,6 +1,7 @@
 """Model stack and LM loss of the dense zoo (the olmo family,
 internlm2, deepseek, granite, and the encoders bert-base and
-hubert-xlarge) — port of ``repro/models/transformer.py``.
+hubert-xlarge) and of dbrx's mixture of experts — port of
+``repro/models/transformer.py``.
 
 The JAX model stacks the repeat pattern and runs it under ``lax.scan`` (or
 bucketed scans) to bound XLA compile time; eager PyTorch needs neither, so
@@ -11,7 +12,7 @@ counterpart.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -33,12 +34,15 @@ HEAD_ACT_STEP = 0.05       # LM head's activation step (pinned 8-bit): the
 
 def _check_supported(cfg) -> None:
     for bdef in tuple(cfg.prefix) + tuple(cfg.pattern):
-        if bdef.mixer not in ("gqa", "bidir") \
-                or bdef.ffn not in ("swiglu", "gelu"):
+        if (bdef.mixer, bdef.ffn) not in (
+                ("gqa", "swiglu"), ("gqa", "gelu"), ("bidir", "swiglu"),
+                ("bidir", "gelu"), ("gqa", "moe")):
             raise NotImplementedError(
                 f"block {bdef} is not ported: the port runs GQA (causal or "
-                f"bidirectional) blocks with a SwiGLU or GeLU FFN (the rest "
-                f"of the zoo is ROADMAP Queue 1 item 13)")
+                f"bidirectional) blocks with a SwiGLU or GeLU FFN, and "
+                f"causal GQA with routed experts (the rest of the zoo is "
+                f"ROADMAP Queue 1 item 13)")
+    mlp.refuse_shared_expert(cfg)
     if cfg.prefix or cfg.activation not in ("silu", "gelu"):
         raise NotImplementedError("prefix blocks and activations other than "
                                   "SiLU and GeLU are ROADMAP Queue 1 item 13")
@@ -48,15 +52,19 @@ def _check_supported(cfg) -> None:
 
 
 def init_block(gen: torch.Generator, cfg, bdef, device) -> dict:
-    """norm1, attn, norm2 and the MLP (gated for SwiGLU, {up, down} for
-    GeLU) of one block."""
-    return {"norm1": common.init_norm(cfg.norm, cfg.d_model, cfg.param_dtype,
-                                      device),
-            "attn": attn.init_gqa(gen, cfg, device),
-            "norm2": common.init_norm(cfg.norm, cfg.d_model, cfg.param_dtype,
-                                      device),
-            "mlp": mlp.init_dense_mlp(gen, cfg, device, d_ff=bdef.d_ff,
-                                      gated=bdef.ffn != "gelu")}
+    """norm1, attn, norm2 and the FFN of one block: ``mlp`` (gated for
+    SwiGLU, {up, down} for GeLU) or ``moe`` (router and expert banks)."""
+    p = {"norm1": common.init_norm(cfg.norm, cfg.d_model, cfg.param_dtype,
+                                   device),
+         "attn": attn.init_gqa(gen, cfg, device),
+         "norm2": common.init_norm(cfg.norm, cfg.d_model, cfg.param_dtype,
+                                   device)}
+    if bdef.ffn == "moe":
+        p["moe"] = mlp.init_moe(gen, cfg, device)
+    else:
+        p["mlp"] = mlp.init_dense_mlp(gen, cfg, device, d_ff=bdef.d_ff,
+                                      gated=bdef.ffn != "gelu")
+    return p
 
 
 def init_params(cfg, seed: int = 0, device="cuda") -> dict:
@@ -97,16 +105,20 @@ def block_apply(p: dict, x: torch.Tensor, bits: dict, cfg, bdef,
                 mode: str, cache, positions: torch.Tensor, impl: str = "auto",
                 hvp: bool = False):
     """One GQA block (causal or not, as ``cfg.causal`` says) with its
-    FFN: GeLU for ``bdef.ffn == "gelu"``, else ``cfg.activation`` (the
-    reference's choice).  Returns (x, new_cache)."""
+    FFN: the routed experts for ``bdef.ffn == "moe"``, GeLU for "gelu",
+    else ``cfg.activation`` (the reference's choice).  Returns (x,
+    new_cache, aux): the MoE's load-balance loss, None for a dense FFN."""
     h = common.apply_norm(cfg.norm, x, p["norm1"])
     y, new_cache = attn.gqa_apply(p["attn"], h, bits, cfg, mode, cache,
                                   positions, impl, hvp)
     x = x + y
     h = common.apply_norm(cfg.norm, x, p["norm2"])
+    if bdef.ffn == "moe":
+        y, aux = mlp.moe_apply(p["moe"], h, bits, cfg, impl, hvp)
+        return x + y, new_cache, aux
     act = "gelu" if bdef.ffn == "gelu" else cfg.activation
     return (x + mlp.dense_mlp_apply(p["mlp"], h, bits, act, impl, hvp),
-            new_cache)
+            new_cache, None)
 
 
 def _cache_bits_for(cache_bits, group: str, layer: int) -> Optional[int]:
@@ -204,10 +216,15 @@ def _head(params: dict, cfg, x: torch.Tensor, impl: str = "auto",
     return kref.matmul(xq, w.to(x.dtype))
 
 
-def layer_bits(policy_arrays: dict, cfg, r: int) -> List[Dict[str, float]]:
-    """Per-slot bits dicts of pattern layer ``r`` (host-side floats)."""
-    return [{k: float(np.asarray(v)[r])
-             for k, v in policy_arrays[f"pat{j}"].items()}
+def _row(bits, r: int):
+    row = np.asarray(bits)[r]
+    return float(row) if row.ndim == 0 else tuple(float(b) for b in row)
+
+
+def layer_bits(policy_arrays: dict, cfg, r: int) -> List[Dict[str, Any]]:
+    """Per-slot bits dicts of pattern layer ``r`` (host-side floats; a
+    per-expert slot gives a tuple, a bit-width an expert)."""
+    return [{k: _row(v, r) for k, v in policy_arrays[f"pat{j}"].items()}
             for j in range(len(cfg.pattern))]
 
 
@@ -238,6 +255,17 @@ def apply(params: dict, policy_arrays: dict, tokens: Optional[torch.Tensor],
     forward mode can differentiate (``quant.LsqFakeQuantHvp``).  The default
     checkpoints and keeps the backward kernel.
     """
+    logits, new_caches, _ = _forward(params, policy_arrays, tokens, cfg,
+                                     mode, caches, positions, impl,
+                                     logits_at, hvp, embeds)
+    return logits, new_caches
+
+
+def _forward(params, policy_arrays, tokens, cfg, mode, caches, positions,
+             impl, logits_at, hvp, embeds):
+    """``apply``'s forward; returns (logits, new_caches, aux): the MoE
+    blocks' load-balance losses summed over the layers (0-d float32), or
+    None where no block has experts."""
     _check_supported(cfg)
     x = _embed(params, cfg, tokens, embeds, impl, hvp)
     b, s, _ = x.shape
@@ -247,7 +275,7 @@ def apply(params: dict, policy_arrays: dict, tokens: Optional[torch.Tensor],
     if mode == "train":
         params = common.prequantize_params(params, policy_arrays,
                                            slot_index(cfg), impl, hvp)
-    new_pat = []
+    new_pat, aux_total = [], None
     for r in range(cfg.n_repeats):
         bits = layer_bits(policy_arrays, cfg, r)
         out = {}
@@ -255,14 +283,16 @@ def apply(params: dict, policy_arrays: dict, tokens: Optional[torch.Tensor],
             cache = None if caches is None else caches["pat"][r][f"p{j}"]
             args = (params["pat"][r][f"p{j}"], x, bits[j], cfg, bdef, mode,
                     cache, positions, impl, hvp)
-            x, out[f"p{j}"] = (checkpoint(block_apply, *args,
-                                          use_reentrant=False) if remat
-                               else block_apply(*args))
+            x, out[f"p{j}"], aux = (checkpoint(block_apply, *args,
+                                               use_reentrant=False) if remat
+                                    else block_apply(*args))
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
         new_pat.append(out)
     x = common.apply_norm(cfg.norm, x, params["final_norm"])
     if logits_at is not None:
         x = x[torch.arange(b, device=x.device), logits_at][:, None]
-    return _head(params, cfg, x, impl, hvp), {"pat": new_pat}
+    return _head(params, cfg, x, impl, hvp), {"pat": new_pat}, aux_total
 
 
 # ===================================================================== loss
@@ -289,44 +319,65 @@ def loss_fn(params: dict, policy_arrays: dict, batch: dict, cfg,
     """Next-token LM loss of ``batch`` ({'tokens' or 'embeds', 'labels'[,
     'loss_mask']}, (B, S) tensors, embeds (B, S, d)): (loss, metrics) with
     metrics {'loss', 'accuracy', 'aux_loss'} (0-d tensors, no host sync).
-    The dense zoo has no auxiliary loss and no multi-token head, so
-    aux_loss is 0 and the loss is the cross entropy, as in
-    ``repro/models/transformer.py:584-612``.
-    ``hvp`` as in ``apply``."""
-    logits, _ = apply(params, policy_arrays, batch.get("tokens"), cfg,
-                      mode="train", impl=impl, hvp=hvp,
-                      embeds=batch.get("embeds"))
+    The loss is the cross entropy plus the MoE blocks' load-balance losses
+    summed over the layers (0 for a dense model), as in
+    ``repro/models/transformer.py:584-612``; no ported config has a
+    multi-token head.  ``hvp`` as in ``apply``."""
+    logits, _, aux = _forward(params, policy_arrays, batch.get("tokens"),
+                              cfg, "train", None, None, impl, None, hvp,
+                              batch.get("embeds"))
     loss, acc = cross_entropy(logits, batch["labels"],
                               batch.get("loss_mask"))
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
     return loss + aux, {"loss": loss.detach(), "accuracy": acc,
                         "aux_loss": aux}
 
 
 # ============================================================ policy builder
 def _unit(group, layer, slot, tensors, n_params, macs, in_features,
-          pinned=None) -> QuantUnit:
-    name = f"{group}.{slot}.L{layer}"
+          sub=None, pinned=None) -> QuantUnit:
+    name = f"{group}.{slot}" + (f".e{sub}" if sub is not None else "") \
+        + f".L{layer}"
     if pinned is None and in_features < PIN_MIN_IN_FEATURES:
         pinned = PIN_NARROW_BITS
     return QuantUnit(name=name, group=group, layer=layer, slot=slot,
                      tensors=tuple(tensors), n_params=int(n_params),
                      macs_per_token=float(macs), in_features=int(in_features),
-                     pinned_bits=pinned)
+                     sub=sub, pinned_bits=pinned)
 
 
 def _block_units(cfg, bdef, group: str, layer: int, base: tuple):
+    """Quant units of one block: q/k/v and o; then the FFN's gate/up and
+    down, or the MoE's pinned 8-bit router and each expert's gate/up and
+    down (``sub`` = the expert, MACs a token k / E of the expert's)."""
     d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     ff = bdef.d_ff or cfg.d_ff
     nqkv = d * (h * dh + 2 * hkv * dh)
-    ups = ("up",) if bdef.ffn == "gelu" else ("gate", "up")
-    n_up = len(ups) * d * ff
-    return [
+    units = [
         _unit(group, layer, "attn_qkv",
               [base + ("attn", w, "w") for w in ("wq", "wk", "wv")],
               nqkv, nqkv, d),
         _unit(group, layer, "attn_wo", [base + ("attn", "wo", "w")],
-              h * dh * d, h * dh * d, h * dh),
+              h * dh * d, h * dh * d, h * dh)]
+    if bdef.ffn == "moe":
+        e, k, f = cfg.n_experts, cfg.top_k, cfg.d_ff
+        units.append(_unit(group, layer, "moe_router",
+                           [base + ("moe", "router", "w")], d * e, d * e, d,
+                           pinned=PIN_EDGE_BITS))
+        for ei in range(e):
+            n_gu = 2 * d * f
+            units.append(_unit(group, layer, "moe_gateup",
+                               [base + ("moe", "gate", "w"),
+                                base + ("moe", "up", "w")], n_gu,
+                               n_gu * k / e, d, sub=ei))
+            units.append(_unit(group, layer, "moe_down",
+                               [base + ("moe", "down", "w")], f * d,
+                               f * d * k / e, f, sub=ei))
+        return units
+    ups = ("up",) if bdef.ffn == "gelu" else ("gate", "up")
+    n_up = len(ups) * d * ff
+    return units + [
         _unit(group, layer, "mlp_gateup",
               [base + ("mlp", w, "w") for w in ups], n_up, n_up, d),
         _unit(group, layer, "mlp_down", [base + ("mlp", "down", "w")],
@@ -366,7 +417,8 @@ def build_policy(cfg, b_hi: float = 4.0, b_lo: float = 2.0
 def fetch_unit_tensor(params: dict, unit: QuantUnit, path: tuple):
     """Weight tensor and LSQ step of one member tensor of a unit (the
     reference's, for the port's layout: pattern layer ``r`` is
-    ``params["pat"][r]``, not index ``r`` of a stacked leaf)."""
+    ``params["pat"][r]``, not index ``r`` of a stacked leaf); a per-expert
+    unit's expert ``unit.sub`` of its bank, with that expert's step."""
     node = params
     for key in path[:-1]:
         node = node[key]
@@ -374,7 +426,11 @@ def fetch_unit_tensor(params: dict, unit: QuantUnit, path: tuple):
             node = node[unit.layer]
     if "sw" not in node:
         raise KeyError(f"no step size for {path}")
-    return node[path[-1]], node["sw"]
+    w, step = node[path[-1]], node["sw"]
+    if unit.sub is not None:
+        w = w[unit.sub]
+        step = step[unit.sub] if step.ndim >= 1 else step
+    return w, step
 
 
 def slot_index(cfg) -> Dict[tuple, tuple]:

@@ -51,13 +51,20 @@ from repro_torch.serve.config import EngineSpec
 from repro_torch.serve.paging import PagedServeCache
 
 
-def _quantize_qdense(p: dict, bits: float) -> dict:
+def _quantize_qdense(p: dict, bits) -> dict:
     """{'w','sw','sa'} -> {'wq','scale','sa'}: codes clamped to ``bits``'
     signed range, stored as int8 whatever the bits (PyTorch has no usable
     int4 dtype; the reference's int4 container also counts a byte a code),
-    and the scalar step as the scale."""
+    and the step as the scale.  An expert bank (E, K, N) takes a step and
+    a bit-width an expert (``bits`` a row), each over its expert's codes
+    (``repro/serve/engine.py:121-133``)."""
     step = torch.clamp(torch.abs(p["sw"]).float(), min=1e-9)
-    codes = quant.quantize_int(p["w"].float(), step, float(bits))
+    if p["w"].ndim == 3:
+        codes = torch.stack([quant.quantize_int(
+            p["w"][e].float(), step[e], float(b)).to(torch.int8)
+            for e, b in enumerate(bits)])
+    else:
+        codes = quant.quantize_int(p["w"].float(), step, float(bits))
     return {"wq": codes.to(torch.int8), "scale": step, "sa": p["sa"]}
 
 

@@ -4,8 +4,10 @@
 policy (``PrecisionPolicy.as_arrays()``), into the packed serving layout:
 int4 units -> K-major uint8 (2 codes/byte), int2 -> 4 codes/byte, the
 pinned 8-bit edges (the embedding, and an untied LM head) -> int8 codes
-with a scalar scale.  The pattern
-stays a per-layer list, byte-equal to the reference's
+with a scalar scale, and the MoE router at its pinned 8 bits -> an int8
+``PackedLinear``.  An expert bank (E, K, N) becomes a list of E
+``PackedLinear``, each at its expert's own bits, step and activation step.
+The pattern stays a per-layer list, byte-equal to the reference's
 ``pack_params(..., layout="unrolled")``.  Packing runs on the weights'
 device.  ``serving_layout`` is the walk it shares with the fake-quant
 layout (``serve.engine.quantize_for_serving``).
@@ -49,11 +51,15 @@ def _is_quant_node(node) -> bool:
 
 
 def _walk(node, path, layer, slot_of, policy_arrays, convert):
+    """``convert(node, bits)`` on each quant node at its layer's bits: a
+    float, or for an expert bank a row, a bit-width an expert."""
     if _is_quant_node(node):
         key = slot_of.get(path)
         bits = (4.0 if key is None      # no unit: the reference's default
-                else float(np.asarray(policy_arrays[key[0]][key[1]])[layer]))
-        return convert(node, bits)
+                else np.asarray(policy_arrays[key[0]][key[1]])[layer])
+        if node["w"].ndim == 3:
+            return convert(node, np.broadcast_to(bits, node["w"].shape[:1]))
+        return convert(node, float(bits))
     if isinstance(node, dict):
         return {k: _walk(v, path + (k,), layer, slot_of, policy_arrays,
                          convert)
@@ -106,11 +112,19 @@ def pack_params(params: dict, policy_arrays: Dict[str, Dict[str, Any]], cfg,
     list needs no plan, so it has no such argument, and any per-layer cache
     bits serve over any packed tree.
     """
-    return serving_layout(
-        params, policy_arrays, cfg,
-        lambda n, bits: quant.pack_linear(n["w"], n["sw"], n["sa"],
-                                          _int_bits(bits)),
-        device)
+    return serving_layout(params, policy_arrays, cfg, _pack_node, device)
+
+
+def _pack_node(node: dict, bits):
+    """One {'w','sw','sa'} node -> a PackedLinear; an expert bank (E, K, N)
+    with (E,) steps -> a list of E, each at its own bits (``bits`` a row)
+    (``repro/serve/packing.py:72-90``)."""
+    if node["w"].ndim == 3:
+        return [quant.pack_linear(node["w"][e], node["sw"][e],
+                                  node["sa"][e], _int_bits(bits[e]))
+                for e in range(node["w"].shape[0])]
+    return quant.pack_linear(node["w"], node["sw"], node["sa"],
+                             _int_bits(bits))
 
 
 def decode_weight_view(params: dict) -> dict:

@@ -90,6 +90,12 @@ class ContinuousBatchingScheduler:
             raise NotImplementedError(
                 "sampled scheduling (a sampling key and per-admission "
                 "nonces) is ROADMAP Queue 1 item 11; decoding is greedy")
+        if any(b.ffn == "moe" for b in engine.cfg.pattern):
+            raise NotImplementedError(
+                f"{engine.cfg.name}: the scheduler over a mixture of experts "
+                f"is ROADMAP Queue 1 item 13.1b (an expert's capacity "
+                f"depends on the whole batch, so a request's tokens depend "
+                f"on its batchmates); serve it with ServeEngine.generate")
         self.cache = engine.new_cache(n_slots)
         self._paged = engine.cache_layout == "paged"
         if self._paged:

@@ -393,6 +393,22 @@ def test_cuda_quant_matmul_tiled_ragged(card, bits, m, k, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 1280])
+@pytest.mark.parametrize("k,n", [(6144, 10752), (10752, 6144)])
+@pytest.mark.parametrize("bits", [4, 2])
+def test_cuda_quant_matmul_moe_experts(card, bits, k, n, m):
+    """dbrx-132b's expert projections (gate/up 6144 -> 10752, down 10752 ->
+    6144) at the rows of an expert's capacity buffer: 8 in a decode step
+    (the GEMV), 1280 in an 8 x 512 prefill (wgmma); within 1 bf16 ulp of
+    max|ref|."""
+    from repro_torch.kernels import cuda
+    assert cuda.quant_matmul_route(m, n, k) == ("gemv" if m == 8
+                                                else "wgmma")
+    got, want = _cuda_qmm_case(card, bits, m, k, n, seed=7)
+    assert (got.float() - want).abs().max() <= 2.0 ** -7 * want.abs().max()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m", [129, 8])
 @pytest.mark.parametrize("n", [256, 200])
 def test_cuda_quant_matmul_misaligned_views(card, n, m):
@@ -567,7 +583,7 @@ def _decode_positions(s, c):
 @pytest.mark.cuda
 @pytest.mark.parametrize("group,shape", [(g, s) for g in (1, 2, 3, 4, 8)
                                          for s in DECODE_SHAPES]
-                         + [(48, (6, 1024, 1))])
+                         + [(48, (6, 1024, 1)), (6, (6, 1024, 8))])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("bits", [8, 4])
@@ -576,7 +592,8 @@ def test_cuda_kv_decode(card, bits, d, group, dtype, shape):
     plan's first chunk boundary, the last row and past it; two calls equal
     bit for bit (the splits merge in a fixed order).  A group of 3 leaves
     one of a block's 4 warps idle; a group of 8 is split over two blocks,
-    granite-20b's 48 query heads on one KV head over 12."""
+    granite-20b's 48 query heads on one KV head over 12, dbrx-132b's 6 a
+    KV head over two blocks of 3."""
     from repro_torch.kernels import cuda, kv_quant
     b, s, hkv = shape
     g = torch.Generator(card).manual_seed(5)
@@ -617,6 +634,15 @@ def test_cuda_flash(card, s, d, group, causal, layout):
 def test_cuda_flash_mqa(card, s, causal, layout):
     """granite-20b's attention: 48 query heads on one KV head, D = 128."""
     _flash_case(card, 1, 1, 48, s, 128, causal, layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["bhsd", "model"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_dbrx(card, causal, layout):
+    """dbrx-132b's prefill: B = 8, 48 query heads on 8 KV heads, S = 512,
+    D = 128."""
+    _flash_case(card, 8, 8, 6, 512, 128, causal, layout)
 
 
 @pytest.mark.cuda
@@ -839,11 +865,12 @@ def test_cuda_flash_selector_probe_spread(card, h, hkv, s):
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("h,hkv,s,d", [(16, 16, 129, 80), (16, 16, 1000, 80),
-                                       (48, 1, 300, 128)])
+                                       (48, 1, 300, 128), (48, 8, 512, 128)])
 def test_cuda_flash_selector_probe_zoo(card, h, hkv, s, d, causal):
     """The selector probe at hubert-xlarge's head_dim 80 (keys one-hot in
-    all 80 columns, 64-79 in the second, zero-filled box) and at
-    granite-20b's 48 query heads on one KV head, bit for bit."""
+    all 80 columns, 64-79 in the second, zero-filled box), at granite-20b's
+    48 query heads on one KV head and at dbrx-132b's 48 on 8, bit for
+    bit."""
     import chip_smoke
     from repro_torch.kernels import cuda
     q, k, v, want = chip_smoke.flash_selector_probe(card, 2, h, hkv, s, d=d,
@@ -988,7 +1015,8 @@ def test_cuda_histogram_exact(card, n, n_bins):
 @pytest.mark.parametrize("n", [64, 19])
 @pytest.mark.parametrize("d", [128, 64])
 @pytest.mark.parametrize("bits,h,hkv", [(8, 16, 16), (4, 16, 16), (4, 16, 4),
-                                        (8, 4, 2), (8, 48, 1), (4, 48, 1)])
+                                        (8, 4, 2), (8, 48, 1), (4, 48, 1),
+                                        (8, 48, 8), (4, 48, 8)])
 def test_cuda_paged_kv_decode(card, bits, h, hkv, d, n):
     """Bit for bit the contiguous kernel on the gathered cache, within
     1e-4 * max|ref| of the plain version, over a shuffled table with stale
@@ -1162,6 +1190,7 @@ DECODE_PLAN_CASES = [  # (B, Hkv, group, rows)
     (6, 2, 2, 300), (6, 2, 1, 16), (6, 4, 4, 1000), (3, 2, 2, 24),
     (2, 2, 8, 300),       # a group of 8 is split over two blocks
     (8, 1, 48, 1024),     # granite-20b's MQA: 12 blocks of 4 query heads
+    (8, 8, 6, 1024),      # dbrx-132b's GQA 48/8: 2 blocks of 3 a KV head
     (8, 16, 1, 8192), (1, 1, 1, 200_000), (1, 1, 1, 1)]
 
 
@@ -1185,6 +1214,8 @@ def test_decode_plan(b, hkv, group, rows, bits):
         splits, c, gblocks)
     if (b, hkv, rows) == (8, 16, 1024):
         assert c == 128 and b * hkv * splits >= 2 * 132
+    if (b, hkv, group, rows) == (8, 8, 6, 1024):
+        assert (splits, c, gblocks) == (8, 128, 2)
     if rows <= 16:
         assert splits == 1
 

@@ -171,3 +171,39 @@ def test_chip_smoke_hubert_phase_runs_on_cpu(cpu_card, monkeypatch):
         "quant_matmul": 6 * layers, "lsq_fakequant": 4 * layers + 1,
         "flash_attention": layers}
     assert fwd["rel_logit_err"] == 0.0
+
+
+def test_chip_smoke_dbrx_phase_runs_on_cpu(cpu_card):
+    """dbrx-132b's phase at smoke size in bf16, as on the card (4 experts,
+    top-2, LayerNorm): Z1-Z4 hold; EAGL makes one histogram launch a
+    tensor (4 + 3 E a layer); a decode step and a prefill launch 4 + 3 E
+    quant_matmul and 3 + 2 E lsq_fakequant a layer, one more for the head,
+    and one attention a layer, as ``step_launches`` works out (208, 141
+    and 4 at the card's 4 layers of 16 experts); the check reads 0 over
+    the prefill and 8 decode steps."""
+    full = get_config("dbrx-132b").replace(n_repeats=cpu_card.DBRX_DEPTH)
+    assert cpu_card.step_launches(full) == {
+        "quant_matmul": 208, "lsq_fakequant": 141, "attention": 4}
+    cfg = get_config("dbrx-132b").smoke().replace(**BF16)
+    rec = cpu_card.phase_zoo(cfg, torch.device("cpu"), "cpu rehearsal")
+    e, layers = cfg.n_experts, cfg.n_repeats
+    assert rec["select"]["take_equal"] and rec["select"]["n2"]
+    assert rec["select"]["launches"]["histogram"] == (4 + 3 * e) * layers
+    assert set(rec["raw_bytes_of"]) == {"embed", "head", "attn", "moe",
+                                        "norms"}
+    assert sum(rec["raw_bytes_of"].values()) == rec["raw_weight_bytes"]
+    for name, run in rec["serve"].items():
+        attention = ("paged_kv_decode_attention" if name.startswith("paged")
+                     else "kv_decode_attention")
+        for launches in (run["launches_per_decode_step"],
+                         run["launches_per_prefill"]):
+            assert (launches["quant_matmul"], launches["lsq_fakequant"]) == (
+                (4 + 3 * e) * layers, (3 + 2 * e) * layers + 1)
+        assert run["launches_per_decode_step"][attention] == layers
+        assert run["dtoh_copies_8_steps"] == 0
+    assert rec["serve"]["paged-int4"]["tokens"] == \
+        rec["serve"]["contiguous-int4"]["tokens"]
+    check = rec["check"][8]
+    assert len(check["rel_logit_err"]) == cpu_card.ZOO_CHECK_DECODE + 1
+    assert max(check["rel_logit_err"]) == 0.0
+    assert rec["peak_bytes"] == 0 and rec["packed_weight_bytes"] > 0
