@@ -10,10 +10,12 @@ Phases, in order; any failure exits non-zero:
   3. kernels - each of the eight kernels against its plain PyTorch version at
                the main paths' shapes (olmo-1b's and bert-base's, and the
                zoo's: quant_matmul at granite-20b's and deepseek-7b's
-               projections and dbrx-132b's experts at M = 8 and 1280,
+               projections, dbrx-132b's experts at M = 8 and 1280 and
+               qwen2-vl-7b's four projections at M = 8 and 4096,
                decode attention at granite's 48 query heads on one KV
-               head and dbrx's 48 on 8 in both layouts, flash_attention at
-               granite's MQA prefill, dbrx's GQA 48/8 and hubert-xlarge's
+               head, dbrx's 48 on 8 and qwen's 28 on 4 in both layouts,
+               flash_attention at granite's MQA prefill, dbrx's GQA 48/8,
+               qwen's 28/4 and hubert-xlarge's
                head_dim 80, not causal), with its tolerance, kernel / plain /
                library times (CUDA events, warm-up excluded, L2 flushed) and
                bound; the decode GEMV's shapes also in device time alone
@@ -107,6 +109,13 @@ Phases, in order; any failure exits non-zero:
                expert its own 4/2-bit unit, every expert projection through
                quant_matmul and every expert activation through
                lsq_fakequant (phase_zoo).
+  qwen       - qwen2-vl-7b (M-RoPE, GQA 28/4, d_ff 18944, vocab 152064)
+               at its published widths and depth: the zoo's phase and gates
+               Z1-Z4 over text (the three position streams equal), Z5 (an
+               8 x 512 prefill opening with an image's distinct (t, h, w)
+               streams, kernel path against plain path), and the
+               schedule's paged full run over its first SCHED_DEPTH layers
+               (suffix prefills at shifted streams; gates A, B, D).
 The second-to-last line is the kernels JSON, the last the device JSON.
 Details go to chiprun_out/chip_smoke.json and chiprun_out/build_log.txt.
 """
@@ -436,6 +445,9 @@ ZOO_PROJECTIONS = ((6144, 128), (24576, 6144), (4096, 11008), (11008, 4096))
 # 8 x 512 prefill (round_up(t k / E x 1.25, 8))
 MOE_PROJECTIONS = ((6144, 10752), (10752, 6144))
 MOE_ROWS = (8, 1280)
+# qwen2-vl-7b's projections (K, N): q and o, k and v (4 KV heads of 128),
+# gate and up, down; in a decode step at B = 8 and an 8 x 512 prefill
+QWEN_PROJECTIONS = ((3584, 3584), (3584, 512), (3584, 18944), (18944, 3584))
 
 
 def check_quant_matmul(timer, dev, gen):
@@ -443,7 +455,8 @@ def check_quant_matmul(timer, dev, gen):
     shapes of olmo-1b, decode M = 8 and prefill M = 4096), the zoo's
     (``ZOO_PROJECTIONS``, the same bits and M), dbrx-132b's experts
     (``MOE_PROJECTIONS`` at ``MOE_ROWS``, the tiled ones also in device
-    time alone beside cuBLAS bf16), the identity
+    time alone beside cuBLAS bf16), qwen2-vl-7b's (``QWEN_PROJECTIONS``,
+    the same bits and M, in device time alone too), the identity
     probe, and ragged tiled shapes: M = 4099 (a ragged M through the wgmma
     route), and M = 129 with N = 200 and K = 520 (ragged M, N and a partial
     last K step; N % 16 != 0 takes the mma.sync route).  Then the GEMV
@@ -464,6 +477,12 @@ def check_quant_matmul(timer, dev, gen):
             for m in MOE_ROWS:
                 rec = qmm_case(timer, dev, gen, bits, m, k, n, alone=True)[0]
                 rec["moe"] = True
+                cases.append(rec)
+    for bits in (4, 2):
+        for (k, n) in QWEN_PROJECTIONS:
+            for m in (8, 8 * 512):
+                rec = qmm_case(timer, dev, gen, bits, m, k, n, alone=True)[0]
+                rec["qwen"] = True
                 cases.append(rec)
     for bits in (4, 2):
         cases.append(identity_probe(timer, dev, gen, bits))
@@ -711,20 +730,22 @@ def kv_decode_selector_probe(dev, bits, layout, b=4, h=16, hkv=16, s=1024,
 
 
 # (H, Hkv) of the decode checks: olmo-1b's MHA, granite-20b's MQA (48
-# query heads on one KV head: 12 blocks of 4 over each chunk) and dbrx-132b's
-# GQA 48/8 (groups of 6: 2 blocks of 3)
-DECODE_HEADS = ((16, 16), (48, 1), (48, 8))
+# query heads on one KV head: 12 blocks of 4 over each chunk), dbrx-132b's
+# GQA 48/8 (groups of 6: 2 blocks of 3) and qwen2-vl-7b's 28/4 (groups of
+# 7, a prime: 7 blocks of one query head, each reading its KV head's rows)
+DECODE_HEADS = ((16, 16), (48, 1), (48, 8), (28, 4))
 
 
 def check_kv_decode(timer, dev, gen):
     """The contiguous decode at B = 8, S = 1024, D = 128, H = Hkv = 16,
-    granite-20b's H = 48 on Hkv = 1 and dbrx-132b's 48 on 8, one slot past
+    granite-20b's H = 48 on Hkv = 1, dbrx-132b's 48 on 8 and qwen2-vl-7b's
+    28 on 4, one slot past
     the end and the others
     spread over the cache, int8 and int4: within 1e-4 * max|ref| of the
     plain version, timed on the timer and in device time alone beside SDPA
     on the dequantized bf16 cache, MHA also on plans of other chunk sizes;
     two calls equal bit for bit; then the selector probe, bit for bit, at
-    MHA, GQA 16/4, MQA 48/1 and GQA 48/8."""
+    MHA, GQA 16/4, MQA 48/1, GQA 48/8 and GQA 28/4."""
     from repro_torch.kernels import cuda, kv_quant, ref
     b, s, d = 8, 1024, 128
     cases = []
@@ -798,7 +819,7 @@ def check_kv_decode(timer, dev, gen):
         cases.append(rec)
         del k, v, qc, kd, vd, args
     for bits in (8, 4):
-        for h, hkv in ((16, 16), (16, 4), (48, 1), (48, 8)):
+        for h, hkv in ((16, 16), (16, 4), (48, 1), (48, 8), (28, 4)):
             calls, splits, c, same = kv_decode_selector_probe(
                 dev, bits, "contiguous", h=h, hkv=hkv)
             cases.append({"kv_decode_selector_probe": True, "bits": bits,
@@ -861,7 +882,8 @@ FLASH_CASES = ((8, 16, 16, 512, 128, True, False),
                (2, 16, 4, 300, 128, True, True),
                (1, 48, 1, 2048, 128, True, True),
                (8, 16, 16, 1000, 80, False, True),
-               (8, 48, 8, 512, 128, True, True))
+               (8, 48, 8, 512, 128, True, True),
+               (8, 28, 4, 512, 128, True, True))
 
 
 def check_flash(timer, dev, gen):
@@ -872,8 +894,8 @@ def check_flash(timer, dev, gen):
     then the selector probe, bit for bit, at S = 128, 129, 300 and 513 with
     MHA and GQA 16/4, causal and with keys spread over every kv tile, and
     causal with the queries cut to their last rows (q_offset > 0); at D =
-    80 (S = 129 and 1000, both masks), at MQA 48/1 (S = 300, both) and at
-    dbrx-132b's GQA 48/8 (S = 512, both)."""
+    80 (S = 129 and 1000, both masks), at MQA 48/1 (S = 300, both), at
+    dbrx-132b's GQA 48/8 and at qwen2-vl-7b's 28/4 (S = 512, both)."""
     from repro_torch.kernels import cuda, ops
     sdpa = torch.nn.functional.scaled_dot_product_attention
     cases = []
@@ -960,7 +982,8 @@ def check_flash(timer, dev, gen):
                     f"output row i equals V[pos(pi(i))] bit for bit: {same}")
     for causal in (True, False):
         for (s, h, hkv, d) in ((129, 16, 16, 80), (1000, 16, 16, 80),
-                               (300, 48, 1, 128), (512, 48, 8, 128)):
+                               (300, 48, 1, 128), (512, 48, 8, 128),
+                               (512, 28, 4, 128)):
             q, k, v, want = flash_selector_probe(dev, 2, h, hkv, s, d=d,
                                                  causal=causal)
             got = cuda.flash_attention(q, k, v, causal=causal)
@@ -1608,7 +1631,7 @@ def paged_case(gen, dev, bits, b, h, hkv, d, n, page, pos):
 def check_paged_kv_decode(timer, dev, gen):
     """The paged decode at the serve shapes (B = 8, D = 128, page 16, 64
     pages a slot, positions up to 1023), int8 and int4, GQA 16/4,
-    granite-20b's MQA 48/1 and dbrx-132b's GQA 48/8:
+    granite-20b's MQA 48/1, dbrx-132b's GQA 48/8 and qwen2-vl-7b's 28/4:
     bit for bit the contiguous kernel on the gathered cache and itself on
     a second call, within 1e-4 * max|ref| of the plain version, finite over
     NaN-poisoned free pages.  Timed against SDPA on the dequantized bf16
@@ -1622,7 +1645,8 @@ def check_paged_kv_decode(timer, dev, gen):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     cases = []
     for bits, h, hkv in ((8, 16, 16), (4, 16, 16), (4, 16, 4), (8, 48, 1),
-                         (4, 48, 1), (8, 48, 8), (4, 48, 8)):
+                         (4, 48, 1), (8, 48, 8), (4, 48, 8), (8, 28, 4),
+                         (4, 28, 4)):
         q, qc, (kqp, vqp, vsp), tbl = paged_case(gen, dev, bits, b, h, hkv,
                                                  d, n, page, pos)
         args = (q, kqp, qc["k_scale"], vqp, vsp, tbl, pos)
@@ -1694,7 +1718,7 @@ def check_paged_kv_decode(timer, dev, gen):
         cases.append(rec)
         del q, qc, kqp, vqp, vsp, tbl, args, gathered, kd, vd
     for bits in (8, 4):
-        for h, hkv in ((16, 16), (16, 4), (48, 1), (48, 8)):
+        for h, hkv in ((16, 16), (16, 4), (48, 1), (48, 8), (28, 4)):
             calls, splits, c, same = kv_decode_selector_probe(
                 dev, bits, "paged", h=h, hkv=hkv)
             cases.append({"kv_decode_selector_probe": True, "bits": bits,
@@ -2303,10 +2327,13 @@ def suffix_prefill_device(engine, sched, reqs, dev) -> dict:
             "suffix_top": suf["top"][:8], "whole_top": full["top"][:8]}
 
 
-def phase_schedule(cfg, packed, pa, dev, smi_line):
-    """The continuous-batching scheduler over olmo-1b at full width: the 24
+def phase_schedule(cfg, packed, pa, dev, smi_line, runs=tuple(SCHED_RUNS)):
+    """The continuous-batching scheduler over a decoder at full width
+    (olmo-1b; qwen2-vl-7b's paged full run, whose suffix prefills rotate
+    by shifted M-RoPE streams): the 24
     requests of ``schedule_requests`` through 8 slots (max_seq 1024, page
-    16, decode chunk 16, prompt bucket 16), paged full bf16 (aligned hits
+    16, decode chunk 16, prompt bucket 16), each run of ``runs``: paged
+    full bf16 (aligned hits
     through the suffix prefill), paged int8 (identical hits and
     copy-on-write) and contiguous int4; the paged pools hold 160 pages, so
     admissions are deferred and pages recycled.  Gates:
@@ -2334,7 +2361,8 @@ def phase_schedule(cfg, packed, pa, dev, smi_line):
     from repro_torch.serve import EngineSpec, Request, ServeEngine
     base = schedule_requests(cfg, np.random.default_rng(2))
     out = {}
-    for name, (spec, need, never) in SCHED_RUNS.items():
+    for name in runs:
+        spec, need, never = SCHED_RUNS[name]
         engine = ServeEngine(cfg, packed, pa, SCHED_MAX_SEQ,
                              EngineSpec(page_size=PAGE, decode_chunk=16,
                                         n_pages=SCHED_POOL, **spec),
@@ -2595,13 +2623,13 @@ def shadowed(block_apply, errs: list):
     (impl="ref") on the same input and a copy of the same cache, and
     appends the relative RMS and max-abs errors of the block's output."""
     def both(p, x, bits, cfg, bdef, mode, cache, positions, impl="auto",
-             hvp=False):
+             hvp=False, mrope_positions=None):
         copy = None if cache is None else {k: v.clone()
                                            for k, v in cache.items()}
         want, _, _ = block_apply(p, x, bits, cfg, bdef, mode, copy,
-                                 positions, "ref", hvp)
+                                 positions, "ref", hvp, mrope_positions)
         got, new, aux = block_apply(p, x, bits, cfg, bdef, mode, cache,
-                                    positions, impl, hvp)
+                                    positions, impl, hvp, mrope_positions)
         errs.append((rel_rms_err(got, want), rel_err(got, want)))
         return got, new, aux
     return both
@@ -3709,7 +3737,11 @@ def phase_zoo(cfg, dev, smi_line):
     prefill and ZOO_CHECK_DECODE decode steps on the int8 cache, kernel
     path against plain within CONTROL_FACTOR x the float64-attention
     control.  Z4: the peak of device memory (init, selection and packing,
-    and every run) below the card's.  Readings: init, select and pack
+    and every run) below the card's.  An M-RoPE model (qwen2-vl-7b) also
+    runs Z5, ``mrope_prefill_check``'s image-and-text prefill, and
+    ``phase_schedule``'s paged full run over its first SCHED_DEPTH layers
+    (suffix prefills at shifted streams; gates A, B and D).  Readings:
+    init, select and pack
     seconds, raw weight bytes (in all, and of the token table, the head,
     the attention and the FFNs or experts over the layers), packed weight
     bytes, and phase_serve's."""
@@ -3760,6 +3792,17 @@ def phase_zoo(cfg, dev, smi_line):
     rec["check"] = phase_check(cfg, packed, pa, dev, tokens, lengths,
                                n_decode=ZOO_CHECK_DECODE, cache_bits=(8,))
     log(f"  Z3 check {time.perf_counter() - t0:.1f} s")
+    if cfg.rope == "mrope":
+        t0 = time.perf_counter()
+        rec["mrope"] = mrope_prefill_check(cfg, packed, pa, dev)
+        log(f"  Z5 image-and-text prefill {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        rec["schedule"] = phase_schedule(
+            cfg.replace(n_repeats=SCHED_DEPTH),
+            dict(packed, pat=packed["pat"][:SCHED_DEPTH]), pa, dev, smi_line,
+            runs=("paged-full",))
+        log(f"  schedule paged-full (the first {SCHED_DEPTH} layers) "
+            f"{time.perf_counter() - t0:.1f} s")
     rec["peak_bytes"] = max([rec["build_peak_bytes"]]
                             + [r["max_memory_allocated"]
                                for r in rec["serve"].values()])
@@ -3770,6 +3813,89 @@ def phase_zoo(cfg, dev, smi_line):
     torch.cuda.empty_cache()
     if not rec["peak_bytes"] < card:
         raise RuntimeError(f"{cfg.name} Z4: peak {rec['peak_bytes']} bytes")
+    return rec
+
+
+# Z5: an 8 x 512 prefill whose rows open with an image of one frame on 16 x
+# 16 patches (Qwen2-VL's merged grid of a 448 x 448 image), then text
+MROPE_B, MROPE_S, MROPE_GRID = 8, 512, (1, 16, 16)
+
+
+def image_text_streams(b: int, s: int, grid, dev) -> torch.Tensor:
+    """Qwen2-VL's (3, B, S) position streams of an image followed by text:
+    the image's t x h x w patches first (each stream the patch's frame,
+    row and column), then text on all three streams from the grid's
+    largest position plus one."""
+    t, gh, gw = grid
+    i = torch.arange(t * gh * gw)
+    image = torch.stack([i // (gh * gw), (i // gw) % gh, i % gw])
+    text = max(t, gh, gw) + torch.arange(s - t * gh * gw)
+    streams = torch.cat([image, text.expand(3, -1)], dim=1)
+    return streams[:, None].expand(3, b, s).contiguous().to(dev)
+
+
+def mrope_prefill_check(cfg, packed, pa, dev) -> dict:
+    """Z5, where M-RoPE's sections matter: MROPE_B prompts of MROPE_S
+    seeded tokens whose first positions carry an image's distinct (t, h,
+    w) streams (``image_text_streams``), through the packed prefill
+    forward (``transformer.apply``, every position's logits): the kernel
+    path against the plain path (impl="ref") within CONTROL_FACTOR x the
+    control (the plain path with its attention in float64), as phase
+    check's gate; the kernel path launches L flash_attention and
+    ``step_launches``' quant_matmul and lsq_fakequant; and the same tokens
+    on text streams (the 1-D positions three times) move the logits by
+    more than 1e-3 of max|logit|, so the sections reached the rotation."""
+    from repro_torch.kernels import cuda
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tf
+    tokens = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab, (MROPE_B, MROPE_S)), device=dev)
+    streams = image_text_streams(MROPE_B, MROPE_S, MROPE_GRID, dev)
+    text = torch.arange(MROPE_S, device=dev).expand(3, MROPE_B, MROPE_S)
+
+    def forward(impl, pos):
+        with torch.no_grad():
+            return tf.apply(packed, pa, tokens, cfg, mode="prefill",
+                            impl=impl, mrope_positions=pos)[0]
+    sync(dev)
+    cuda.reset_launches()
+    kernel = forward("auto", streams)
+    sync(dev)
+    launches = dict(cuda.LAUNCHES)
+    plain = forward("ref", streams)
+    with patched(attn, "chunked_attention", attention_f64):
+        control = forward("ref", streams)
+    as_text = forward("auto", text)
+    want = step_launches(cfg)
+    rec = {"b": MROPE_B, "s": MROPE_S, "grid": list(MROPE_GRID),
+           "finite": bool(torch.isfinite(kernel).all()),
+           "launches": {k: v for k, v in launches.items() if v},
+           "rel_logit_err": rel_err(kernel, plain),
+           "control_rel_logit_err": rel_err(control, plain),
+           "text_streams_rel_logit_diff": rel_err(as_text, kernel)}
+    del kernel, plain, control, as_text
+    bound = CONTROL_FACTOR * rec["control_rel_logit_err"]
+    log(f"  Z5 image ({'x'.join(map(str, MROPE_GRID))} patches) and text, "
+        f"{MROPE_B} x {MROPE_S}: max|dlogit|/max|logit| "
+        f"{rec['rel_logit_err']:.4g} (bound {CONTROL_FACTOR} x control "
+        f"{rec['control_rel_logit_err']:.4g} = {bound:.4g}); text streams "
+        f"move the logits by {rec['text_streams_rel_logit_diff']:.4g} of "
+        f"max|logit|; launches {rec['launches']}")
+    bad = []
+    if not rec["finite"]:
+        bad.append("non-finite logits")
+    if not rec["rel_logit_err"] <= bound:
+        bad.append(f"kernel vs plain {rec['rel_logit_err']} over {bound}")
+    if not rec["text_streams_rel_logit_diff"] > 1e-3:
+        bad.append(f"text streams moved the logits by only "
+                   f"{rec['text_streams_rel_logit_diff']}")
+    got = (launches["quant_matmul"], launches["lsq_fakequant"],
+           launches["flash_attention"])
+    if got != (want["quant_matmul"], want["lsq_fakequant"],
+               want["attention"]):
+        bad.append(f"launches {got}, expected {want}")
+    if bad:
+        raise RuntimeError(f"{cfg.name} Z5: {bad}")
     return rec
 
 
@@ -3952,6 +4078,12 @@ def main():
                      dev, smi_line)
     dbrx["phase_s"] = time.perf_counter() - t0
     log(f"  dbrx phase {dbrx['phase_s']:.1f} s")
+    log("qwen (qwen2-vl-7b, M-RoPE: select, pack, serve, check, an image-"
+        "and-text prefill, the scheduler):")
+    t0 = time.perf_counter()
+    qwen = phase_zoo(get_config("qwen2-vl-7b"), dev, smi_line)
+    qwen["phase_s"] = time.perf_counter() - t0
+    log(f"  qwen phase {qwen['phase_s']:.1f} s")
 
     # each kernel's launches on the path that runs it
     launches = dict(runs["contiguous-int8"]["launches"])
@@ -3987,7 +4119,7 @@ def main():
                    "schedule": schedule, "check": check,
                    "train": train, "alps": alps, "hawq": hawq,
                    "frontier": front, "joint": joint, "bert": bert,
-                   "zoo": zoo, "hubert": hubert, "dbrx": dbrx,
+                   "zoo": zoo, "hubert": hubert, "dbrx": dbrx, "qwen": qwen,
                    "total_s": time.perf_counter() - t_start,
                    "launch_counts_after": dict(cuda.LAUNCHES)}, f, indent=1)
     log(f"chip_smoke: {time.perf_counter() - t_start:.0f} s in all")

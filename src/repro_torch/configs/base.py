@@ -3,11 +3,12 @@
 
 The port covers the dense zoo: causal GQA (MHA to MQA) with a SwiGLU or
 GeLU FFN, and the encoders' bidirectional GQA, with RMSNorm or LayerNorm,
-RoPE or none, tied or untied heads, and frame embeddings in place of a
-token table (``embed_input``); and the routed mixture of experts
-(``BlockDef(..., "moe")``: ``n_experts``, ``top_k``, ``capacity_factor``,
+RoPE, Qwen2-VL's M-RoPE (``rope="mrope"``, ``mrope_sections``) or none,
+tied or untied heads, and frame embeddings in place of a token table
+(``embed_input``); and the routed mixture of experts (``BlockDef(...,
+"moe")``: ``n_experts``, ``top_k``, ``capacity_factor``,
 ``moe_aux_weight``).  The fields for the rest of the zoo (the shared
-expert, MLA, SSMs, M-RoPE) arrive with ROADMAP Queue 1 item 13.
+expert, MLA, SSMs) arrive with ROADMAP Queue 1 item 13.
 """
 from __future__ import annotations
 
@@ -40,8 +41,11 @@ class ArchConfig:
 
     norm: str = "rms"                    # 'rms' | 'ln' | 'nonparam_ln'
     activation: str = "silu"             # 'silu' | 'gelu' (tanh form)
-    rope: str = "rope"                   # 'rope' | 'none'
+    rope: str = "rope"                   # 'rope' | 'mrope' | 'none'
     rope_base: float = 10_000.0
+    # M-RoPE: the head-dim halves split into (temporal, height, width)
+    # sections, each rotated by its own position stream
+    mrope_sections: Tuple[int, ...] = (16, 24, 24)
     causal: bool = True
     embed_input: bool = False            # modality stub: takes (B,S,d) embeds
     tie_embeddings: bool = False
@@ -63,7 +67,9 @@ class ArchConfig:
     def smoke(self) -> "ArchConfig":
         """Reduced same-family config for CPU tests (the JAX ``smoke()``):
         an MoE config keeps at least 4 experts (and top_k of them) and
-        routes to at most 2."""
+        routes to at most 2; M-RoPE's sections shrink with the head dim in
+        proportion, the last taking the rounding ((16, 24, 24) -> (4, 6, 6)
+        at head_dim 32)."""
         scale = dict(
             d_model=128, n_heads=4, head_dim=32,
             n_kv_heads=max(1, (4 * self.n_kv_heads) // max(self.n_heads, 1)),
@@ -74,6 +80,12 @@ class ArchConfig:
             param_dtype=torch.float32,
             compute_dtype=torch.float32,
         )
+        if self.rope == "mrope":
+            half = scale["head_dim"] // 2
+            orig = sum(self.mrope_sections)
+            secs = [max(1, s * half // orig) for s in self.mrope_sections]
+            secs[-1] += half - sum(secs)
+            scale["mrope_sections"] = tuple(secs)
         if self.n_experts:
             scale.update(n_experts=max(4, self.top_k),
                          top_k=min(self.top_k, 2))

@@ -185,8 +185,11 @@ def init_gqa(gen: torch.Generator, cfg, device) -> dict:
 
 
 def gqa_apply(p: dict, x: torch.Tensor, bits: dict, cfg, mode: str, cache,
-              positions: torch.Tensor, impl: str = "auto", hvp: bool = False):
-    """x (B, S, d); bits {'attn_qkv', 'attn_wo'}; positions (B, S).
+              positions: torch.Tensor, impl: str = "auto", hvp: bool = False,
+              mrope_positions=None):
+    """x (B, S, d); bits {'attn_qkv', 'attn_wo'}; positions (B, S), which
+    address the cache; ``mrope_positions`` (3, B, S), the M-RoPE streams
+    that rotate q and k under ``cfg.rope == "mrope"``.
     Returns (y, cache): the prefill K/V in prefill mode, the (in place)
     updated cache in decode mode, None in train mode.  ``hvp`` (train
     mode): the LSQ backward in torch ops (``quant.LsqFakeQuantHvp``)."""
@@ -198,8 +201,11 @@ def gqa_apply(p: dict, x: torch.Tensor, bits: dict, cfg, mode: str, cache,
     q = q.reshape(b, s, h, dh)
     k = k.reshape(b, s, hkv, dh)
     v = v.reshape(b, s, hkv, dh)
-    if cfg.rope == "rope":      # rope="none" (hubert-xlarge): no rotation
-        cos, sin = common.rope_angles(positions, dh, cfg.rope_base)
+    if cfg.rope != "none":      # rope="none" (hubert-xlarge): no rotation
+        cos, sin = (common.mrope_angles(mrope_positions, dh,
+                                        cfg.mrope_sections, cfg.rope_base)
+                    if cfg.rope == "mrope"
+                    else common.rope_angles(positions, dh, cfg.rope_base))
         q, k = common.apply_rope(q, cos, sin), common.apply_rope(k, cos, sin)
 
     if cache is not None and ("pk" in cache or "pkq" in cache) \

@@ -74,20 +74,53 @@ def init_norm(kind: str, d: int, dtype, device) -> dict:
     raise ValueError(kind)
 
 
+def rope_freqs(half: int, base: float, device) -> torch.Tensor:
+    """base ** (-i / half) for i < half, float32, by PyTorch's float32
+    ``pow``.  XLA's float32 power is correctly rounded and this one is not
+    everywhere: at head_dim 128 it is one ulp off at 4 of 64 columns at
+    base 1e6 and 3 at base 1e4 (none at the smoke configs' head_dim 32),
+    which moves cos and sin at position p by up to about 7.5e-9 p (7.6e-6
+    at p = 1024).  Rounding the power once from float64 gives the
+    reference's values, and also moves chip_smoke's teacher-forced drift
+    statistic on deepseek-7b past its bound: ROADMAP Queue 3 entry 7."""
+    exps = -torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return torch.pow(torch.tensor(base, dtype=torch.float32, device=device),
+                     exps)
+
+
 def rope_angles(positions: torch.Tensor, dim: int, base: float = 10_000.0):
     """positions (..., S) int -> cos, sin (..., S, dim // 2) float32.
 
-    Frequencies and angles are the reference's float32 values; cos and sin
-    are evaluated in float64 and rounded once, which agrees with XLA's
-    float32 cos/sin far more often than PyTorch's float32 ones (a 1-ulp
-    difference here can flip an activation code downstream).
+    Frequencies (``rope_freqs``, within an ulp of the reference's) and
+    angles are float32 values; cos and sin are evaluated in float64 and
+    rounded once, which agrees with XLA's float32 cos/sin far more often
+    than PyTorch's float32 ones (a 1-ulp difference here can flip an
+    activation code downstream).
     """
-    half = dim // 2
-    exps = -torch.arange(0, half, dtype=torch.float32,
-                         device=positions.device) / half
-    freqs = torch.pow(torch.tensor(base, dtype=torch.float32,
-                                   device=positions.device), exps)
+    freqs = rope_freqs(dim // 2, base, positions.device)
     ang = (positions.float()[..., None] * freqs).double()
+    return torch.cos(ang).float(), torch.sin(ang).float()
+
+
+def mrope_angles(positions: torch.Tensor, dim: int,
+                 sections=(16, 24, 24), base: float = 10_000.0):
+    """Qwen2-VL's M-RoPE: positions (3, B, S) int, the (temporal, height,
+    width) streams -> cos, sin (B, S, dim // 2) float32.  The head-dim
+    halves split into ``sections`` (summing to dim // 2), each rotated by
+    its own stream at the frequencies of its columns
+    (``repro/models/common.py:86-103``).  Frequencies, angles, cos and sin
+    are evaluated as ``rope_angles`` evaluates them, so three equal
+    streams give ``rope_angles``' tensors exactly."""
+    half = dim // 2
+    if sum(sections) != half or positions.shape[0] != len(sections):
+        raise ValueError(f"mrope_angles: sections {tuple(sections)} must sum "
+                         f"to dim // 2 = {half}, one stream each; positions "
+                         f"{tuple(positions.shape)}")
+    freqs = rope_freqs(half, base, positions.device)
+    ang_all = positions.float()[..., None] * freqs        # (3, B, S, half)
+    bounds = np.cumsum((0,) + tuple(sections))
+    ang = torch.cat([ang_all[axis, ..., lo:hi] for axis, (lo, hi) in
+                     enumerate(zip(bounds[:-1], bounds[1:]))], dim=-1).double()
     return torch.cos(ang).float(), torch.sin(ang).float()
 
 

@@ -1,6 +1,6 @@
 """Model stack and LM loss of the dense zoo (the olmo family,
-internlm2, deepseek, granite, and the encoders bert-base and
-hubert-xlarge) and of dbrx's mixture of experts — port of
+internlm2, deepseek, granite, qwen2-vl's M-RoPE backbone, and the encoders
+bert-base and hubert-xlarge) and of dbrx's mixture of experts — port of
 ``repro/models/transformer.py``.
 
 The JAX model stacks the repeat pattern and runs it under ``lax.scan`` (or
@@ -46,9 +46,9 @@ def _check_supported(cfg) -> None:
     if cfg.prefix or cfg.activation not in ("silu", "gelu"):
         raise NotImplementedError("prefix blocks and activations other than "
                                   "SiLU and GeLU are ROADMAP Queue 1 item 13")
-    if cfg.rope not in ("rope", "none"):
-        raise NotImplementedError(f"rope={cfg.rope!r} (M-RoPE) is ROADMAP "
-                                  f"Queue 1 item 13")
+    if cfg.rope not in ("rope", "mrope", "none"):
+        raise NotImplementedError(f"rope={cfg.rope!r} is not a rope of the "
+                                  f"reference")
 
 
 def init_block(gen: torch.Generator, cfg, bdef, device) -> dict:
@@ -103,14 +103,15 @@ def init_params(cfg, seed: int = 0, device="cuda") -> dict:
 
 def block_apply(p: dict, x: torch.Tensor, bits: dict, cfg, bdef,
                 mode: str, cache, positions: torch.Tensor, impl: str = "auto",
-                hvp: bool = False):
+                hvp: bool = False, mrope_positions=None):
     """One GQA block (causal or not, as ``cfg.causal`` says) with its
     FFN: the routed experts for ``bdef.ffn == "moe"``, GeLU for "gelu",
-    else ``cfg.activation`` (the reference's choice).  Returns (x,
+    else ``cfg.activation`` (the reference's choice).  ``mrope_positions``:
+    the (3, B, S) M-RoPE streams of an M-RoPE config.  Returns (x,
     new_cache, aux): the MoE's load-balance loss, None for a dense FFN."""
     h = common.apply_norm(cfg.norm, x, p["norm1"])
     y, new_cache = attn.gqa_apply(p["attn"], h, bits, cfg, mode, cache,
-                                  positions, impl, hvp)
+                                  positions, impl, hvp, mrope_positions)
     x = x + y
     h = common.apply_norm(cfg.norm, x, p["norm2"])
     if bdef.ffn == "moe":
@@ -232,14 +233,19 @@ def apply(params: dict, policy_arrays: dict, tokens: Optional[torch.Tensor],
           cfg, mode: str = "train", caches: Optional[dict] = None,
           positions: Optional[torch.Tensor] = None, impl: str = "auto",
           logits_at: Optional[torch.Tensor] = None, hvp: bool = False,
-          embeds: Optional[torch.Tensor] = None):
+          embeds: Optional[torch.Tensor] = None,
+          mrope_positions: Optional[torch.Tensor] = None):
     """Returns (logits, new_caches).
 
     tokens (B, S) int, or None with ``embeds`` (B, S, d_model): frame
     embeddings that take the token table's place (the reference's
     ``batch["embeds"]``; hubert-xlarge's ``embed_input``), cast to the
     compute dtype; positions (B, S) absolute positions (default
-    arange); ``logits_at`` (B,) picks one position per row before the LM
+    arange), which address the cache; ``mrope_positions`` (3, B, S) int,
+    the (temporal, height, width) streams that rotate q and k under
+    M-RoPE (the reference's ``batch["mrope_positions"]``): an M-RoPE
+    config requires them (``ValueError`` without), any other refuses
+    them; ``logits_at`` (B,) picks one position per row before the LM
     head (prefill needs only each request's last valid logits).  Prefill
     returns the per-layer K/V; decode updates ``caches`` in place.
 
@@ -257,18 +263,38 @@ def apply(params: dict, policy_arrays: dict, tokens: Optional[torch.Tensor],
     """
     logits, new_caches, _ = _forward(params, policy_arrays, tokens, cfg,
                                      mode, caches, positions, impl,
-                                     logits_at, hvp, embeds)
+                                     logits_at, hvp, embeds, mrope_positions)
     return logits, new_caches
 
 
+def _check_streams(cfg, mrope_positions, b: int, s: int) -> None:
+    """M-RoPE's (3, B, S) integer streams are required under
+    ``rope="mrope"`` and refused otherwise (shapes only: no host read)."""
+    if cfg.rope != "mrope":
+        if mrope_positions is not None:
+            raise ValueError(f"{cfg.name} has rope={cfg.rope!r}: it takes "
+                             f"no mrope_positions")
+        return
+    if mrope_positions is None:
+        raise ValueError(f"{cfg.name} rotates by M-RoPE: pass "
+                         f"mrope_positions= (3, B, S) position streams "
+                         f"(text: the 1-D positions three times)")
+    if (tuple(mrope_positions.shape) != (3, b, s)
+            or mrope_positions.is_floating_point()):
+        raise ValueError(f"mrope_positions must be (3, {b}, {s}) integers, "
+                         f"got {tuple(mrope_positions.shape)} "
+                         f"{mrope_positions.dtype}")
+
+
 def _forward(params, policy_arrays, tokens, cfg, mode, caches, positions,
-             impl, logits_at, hvp, embeds):
+             impl, logits_at, hvp, embeds, mrope_positions=None):
     """``apply``'s forward; returns (logits, new_caches, aux): the MoE
     blocks' load-balance losses summed over the layers (0-d float32), or
     None where no block has experts."""
     _check_supported(cfg)
     x = _embed(params, cfg, tokens, embeds, impl, hvp)
     b, s, _ = x.shape
+    _check_streams(cfg, mrope_positions, b, s)
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
     remat = not hvp and mode == "train" and torch.is_grad_enabled()
@@ -282,7 +308,7 @@ def _forward(params, policy_arrays, tokens, cfg, mode, caches, positions,
         for j, bdef in enumerate(cfg.pattern):
             cache = None if caches is None else caches["pat"][r][f"p{j}"]
             args = (params["pat"][r][f"p{j}"], x, bits[j], cfg, bdef, mode,
-                    cache, positions, impl, hvp)
+                    cache, positions, impl, hvp, mrope_positions)
             x, out[f"p{j}"], aux = (checkpoint(block_apply, *args,
                                                use_reentrant=False) if remat
                                     else block_apply(*args))
@@ -317,7 +343,8 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def loss_fn(params: dict, policy_arrays: dict, batch: dict, cfg,
             impl: str = "auto", hvp: bool = False):
     """Next-token LM loss of ``batch`` ({'tokens' or 'embeds', 'labels'[,
-    'loss_mask']}, (B, S) tensors, embeds (B, S, d)): (loss, metrics) with
+    'loss_mask', 'mrope_positions']}, (B, S) tensors, embeds (B, S, d),
+    M-RoPE's streams (3, B, S)): (loss, metrics) with
     metrics {'loss', 'accuracy', 'aux_loss'} (0-d tensors, no host sync).
     The loss is the cross entropy plus the MoE blocks' load-balance losses
     summed over the layers (0 for a dense model), as in
@@ -325,7 +352,8 @@ def loss_fn(params: dict, policy_arrays: dict, batch: dict, cfg,
     multi-token head.  ``hvp`` as in ``apply``."""
     logits, _, aux = _forward(params, policy_arrays, batch.get("tokens"),
                               cfg, "train", None, None, impl, None, hvp,
-                              batch.get("embeds"))
+                              batch.get("embeds"),
+                              batch.get("mrope_positions"))
     loss, acc = cross_entropy(logits, batch["labels"],
                               batch.get("loss_mask"))
     if aux is None:

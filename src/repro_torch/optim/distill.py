@@ -41,15 +41,19 @@ def make_distill_loss(base_loss_fn: Callable, apply_fn: Callable,
     ``transformer.apply`` (it returns (logits, caches)).  As in the
     reference, the student's logits are a second train-mode forward of
     the params, and the teacher's a forward at 16 bits that records no
-    gradient (the reference's ``stop_gradient`` of params and logits)."""
+    gradient (the reference's ``stop_gradient`` of params and logits).
+    Both forwards take the whole batch, as the reference's do: tokens or
+    frame embeddings (``embeds``), and M-RoPE's position streams."""
     def loss(params, policy_arrays, batch, cfg, impl: str = "auto"):
         task, metrics = base_loss_fn(params, policy_arrays, batch, cfg, impl)
-        s_logits, _ = apply_fn(params, policy_arrays, batch["tokens"], cfg,
-                               mode="train", impl=impl)
+        inputs = {"embeds": batch.get("embeds"),
+                  "mrope_positions": batch.get("mrope_positions")}
+        s_logits, _ = apply_fn(params, policy_arrays, batch.get("tokens"),
+                               cfg, mode="train", impl=impl, **inputs)
         with torch.no_grad():
             t_logits, _ = apply_fn(params, teacher_policy_arrays(
-                policy_arrays), batch["tokens"], cfg, mode="train",
-                impl=impl)
+                policy_arrays), batch.get("tokens"), cfg, mode="train",
+                impl=impl, **inputs)
         kd = kd_loss(s_logits, t_logits, temperature)
         metrics = dict(metrics, kd_loss=kd.detach())
         return alpha * task + (1 - alpha) * kd, metrics

@@ -24,6 +24,11 @@ through ``flash_attention`` and quantized-cache decode attention through
 cache), each layer at its own cache bits; a full-dtype layer decodes by
 plain attention.
 
+An M-RoPE model (qwen2-vl-7b) serves text: every call of the model gets
+the three (temporal, height, width) position streams equal to the 1-D
+positions it runs at, as the reference's ``_positions_batch`` builds them,
+in prefill, suffix prefill and decode (idle slots at ``max_seq``).
+
 The reference's decode is one ``lax.scan`` per chunk of ``decode_chunk``
 steps; eager PyTorch needs no scan, so a chunk is a Python loop of
 ``decode_step`` calls that never syncs with the host.  The
@@ -127,6 +132,15 @@ class ServeEngine:
         self._cfg = cfg.replace(cache_dtype=self.cache_dtype)
 
     # ------------------------------------------------------------- prefill
+    def _streams(self, positions: torch.Tensor) -> dict:
+        """The model's position streams at ``positions`` (B, S): for an
+        M-RoPE config the text streams, the 1-D positions three times
+        (Qwen2-VL's convention for text); nothing for another rope."""
+        if self._cfg.rope != "mrope":
+            return {}
+        return {"mrope_positions": positions[None].expand(
+            3, *positions.shape)}
+
     def prefill(self, tokens: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Any]:
@@ -137,9 +151,12 @@ class ServeEngine:
         if lengths is None:
             lengths = torch.full((b,), s, dtype=torch.int32)
         lengths = torch.as_tensor(lengths, device=self.device)
+        positions = torch.arange(s, device=self.device).expand(b, s)
         logits, pre = tf.apply(self.params, self.policy_arrays, tokens,
-                               self._cfg, mode="prefill", impl=self.impl,
-                               logits_at=lengths.long() - 1)
+                               self._cfg, mode="prefill",
+                               positions=positions, impl=self.impl,
+                               logits_at=lengths.long() - 1,
+                               **self._streams(positions))
         return logits[:, 0], pre
 
     def prefill_suffix(self, tokens: torch.Tensor, length: int,
@@ -166,7 +183,8 @@ class ServeEngine:
             self.params, self.policy_arrays, tokens, self._cfg,
             mode="prefill", caches=layers, positions=positions,
             impl=self.impl,
-            logits_at=torch.full((b,), int(length) - 1, device=self.device))
+            logits_at=torch.full((b,), int(length) - 1, device=self.device),
+            **self._streams(positions))
         return logits[:, 0], suf
 
     def new_cache(self, batch: int):
@@ -225,7 +243,8 @@ class ServeEngine:
         logits, _ = tf.apply(params, self.policy_arrays,
                              tok.to(self.device).long(), self._cfg,
                              mode="decode", caches=layers,
-                             positions=pos, impl=self.impl)
+                             positions=pos, impl=self.impl,
+                             **self._streams(pos))
         step = paging.advance if paged else kv_cache.advance
         return step(cache, 1, active), logits[:, -1]
 

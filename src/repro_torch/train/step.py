@@ -161,12 +161,15 @@ def init_train_state(cfg, optimizer: Callable, seed: int, policy,
 
 
 def _split_microbatches(batch: Dict, n: int) -> list:
+    """``n`` slices of the batch's rows: dim 0 of every entry, dim 1 of
+    M-RoPE's (3, B, S) streams (``repro/train/step.py:42-50``)."""
+    dims = {k: 1 if k == "mrope_positions" else 0 for k in batch}
     for k, v in batch.items():
-        if v.shape[0] % n:
-            raise ValueError(f"batch[{k!r}] of {v.shape[0]} rows does not "
-                             f"split into {n} microbatches")
-    return [{k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
-             for k, v in batch.items()} for i in range(n)]
+        if v.shape[dims[k]] % n:
+            raise ValueError(f"batch[{k!r}] of {v.shape[dims[k]]} rows does "
+                             f"not split into {n} microbatches")
+    return [{k: v.chunk(n, dim=dims[k])[i] for k, v in batch.items()}
+            for i in range(n)]
 
 
 def grad_compress_norm(grads) -> torch.Tensor:

@@ -409,6 +409,22 @@ def test_cuda_quant_matmul_moe_experts(card, bits, k, n, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 4096])
+@pytest.mark.parametrize("k,n", [(3584, 3584), (3584, 512), (3584, 18944),
+                                 (18944, 3584)])
+@pytest.mark.parametrize("bits", [4, 2])
+def test_cuda_quant_matmul_qwen(card, bits, k, n, m):
+    """qwen2-vl-7b's projections (q and o, k and v at 4 KV heads, gate and
+    up, down) in a decode step at B = 8 (the GEMV) and an 8 x 512 prefill
+    (wgmma); within 1 bf16 ulp of max|ref|."""
+    from repro_torch.kernels import cuda
+    assert cuda.quant_matmul_route(m, n, k) == ("gemv" if m == 8
+                                                else "wgmma")
+    got, want = _cuda_qmm_case(card, bits, m, k, n, seed=8)
+    assert (got.float() - want).abs().max() <= 2.0 ** -7 * want.abs().max()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m", [129, 8])
 @pytest.mark.parametrize("n", [256, 200])
 def test_cuda_quant_matmul_misaligned_views(card, n, m):
@@ -583,7 +599,8 @@ def _decode_positions(s, c):
 @pytest.mark.cuda
 @pytest.mark.parametrize("group,shape", [(g, s) for g in (1, 2, 3, 4, 8)
                                          for s in DECODE_SHAPES]
-                         + [(48, (6, 1024, 1)), (6, (6, 1024, 8))])
+                         + [(48, (6, 1024, 1)), (6, (6, 1024, 8)),
+                            (7, (6, 1024, 4))])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("bits", [8, 4])
@@ -593,7 +610,8 @@ def test_cuda_kv_decode(card, bits, d, group, dtype, shape):
     bit for bit (the splits merge in a fixed order).  A group of 3 leaves
     one of a block's 4 warps idle; a group of 8 is split over two blocks,
     granite-20b's 48 query heads on one KV head over 12, dbrx-132b's 6 a
-    KV head over two blocks of 3."""
+    KV head over two blocks of 3, qwen2-vl-7b's 7 over seven blocks of
+    one."""
     from repro_torch.kernels import cuda, kv_quant
     b, s, hkv = shape
     g = torch.Generator(card).manual_seed(5)
@@ -643,6 +661,15 @@ def test_cuda_flash_dbrx(card, causal, layout):
     """dbrx-132b's prefill: B = 8, 48 query heads on 8 KV heads, S = 512,
     D = 128."""
     _flash_case(card, 8, 8, 6, 512, 128, causal, layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["bhsd", "model"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_qwen(card, causal, layout):
+    """qwen2-vl-7b's prefill: B = 8, 28 query heads on 4 KV heads (groups
+    of 7), S = 512, D = 128."""
+    _flash_case(card, 8, 4, 7, 512, 128, causal, layout)
 
 
 @pytest.mark.cuda
@@ -865,12 +892,13 @@ def test_cuda_flash_selector_probe_spread(card, h, hkv, s):
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("h,hkv,s,d", [(16, 16, 129, 80), (16, 16, 1000, 80),
-                                       (48, 1, 300, 128), (48, 8, 512, 128)])
+                                       (48, 1, 300, 128), (48, 8, 512, 128),
+                                       (28, 4, 512, 128)])
 def test_cuda_flash_selector_probe_zoo(card, h, hkv, s, d, causal):
     """The selector probe at hubert-xlarge's head_dim 80 (keys one-hot in
     all 80 columns, 64-79 in the second, zero-filled box), at granite-20b's
-    48 query heads on one KV head and at dbrx-132b's 48 on 8, bit for
-    bit."""
+    48 query heads on one KV head, at dbrx-132b's 48 on 8 and at
+    qwen2-vl-7b's 28 on 4, bit for bit."""
     import chip_smoke
     from repro_torch.kernels import cuda
     q, k, v, want = chip_smoke.flash_selector_probe(card, 2, h, hkv, s, d=d,
@@ -1016,7 +1044,8 @@ def test_cuda_histogram_exact(card, n, n_bins):
 @pytest.mark.parametrize("d", [128, 64])
 @pytest.mark.parametrize("bits,h,hkv", [(8, 16, 16), (4, 16, 16), (4, 16, 4),
                                         (8, 4, 2), (8, 48, 1), (4, 48, 1),
-                                        (8, 48, 8), (4, 48, 8)])
+                                        (8, 48, 8), (4, 48, 8), (8, 28, 4),
+                                        (4, 28, 4)])
 def test_cuda_paged_kv_decode(card, bits, h, hkv, d, n):
     """Bit for bit the contiguous kernel on the gathered cache, within
     1e-4 * max|ref| of the plain version, over a shuffled table with stale
@@ -1062,6 +1091,17 @@ def test_kv_decode_selector_probe_plain(bits, layout, hkv):
     assert splits > 1 and same
 
 
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_kv_decode_selector_probe_plain_group_of_7(bits, layout):
+    """The probe at qwen2-vl-7b's heads, 28 on 4 KV heads (a prime group
+    of 7), on the plain versions: every query head picks its own row."""
+    import chip_smoke
+    assert chip_smoke.kv_decode_selector_probe(
+        torch.device("cpu"), bits, layout, b=2, h=28, hkv=4, s=256, d=64,
+        impl="ref")[3]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("hkv", [16, 4])
 @pytest.mark.parametrize("layout", ["contiguous", "paged"])
@@ -1074,6 +1114,18 @@ def test_cuda_kv_decode_selector_probe(card, bits, layout, hkv):
     import chip_smoke
     assert chip_smoke.kv_decode_selector_probe(card, bits, layout,
                                                hkv=hkv)[3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_cuda_kv_decode_selector_probe_qwen(card, bits, layout):
+    """The selector probe at qwen2-vl-7b's 28 query heads on 4 KV heads:
+    seven blocks of one query head a KV head, each reading the head's
+    rows, bit for bit."""
+    import chip_smoke
+    assert chip_smoke.kv_decode_selector_probe(card, bits, layout, h=28,
+                                               hkv=4)[3]
 
 
 @pytest.mark.cuda
@@ -1191,6 +1243,7 @@ DECODE_PLAN_CASES = [  # (B, Hkv, group, rows)
     (2, 2, 8, 300),       # a group of 8 is split over two blocks
     (8, 1, 48, 1024),     # granite-20b's MQA: 12 blocks of 4 query heads
     (8, 8, 6, 1024),      # dbrx-132b's GQA 48/8: 2 blocks of 3 a KV head
+    (8, 4, 7, 1024),      # qwen2-vl-7b's GQA 28/4: a prime group of 7
     (8, 16, 1, 8192), (1, 1, 1, 200_000), (1, 1, 1, 1)]
 
 
@@ -1216,6 +1269,8 @@ def test_decode_plan(b, hkv, group, rows, bits):
         assert c == 128 and b * hkv * splits >= 2 * 132
     if (b, hkv, group, rows) == (8, 8, 6, 1024):
         assert (splits, c, gblocks) == (8, 128, 2)
+    if group == 7:      # no divisor of 7 up to 4 but 1: a block a head
+        assert gblocks == 7
     if rows <= 16:
         assert splits == 1
 

@@ -109,11 +109,12 @@ def test_config_registry():
                     == jnp.dtype(getattr(want, f)).name), f
     smoke = get_config(NAME).smoke()
     assert (smoke.n_experts, smoke.top_k) == (4, 2)
-    for name, item in (("qwen2-vl-7b", "13.2"), ("deepseek-v3-671b", "13.3"),
+    for name, item in (("deepseek-v3-671b", "13.3"),
                        ("jamba-1.5-large-398b", "13.4"),
                        ("xlstm-1.3b", "13.4")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             get_config(name)
+    assert get_config("qwen2-vl-7b").rope == "mrope"     # item 13.2, ported
     with pytest.raises(NotImplementedError, match="13.3"):
         ttf.init_params(smoke.replace(n_shared_experts=1), device="cpu")
 

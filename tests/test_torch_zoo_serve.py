@@ -87,7 +87,9 @@ def cpu_card(monkeypatch):
 
     def flash(q, k, v, causal=True):
         # the plain path's own prefill attention, so that the kernel path
-        # is the plain path to the bit, in bf16 too
+        # is the plain path to the bit, in bf16 too; keys longer than the
+        # queries (a suffix prefill) align them bottom-right, as the
+        # kernel does
         name = ("flash_attention_f32" if q.dtype == torch.float32
                 else "flash_attention")
         cuda.LAUNCHES[name] += 1
@@ -95,7 +97,8 @@ def cpu_card(monkeypatch):
         return attn.chunked_attention(
             q.transpose(1, 2), attn._repeat_kv(k.transpose(1, 2), group),
             attn._repeat_kv(v.transpose(1, 2), group),
-            min(attn.DEFAULT_CHUNK, q.shape[2]), causal).transpose(1, 2)
+            min(attn.DEFAULT_CHUNK, k.shape[2]), causal,
+            q_offset=k.shape[2] - q.shape[2]).transpose(1, 2)
     monkeypatch.setattr(cuda, "flash_attention", flash)
     real = ops.packed_matmul
 
@@ -207,3 +210,50 @@ def test_chip_smoke_dbrx_phase_runs_on_cpu(cpu_card):
     assert len(check["rel_logit_err"]) == cpu_card.ZOO_CHECK_DECODE + 1
     assert max(check["rel_logit_err"]) == 0.0
     assert rec["peak_bytes"] == 0 and rec["packed_weight_bytes"] > 0
+
+
+def test_chip_smoke_qwen_phase_runs_on_cpu(cpu_card, monkeypatch):
+    """qwen2-vl-7b's phase at smoke size in bf16, as on the card (M-RoPE,
+    GQA 4/1 here): Z1-Z4 over text; Z5's image-and-text prefill (2 x 64, a
+    4 x 4 image) launches L flash_attention and ``step_launches``'
+    matmuls and fake-quants, reads 0 against the plain path and moves off
+    the text streams' logits; the schedule's paged full run over the
+    first SCHED_DEPTH layers holds gates A, B and D with suffix prefills
+    at shifted streams (196, 113 and 28 launches a step at the card's 28
+    layers).  (With the card's vocabulary of 152064 the schedule draws
+    the same lengths and budgets: 446 tokens, 2 deferrals, 13 hits, a
+    peak of 139 pages against 154 without sharing; it takes 2.5 minutes
+    here, so the test keeps the smoke vocabulary.)"""
+    full = get_config("qwen2-vl-7b")
+    assert cpu_card.step_launches(full) == {
+        "quant_matmul": 196, "lsq_fakequant": 113, "attention": 28}
+    monkeypatch.setattr(cpu_card, "MROPE_B", 2)
+    monkeypatch.setattr(cpu_card, "MROPE_S", 64)
+    monkeypatch.setattr(cpu_card, "MROPE_GRID", (1, 4, 4))
+    cfg = get_config("qwen2-vl-7b").smoke().replace(**BF16)
+    rec = cpu_card.phase_zoo(cfg, torch.device("cpu"), "cpu rehearsal")
+    layers = cfg.n_repeats
+    assert rec["select"]["take_equal"] and rec["select"]["n2"]
+    for name, run in rec["serve"].items():
+        attention = ("paged_kv_decode_attention" if name.startswith("paged")
+                     else "kv_decode_attention")
+        assert (run["launches_per_decode_step"]["quant_matmul"],
+                run["launches_per_decode_step"]["lsq_fakequant"],
+                run["launches_per_decode_step"][attention]) == (
+                    7 * layers, 4 * layers + 1, layers)
+        assert run["dtoh_copies_8_steps"] == 0
+    assert rec["serve"]["paged-int4"]["tokens"] == \
+        rec["serve"]["contiguous-int4"]["tokens"]
+    assert max(rec["check"][8]["rel_logit_err"]) == 0.0
+    z5 = rec["mrope"]
+    assert z5["finite"] and z5["rel_logit_err"] == 0.0
+    assert z5["text_streams_rel_logit_diff"] > 1e-3
+    assert z5["launches"] == {"quant_matmul": 7 * layers,
+                              "lsq_fakequant": 4 * layers + 1,
+                              "flash_attention": layers}
+    sched = rec["schedule"]
+    assert set(sched) == {"paged-full"}
+    run = sched["paged-full"]
+    assert run["gate_a"]["matched"] >= cpu_card.GATE_A_MIN
+    assert run["registry_hits"] >= cpu_card.MIN_HITS
+    assert run["suffix_prefill"]["prefix"] > 0
