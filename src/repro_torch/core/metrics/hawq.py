@@ -18,9 +18,13 @@ exactly as in the reference.
 The reference reads each entry of ``tensor_paths`` whole; its callers pass
 whole-leaf paths, so each layer of a stacked slot gets the trace and the
 perturbation of all its layers together.  The port keeps its layers apart
-and computes HAWQ per layer: ``unit_tensor_paths`` gives each unit's
-member tensors their own layer's paths (``("pat", r, "p0", "attn", "wq",
-"w")``), the reference's ``t + (u.layer,)``.
+and computes HAWQ per layer, and per expert in an expert bank:
+``unit_tensor_paths`` gives each unit's member tensors their own layer's
+paths (``("pat", r, "p0", "attn", "wq", "w")``, the reference's ``t +
+(u.layer,)``), and an expert's its own expert of the bank (``("pat", r,
+"p0", "moe", "gate", "w", e)``, the reference's ``t + (u.layer, u.sub)``),
+so each expert reads its own trace and its own ``||Q4 - Q2||^2`` at its
+own range.
 
 The probes are drawn from a ``torch.Generator`` on the params' device,
 seeded with ``HawqConfig.seed``: the same distribution as the reference's
@@ -60,9 +64,16 @@ def hvp_loss(cfg, policy_arrays, impl: str = "auto") -> Callable:
 def unit_tensor_paths(policy) -> Dict[str, tuple]:
     """"<unit name>/<tensor path>" -> the member tensor's path in the
     port's params, each selectable unit's layer picked out of the
-    per-layer list (the keys are the reference's)."""
-    return {f"{u.name}/{t}": (t[:1] + (u.layer,) + t[1:]
-                              if t[0] == "pat" else t)
+    per-layer list and a per-expert unit's expert (``u.sub``) out of its
+    bank: ``("pat", r, "p0", "moe", "gate", "w", e)``, the counterpart of
+    the reference's ``t + (u.layer, u.sub)`` on its stacked leaves (the
+    keys are the reference's)."""
+    def path(u, t):
+        if t[0] != "pat":
+            return t
+        sub = () if u.sub is None else (u.sub,)
+        return t[:1] + (u.layer,) + t[1:] + sub
+    return {f"{u.name}/{t}": path(u, t)
             for u in policy.selectable_units() for t in u.tensors}
 
 

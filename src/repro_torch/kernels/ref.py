@@ -8,6 +8,8 @@ when ``impl="ref"`` is asked for.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core import quant
@@ -63,6 +65,28 @@ def _reduce_to_shape(t: torch.Tensor, shape) -> torch.Tensor:
     return t
 
 
+BWD_CHUNK = 1 << 24     # elements of a chunk of the plain LSQ backward
+
+
+def _lsq_bwd_terms(x: torch.Tensor, grads, steps, bits):
+    """gx in x's dtype and, for each step, the exact float64 products
+    g * ds at x's shape (not yet summed)."""
+    qmin, qmax = quant.qrange(bits)
+    xf = x.float()
+    gx, prods = None, []
+    for g, step in zip(grads, steps):
+        s = torch.clamp(torch.abs(torch.as_tensor(
+            step, dtype=torch.float32, device=x.device)), min=1e-9)
+        xs = xf / s
+        in_range = (xs >= qmin) & (xs <= qmax)
+        term = torch.where(in_range, g.float(), 0.0)
+        gx = term if gx is None else gx + term
+        ds = torch.where(in_range, torch.round(xs) - xs,
+                         torch.clamp(xs, qmin, qmax))
+        prods.append(g.double() * ds.double())
+    return gx.to(x.dtype), prods
+
+
 def lsq_fakequant_bwd(x: torch.Tensor, grads, steps, bits, grad_qmax=None):
     """The LSQ backward of ``lsq_fakequant_grouped`` (the reference's
     ``_lsq_bwd`` for each step): (gx, [gs_k]).
@@ -76,24 +100,28 @@ def lsq_fakequant_bwd(x: torch.Tensor, grads, steps, bits, grad_qmax=None):
     step's shape.  A step is a tensor (any shape broadcasting against x)
     or a float; gs_k is float32 of the step's shape (0-d for a float).
     gscale is ``quant.lsq_step_grad_scale``'s, at ``grad_qmax`` where it
-    is not None (a stacked weight's mean qmax over its layers)."""
-    qmin, qmax = quant.qrange(bits)
-    xf = x.float()
-    gx, gsteps = None, []
-    for g, step in zip(grads, steps):
-        st = torch.as_tensor(step, dtype=torch.float32, device=x.device)
-        s = torch.clamp(torch.abs(st), min=1e-9)
-        xs = xf / s
-        in_range = (xs >= qmin) & (xs <= qmax)
-        term = torch.where(in_range, g.float(), 0.0)
-        gx = term if gx is None else gx + term
-        ds = torch.where(in_range, torch.round(xs) - xs,
-                         torch.clamp(xs, qmin, qmax))
-        gscale = quant.lsq_step_grad_scale(x.numel() // max(st.numel(), 1),
-                                           bits, grad_qmax)
-        total = _reduce_to_shape(g.double() * ds.double(), st.shape)
-        gsteps.append((total * gscale).float())
-    return gx.to(x.dtype), gsteps
+    is not None (a stacked weight's mean qmax over its layers).
+
+    With every step a scalar and x longer than BWD_CHUNK elements (a
+    token table), x and the cotangents go in chunks of BWD_CHUNK elements:
+    gx chunk by chunk (each element's value unchanged) and each gs the sum
+    of the chunks' float64 sums, so that the float32 and float64
+    temporaries are a chunk's, not the table's."""
+    shapes = [torch.as_tensor(st).shape for st in steps]
+    if x.numel() > BWD_CHUNK and all(math.prod(sh) == 1 for sh in shapes):
+        parts = [_lsq_bwd_terms(xc, gc, steps, bits)
+                 for xc, *gc in zip(x.reshape(-1).split(BWD_CHUNK),
+                                    *(g.reshape(-1).split(BWD_CHUNK)
+                                      for g in grads))]
+        gx = torch.cat([gxc for gxc, _ in parts]).view(x.shape)
+        totals = [sum(prods[k].sum() for _, prods in parts).reshape(sh)
+                  for k, sh in enumerate(shapes)]
+    else:
+        gx, prods = _lsq_bwd_terms(x, grads, steps, bits)
+        totals = [_reduce_to_shape(p, sh) for p, sh in zip(prods, shapes)]
+    return gx, [(total * quant.lsq_step_grad_scale(
+        x.numel() // max(math.prod(sh), 1), bits, grad_qmax)).float()
+        for total, sh in zip(totals, shapes)]
 
 
 # ------------------------------------------------------------- quant_matmul

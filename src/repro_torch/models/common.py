@@ -75,24 +75,22 @@ def init_norm(kind: str, d: int, dtype, device) -> dict:
 
 
 def rope_freqs(half: int, base: float, device) -> torch.Tensor:
-    """base ** (-i / half) for i < half, float32, by PyTorch's float32
-    ``pow``.  XLA's float32 power is correctly rounded and this one is not
-    everywhere: at head_dim 128 it is one ulp off at 4 of 64 columns at
-    base 1e6 and 3 at base 1e4 (none at the smoke configs' head_dim 32),
-    which moves cos and sin at position p by up to about 7.5e-9 p (7.6e-6
-    at p = 1024).  Rounding the power once from float64 gives the
-    reference's values, and also moves chip_smoke's teacher-forced drift
-    statistic on deepseek-7b past its bound: ROADMAP Queue 3 entry 7."""
+    """base ** (-i / half) for i < half, float32: the float32 exponents of
+    the reference, the power taken in float64 and rounded once.  That is
+    XLA's correctly rounded float32 power bit for bit at every head_dim and
+    base of the ported configs (PyTorch's float32 ``pow`` is one ulp off at
+    4 of head_dim 128's 64 columns at base 1e6, which moved cos and sin at
+    position p by up to about 7.5e-9 p)."""
     exps = -torch.arange(0, half, dtype=torch.float32, device=device) / half
-    return torch.pow(torch.tensor(base, dtype=torch.float32, device=device),
-                     exps)
+    return torch.pow(torch.tensor(base, dtype=torch.float64, device=device),
+                     exps.double()).float()
 
 
 def rope_angles(positions: torch.Tensor, dim: int, base: float = 10_000.0):
     """positions (..., S) int -> cos, sin (..., S, dim // 2) float32.
 
-    Frequencies (``rope_freqs``, within an ulp of the reference's) and
-    angles are float32 values; cos and sin are evaluated in float64 and
+    Frequencies (``rope_freqs``, the reference's bit for bit) and angles
+    are float32 values; cos and sin are evaluated in float64 and
     rounded once, which agrees with XLA's float32 cos/sin far more often
     than PyTorch's float32 ones (a 1-ulp difference here can flip an
     activation code downstream).
@@ -189,10 +187,13 @@ def fake_quant_bank(w: torch.Tensor, sw: torch.Tensor, bits,
     its own step ``sw[e]`` and bits ``bits[e]``: the reference's one
     fake-quant of the bank with (E, 1, 1) steps and bits, expert by
     expert (``grad_qmax``: the mean qmax of the reference's stacked
-    call)."""
-    return torch.stack([quant.fake_quant(w[e], sw[e], float(bits[e]), impl,
-                                         hvp, grad_qmax)
-                        for e in range(w.shape[0])])
+    call).  The experts come out of the bank by ``unbind``, whose backward
+    stacks their gradients once (indexing each would write a bank-sized
+    gradient an expert)."""
+    return torch.stack([quant.fake_quant(we, se, float(b), impl, hvp,
+                                         grad_qmax)
+                        for we, se, b in zip(w.unbind(0), sw.unbind(0),
+                                             bits)])
 
 
 def prequantize_params(params, policy_arrays, slot_of, impl: str = "auto",

@@ -136,6 +136,21 @@ def capacity_of(cfg, t: int) -> int:
     return -(-c // 8) * 8
 
 
+def slot_ranks(flat_ids: torch.Tensor, n_experts: int):
+    """The sort dispatch of (token, choice) slots ``flat_ids`` (T k,):
+    the slots sorted stably by expert (``ids_s``, and ``order``, each
+    sorted slot's index), and each sorted slot's rank within its expert
+    (``pos``; a rank at or past the capacity is a dropped slot)."""
+    ids_s, order = torch.sort(flat_ids, stable=True)
+    counts = torch.zeros((n_experts,), dtype=torch.long,
+                         device=flat_ids.device).scatter_add_(
+        0, flat_ids, torch.ones_like(flat_ids))
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(flat_ids.numel(), device=flat_ids.device) - \
+        starts[ids_s]
+    return ids_s, order, pos
+
+
 def _moe_local(x_flat: torch.Tensor, top_ids: torch.Tensor,
                top_w: torch.Tensor, banks, sa_gate, sa_down, bits_gateup,
                bits_down, capacity: int, activation: str, impl: str,
@@ -152,19 +167,17 @@ def _moe_local(x_flat: torch.Tensor, top_ids: torch.Tensor,
     k = top_ids.shape[1]
     e = len(bits_gateup)
     dev = x_flat.device
-    flat_ids = top_ids.reshape(-1)                          # (T k,)
-    ids_s, order = torch.sort(flat_ids, stable=True)
+    ids_s, order, pos = slot_ranks(top_ids.reshape(-1), e)  # (T k,)
     tok_s = order // k
-    counts = torch.zeros((e,), dtype=torch.long, device=dev).scatter_add_(
-        0, flat_ids, torch.ones_like(flat_ids))
-    starts = torch.cumsum(counts, 0) - counts
-    pos = torch.arange(t * k, device=dev) - starts[ids_s]
     # a dropped slot (rank at or past the capacity) writes the spare row
     dest = torch.where(pos < capacity, ids_s * capacity + pos, e * capacity)
 
     buf = x_flat.new_zeros((e * capacity + 1, d))
     buf.index_copy_(0, dest, x_flat[tok_s])
-    gate_w, up_w, down_w = banks
+    # a quantized bank's experts by unbind, whose backward stacks their
+    # gradients once (indexing each would write a bank-sized gradient)
+    gate_w, up_w, down_w = (b.unbind(0) if isinstance(b, torch.Tensor)
+                            else b for b in banks)
     outs = []
     for i in range(e):
         # gate and up share one fake-quant of the buffer at the gate's step

@@ -116,9 +116,13 @@ class AdamW(torch.optim.Optimizer):
         self.shared: list = []          # sets of 0-d leaves: one scale
         self.layered: set = set()       # leaves of a stacked leaf
         for p in self.leaves():
-            z = torch.zeros_like(p, dtype=torch.float32)
-            self.state[p] = {"m": encode(z, state_dtype, signed=True),
-                             "v": encode(z, state_dtype, signed=False)}
+            # each moment its own storage: a bank's update writes its slices
+            # in place
+            self.state[p] = {
+                "m": encode(torch.zeros_like(p, dtype=torch.float32),
+                            state_dtype, signed=True),
+                "v": encode(torch.zeros_like(p, dtype=torch.float32),
+                            state_dtype, signed=False)}
 
     def leaves(self) -> list:
         return [p for g in self.param_groups for p in g["params"]]
@@ -142,7 +146,11 @@ class AdamW(torch.optim.Optimizer):
     @torch.no_grad()
     def step(self, closure=None, grads: Optional[Sequence] = None):
         """One update from ``grads`` (one a parameter, any float dtype;
-        default each parameter's ``.grad``)."""
+        default each parameter's ``.grad``).  A leaf of 3 or more
+        dimensions (an expert bank) updates one slice of its first
+        dimension at a time, as the reference's ``upd_leaf`` scans its
+        stacked leaves, so that only one slice's float32 temporaries are
+        live; the clipped gradient is made one leaf at a time too."""
         loss = None
         if closure is not None:
             with torch.enable_grad():
@@ -151,27 +159,31 @@ class AdamW(torch.optim.Optimizer):
         grads = [p.grad for p in params] if grads is None else list(grads)
         self.count += 1
         lr = learning_rate_at(self.learning_rate, self.count)
+        scale = None
         if self.grad_clip > 0:
             gnorm = global_norm(grads)
             scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
-            grads = [g * scale.to(g.dtype) for g in grads]
         bc1, bc2 = bias_corrections(self.b1, self.b2, self.count)
         q8 = self.state_dtype == "int8"
-        mdt = torch.bfloat16 if q8 else torch.float32
         stacked = {i for idx in self.shared for i in idx} if q8 else set()
         new = {}
         for i, (p, g) in enumerate(zip(params, grads)):
             st = self.state[p]
-            gf = g.float()
-            m = (self.b1 * decode(st["m"], self.state_dtype)
-                 + (1 - self.b1) * gf).to(mdt)
-            v = (self.b2 * decode(st["v"], self.state_dtype)
-                 + (1 - self.b2) * gf * gf).to(mdt)
-            upd = (m.float() / bc1) / (
-                torch.sqrt(v.float() / bc2) + self.eps)
-            if self.weight_decay and p.ndim + (i in self.layered) >= 2:
-                upd = upd + self.weight_decay * p.float()
-            p.copy_((p.float() - lr * upd).to(p.dtype))
+            if scale is not None:
+                g = g * scale.to(g.dtype)
+            decay = bool(self.weight_decay) and \
+                p.ndim + (i in self.layered) >= 2
+            if p.ndim >= 3 and p.shape[0] > 1:
+                for j in range(p.shape[0]):
+                    m, v = self._update(p[j], g[j], _row(st["m"], j),
+                                        _row(st["v"], j), lr, bc1, bc2,
+                                        decay)
+                    _set_row(st["m"], j, encode(m, self.state_dtype,
+                                                signed=True))
+                    _set_row(st["v"], j, encode(v, self.state_dtype,
+                                                signed=False))
+                continue
+            m, v = self._update(p, g, st["m"], st["v"], lr, bc1, bc2, decay)
             if i in stacked:
                 new[i] = (m, v)
             else:
@@ -184,3 +196,32 @@ class AdamW(torch.optim.Optimizer):
                     self.state[params[i]][name] = {"q": e["q"][r],
                                                    "s": e["s"][0]}
         return loss
+
+    def _update(self, p, g, m_e, v_e, lr, bc1, bc2, decay: bool):
+        """One tensor's update in place: the new moments m, v (float32, or
+        bf16 when stored as int8) from their stored forms, and p moved."""
+        mdt = torch.bfloat16 if self.state_dtype == "int8" else torch.float32
+        gf = g.float()
+        m = (self.b1 * decode(m_e, self.state_dtype)
+             + (1 - self.b1) * gf).to(mdt)
+        v = (self.b2 * decode(v_e, self.state_dtype)
+             + (1 - self.b2) * gf * gf).to(mdt)
+        upd = (m.float() / bc1) / (torch.sqrt(v.float() / bc2) + self.eps)
+        if decay:
+            upd = upd + self.weight_decay * p.float()
+        p.copy_((p.float() - lr * upd).to(p.dtype))
+        return m, v
+
+
+def _row(e, j):
+    """Slice ``j`` of a stored moment's first dimension (a tensor, or an
+    int8 moment's ``{'q', 's'}``, whose scales are per last-dim row)."""
+    return {k: t[j] for k, t in e.items()} if isinstance(e, dict) else e[j]
+
+
+def _set_row(e, j, new) -> None:
+    if isinstance(e, dict):
+        for k in e:
+            e[k][j] = new[k]
+    else:
+        e[j] = new

@@ -29,6 +29,12 @@ makes one device-to-host copy (its first token) and each decode chunk one
 (its tokens); the block table and lengths are written from the host,
 never read back.
 
+Over a mixture of experts each expert's capacity counts the tokens of
+one call, as in the reference: an admission prefills its request alone
+(its padded prompt), and a decode step runs every slot, idle ones
+included, whose n_slots tokens send at most one slot each to an expert
+of at least 8 rows (``models.mlp.capacity_of``).
+
 A deterministic sim clock ticks in model-step units (a prefill costs its
 padded token count, a decode chunk its step count); ``latency_report()``
 turns the per-request emission clocks into p50/p95/p99 TTFT and
@@ -90,12 +96,6 @@ class ContinuousBatchingScheduler:
             raise NotImplementedError(
                 "sampled scheduling (a sampling key and per-admission "
                 "nonces) is ROADMAP Queue 1 item 11; decoding is greedy")
-        if any(b.ffn == "moe" for b in engine.cfg.pattern):
-            raise NotImplementedError(
-                f"{engine.cfg.name}: the scheduler over a mixture of experts "
-                f"is ROADMAP Queue 1 item 13.1b (an expert's capacity "
-                f"depends on the whole batch, so a request's tokens depend "
-                f"on its batchmates); serve it with ServeEngine.generate")
         self.cache = engine.new_cache(n_slots)
         self._paged = engine.cache_layout == "paged"
         if self._paged:

@@ -8,12 +8,17 @@ splits, ``repro/core/metrics/hawq.py:45-55``).
 The port computes HAWQ per layer; the reference reads each path it is
 given whole, so it is called here with per-layer paths ``t + (u.layer,)``
 (its callers pass whole-leaf paths: ``test_reference_whole_leaf_paths``
-pins what those give).
+pins what those give).  Over dbrx-132b's smoke config each expert is its
+own unit, and the reference is called with per-expert paths ``t +
+(u.layer, u.sub)``: each expert reads its own trace and perturbation
+(``per_expert``; the port once read the whole bank for every expert).
 
 Tolerances, each with its reason:
   - per-tensor traces within 1e-5 of the largest trace, and gains within
-    1e-5 of the largest gain (measured 1.9e-6 and 3.3e-6: summation order
-    in the two packages' forward, backward and tangent products);
+    1e-5 of the largest gain (measured 1.9e-6 and 3.3e-6; over dbrx's
+    experts 1.3e-6 and 8.5e-6, at an attention unit, the experts' at most
+    3.2e-6: summation order in the two packages' forward, backward and
+    tangent products);
   - ||Q4(W) - Q2(W)||^2: the difference elements bit for bit with the
     reference's, the port's sum within 1e-6 relative of their float64 sum
     and the reference's within 1e-5 (XLA's float32 sum on the CPU reads
@@ -284,3 +289,90 @@ def test_kernel_wrappers_refuse_transformed_tensors():
             cuda.lsq_fakequant(dual, 0.1, 4.0)
     with pytest.raises(RuntimeError, match="functorch-wrapped"):
         torch.func.grad(lambda t: cuda.lsq_fakequant(t, 0.1, 4.0).sum())(x)
+
+
+@pytest.fixture(scope="module")
+def per_expert():
+    """dbrx-132b's smoke config (4 experts, 2 layers): the reference's
+    ``hawq_gains`` with per-layer, per-expert paths ``t + (u.layer,
+    u.sub)`` (its traces caught on the way), and the port's default
+    (``unit_tensor_paths``), on the same injected probes."""
+    from repro_torch.configs import get_config
+    cfg_j = configs.get_config("dbrx-132b").smoke()
+    cfg = get_config("dbrx-132b").smoke()
+    policy_j = jtf.build_policy(cfg_j)
+    params = jtf.init_params(cfg_j, jax.random.PRNGKey(0))
+    batch = make_batch(5, 0, 2, 32, cfg_j.vocab)
+    pa = jax.tree.map(jnp.asarray, policy_j.as_arrays())
+    jloss = jax.jit(lambda p, b: jtf.loss_fn(p, pa, b, cfg_j,
+                                             local_context())[0])
+    paths = {f"{u.name}/{t}": t + (u.layer,) + (() if u.sub is None
+                                                 else (u.sub,))
+             for u in policy_j.selectable_units() for t in u.tensors}
+    caught, real = {}, jhawq.hutchinson_traces
+
+    def catch(*args, **kwargs):
+        caught.update(real(*args, **kwargs))
+        return caught
+    jhawq.hutchinson_traces = catch
+    try:
+        gj = jhawq.hawq_gains(policy_j, jloss, params, paths,
+                              jhawq.HawqConfig(n_probes=N_PROBES), batch)
+    finally:
+        jhawq.hutchinson_traces = real
+    policy = tf.build_policy(cfg)
+    pt = convert.from_jax_params(_np(params), device="cpu")
+    probes = [convert.from_jax_params(_np(v), device="cpu")
+              for v in jax_probes(params, N_PROBES)]
+    tb = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+    loss = hawq.hvp_loss(cfg, policy.as_arrays())
+    traces = hawq.hutchinson_traces(loss, pt, hawq.unit_tensor_paths(policy),
+                                    hawq.HawqConfig(n_probes=N_PROBES), tb,
+                                    probes=probes)
+    gt = hawq.hawq_gains(policy, loss, pt, None,
+                         hawq.HawqConfig(n_probes=N_PROBES), tb,
+                         probes=probes)
+    return caught, gj, traces, gt, params, pt, policy
+
+
+def test_per_expert_paths_pick_the_expert(per_expert):
+    """A per-expert unit's member tensors are its own expert of each bank:
+    ``("pat", r, "p0", "moe", "gate", "w", e)``, an (d, d_ff) weight; the
+    attention's stay per layer."""
+    *_, pt, policy = per_expert
+    paths = hawq.unit_tensor_paths(policy)
+    assert paths["pat0.moe_gateup.e2.L1/('pat', 'p0', 'moe', 'gate', 'w')"] \
+        == ("pat", 1, "p0", "moe", "gate", "w", 2)
+    assert paths["pat0.attn_qkv.L1/('pat', 'p0', 'attn', 'wq', 'w')"] == (
+        "pat", 1, "p0", "attn", "wq", "w")
+    w = hawq._get_path(pt, paths["pat0.moe_down.e3.L0/('pat', 'p0', 'moe', "
+                                 "'down', 'w')"])
+    assert torch.equal(w, pt["pat"][0]["p0"]["moe"]["down"]["w"][3])
+
+
+def test_per_expert_traces_and_gains_match_jax(per_expert):
+    """The traces of every member tensor (each expert's own) and the gains
+    of every unit within TRACE_TOL and GAIN_TOL of the largest, as the
+    per-layer test holds them; the experts of one bank read different
+    gains, and so does each expert's ||Q4 - Q2||^2 at its own range."""
+    caught, gj, traces, gt, params, pt, policy = per_expert
+    assert traces.keys() == caught.keys()
+    top = max(abs(v) for v in caught.values())
+    for k, want in caught.items():
+        assert abs(traces[k] - want) <= TRACE_TOL * top, (k, traces[k],
+                                                          want)
+    assert gt.keys() == gj.keys()
+    top = max(abs(v) for v in gj.values())
+    for k, want in gj.items():
+        assert abs(gt[k] - want) <= GAIN_TOL * top, (k, gt[k], want)
+    for slot in ("moe_gateup", "moe_down"):
+        for layer in (0, 1):
+            bank = [gt[f"pat0.{slot}.e{e}.L{layer}"] for e in range(4)]
+            assert len(set(bank)) == 4, (slot, layer, bank)
+    w = pt["pat"][0]["p0"]["moe"]["down"]["w"]
+    per = [hawq.quant_perturbation_l2sq(w[e], 4.0, 2.0) for e in range(4)]
+    assert len(set(per)) == 4
+    for e in range(4):
+        want = jhawq.quant_perturbation_l2sq(
+            params["pat"]["p0"]["moe"]["down"]["w"][0, e], 4.0, 2.0)
+        assert abs(per[e] - want) <= 1e-5 * want

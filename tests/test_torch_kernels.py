@@ -1008,6 +1008,41 @@ def test_cuda_lsq_bwd_grad_qmax_matches_ref(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bits", [(4, 2), (2, 4)])
+def test_cuda_bank_lsq_matches_plain(card, bits):
+    """A bank of two experts at dbrx-132b's gate/up shape (6144, 10752),
+    bf16, each at its own step and bits: ``fake_quant_bank`` through the
+    lsq_fakequant kernel equals its plain version bit for bit, and its
+    backward through lsq_fakequant_bwd gives the plain backward's weight
+    gradient bit for bit and each expert's step gradient within phase 3's
+    bound, LSQ_BWD_TOL x gscale sum|g ds| (the sum's order)."""
+    from repro_torch.core import quant
+    from repro_torch.models.common import fake_quant_bank
+    dev = card
+    gen = torch.Generator(dev).manual_seed(7)
+    w = (torch.randn((2, 6144, 10752), generator=gen, device=dev)
+         * 6144 ** -0.5).to(torch.bfloat16)
+    g = torch.randn(w.shape, generator=gen, device=dev).to(torch.bfloat16)
+    sw = torch.stack([quant.init_step_from_tensor(w[e], 4.0)
+                      for e in range(2)])
+    out = {}
+    for impl in ("auto", "ref"):
+        ww = w.clone().requires_grad_(True)
+        ss = sw.clone().requires_grad_(True)
+        y = fake_quant_bank(ww, ss, bits, impl, grad_qmax=quant.mean_qmax(
+            np.asarray(bits, np.float32)))
+        gw, gs = torch.autograd.grad(y, (ww, ss), g)
+        out[impl] = (y.detach(), gw, gs)
+    (y, gw, gs), (yr, gwr, gsr) = out["auto"], out["ref"]
+    assert torch.equal(y, yr) and torch.equal(gw, gwr)
+    import chip_smoke
+    for e in range(2):
+        scale = chip_smoke.lsq_bwd_gs_scale(w[e], g[e], sw[e], bits[e])
+        assert abs(float(gs[e]) - float(gsr[e])) <= \
+            chip_smoke.LSQ_BWD_TOL * scale, e
+
+
+@pytest.mark.cuda
 def test_cuda_lsq_refuses_misaligned(card):
     """An x off a 16-byte boundary raises in the wrapper; ops copies it
     to an aligned buffer and launches."""

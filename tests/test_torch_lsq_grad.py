@@ -307,3 +307,38 @@ def test_forward_only_wrappers_refuse_grad(monkeypatch, case):
         except ValueError:
             pass            # a shape or dtype check past the guard
     assert launched in ([name], [])
+
+
+@pytest.mark.parametrize("mode", ["backward", "hvp"])
+def test_plain_backward_in_chunks(monkeypatch, mode):
+    """A long input at scalar steps goes through the plain backward in
+    chunks (``ref.BWD_CHUNK``, here 1000 elements against 64 x 48 + 5):
+    gx equal to the whole tensor's at once, each step's gradient within
+    1e-12 relative (float64 sums grouped otherwise); and the same under
+    HAWQ's ``torch.func.jvp`` of ``torch.func.grad``."""
+    rng = np.random.default_rng(9)
+    x = torch.tensor(rng.normal(size=(64 * 48 + 5,)), dtype=torch.float32)
+    g = [torch.tensor(rng.normal(size=x.shape), dtype=torch.float32)
+         for _ in range(2)]
+    steps = [torch.tensor(0.11), 0.37]
+    c = torch.tensor(rng.normal(size=x.shape), dtype=torch.float32)
+    xt = torch.tensor(rng.normal(size=x.shape), dtype=torch.float32)
+
+    def run():
+        if mode == "backward":
+            return tref.lsq_fakequant_bwd(x, g, steps, 4.0)
+
+        def loss(a, s):
+            y = quant.fake_quant(a, s, 4.0, "ref", hvp=True)
+            return torch.sum(torch.sin(y) * c)
+        _, (gx, gs) = torch.func.jvp(
+            torch.func.grad(loss, argnums=(0, 1)),
+            (x, steps[0]), (xt, torch.tensor(0.8)))
+        return gx, [gs]
+    whole = run()
+    monkeypatch.setattr(tref, "BWD_CHUNK", 1000)
+    chunked = run()
+    torch.testing.assert_close(chunked[0], whole[0], rtol=0, atol=0)
+    for a, b in zip(chunked[1], whole[1]):
+        assert a.shape == b.shape
+        assert abs(float(a) - float(b)) <= 1e-12 * abs(float(b)) + 1e-30

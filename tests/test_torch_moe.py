@@ -359,15 +359,6 @@ def test_loss_matches_jax(moe):
         <= 1e-5 * abs(float(wm["aux_loss"]))
 
 
-def test_scheduler_refuses_moe(moe):
-    """The continuous-batching scheduler refuses an MoE model, naming its
-    item: the capacity counts every token of the batch, so a request's
-    tokens would depend on its batchmates."""
-    from repro_torch.serve import ContinuousBatchingScheduler
-    with pytest.raises(NotImplementedError, match="13.1b"):
-        ContinuousBatchingScheduler(_port_engine(moe, "full"), n_slots=2)
-
-
 def test_convert_round_trip(moe):
     """``to_jax_tree`` stacks the port's per-layer banks back into the
     reference's (L, E, K, N) weights and (L, E) steps, leaf for leaf."""

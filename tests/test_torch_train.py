@@ -144,12 +144,16 @@ def one_step(setup):
 @pytest.mark.parametrize("state_dtype", ["f32", "int8"])
 def test_one_train_step_matches_jax(one_step, state_dtype):
     params, out = one_step
-    js2, jm, st, m = out[state_dtype]
+    assert_step_matches(params, *out[state_dtype], state_dtype)
+
+
+def assert_step_matches(params, js2, jm, st, m, state_dtype, lr=2e-3):
+    """One port step ``st, m`` from the reference params ``params`` against
+    the reference's ``js2, jm``, at this module's tolerances."""
     assert st.step == int(js2.step) == 1
     assert st.optimizer.count == int(js2.opt_state.count) == 1
     for k in ("loss", "grad_norm"):
         assert float(m[k]) == pytest.approx(float(jm[k]), rel=1e-5), k
-    lr = 2e-3
     before = tree.leaves(convert.from_jax_params(_np(params), device="cpu"))
     want = tree.flatten(convert.from_jax_params(_np(js2.params),
                                                 device="cpu"))

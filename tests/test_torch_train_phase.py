@@ -123,3 +123,39 @@ def test_phases_refuse_a_forward_only_kernel_in_training(cpu_card,
     with pytest.raises(RuntimeError, match="T5: flash_attention"):
         chip_smoke.phase_train(olmo_1b.config().smoke(),
                                torch.device("cpu"), "cpu rehearsal")
+
+
+def test_dbrx_method_phase_rehearsed(cpu_card, monkeypatch):
+    """chip_smoke's dbrx method phase at dbrx-132b's smoke size (4
+    experts, top-2, one layer, float32): T1-T5 with int8 moments (T4: 3 +
+    2E activation and 5 + 3E weight sites a layer, 1 and 2 edges), A1-A3
+    with two experts among A3's units, H1-H4 with each expert its own
+    gain, F1-F4 over EAGL, ALPS and HAWQ-v3 at two budgets; and the sites
+    at the card's 16 experts: 36 activation and 55 weight sites a layer."""
+    from repro_torch.configs import get_config
+    monkeypatch.setattr(chip_smoke, "FRONTIER_STEPS", 2)
+    # quickstart's rate for a smoke model (chip_smoke.LR is full width's)
+    monkeypatch.setattr(chip_smoke, "LR", 2e-3)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda *a: type("Card", (), {"total_memory": 1}))
+    full = get_config("dbrx-132b").replace(n_repeats=1)
+    assert chip_smoke.lsq_sites(full) == {"activations": 36, "weights": 55,
+                                          "recomputed": 35}
+    cfg = get_config("dbrx-132b").smoke().replace(n_repeats=1)
+    rec = chip_smoke.phase_dbrx_method(cfg, torch.device("cpu"),
+                                       "cpu rehearsal")
+    e = cfg.n_experts
+    sites = chip_smoke.lsq_sites(cfg)
+    assert sites == {"activations": 3 + 2 * e + 1, "weights": 5 + 3 * e + 2,
+                     "recomputed": 3 + 2 * e}
+    train = rec["train"]
+    assert train["state_dtype"] == "int8" and train["t1_loss_equal"]
+    assert train["grads"]["unread"] == 1 and not train["grads"]["bad"]
+    assert rec["units"] == 2 + 2 * e and rec["experts"] == 2 * e
+    assert len(rec["a3_experts"]) == 2
+    assert rec["alps"]["a1_params_equal"] and rec["alps"]["a2_equal"]
+    assert rec["hawq"]["expert_banks"] == 2
+    assert rec["hawq"]["banks_with_equal_gains"] == []
+    front = rec["frontier"]
+    assert len(front["points"]) == 3 * len(chip_smoke.DBRX_BUDGETS)
+    assert front["f3_params_equal"]

@@ -183,7 +183,10 @@ def test_chip_smoke_dbrx_phase_runs_on_cpu(cpu_card):
     quant_matmul and 3 + 2 E lsq_fakequant a layer, one more for the head,
     and one attention a layer, as ``step_launches`` works out (208, 141
     and 4 at the card's 4 layers of 16 experts); the check reads 0 over
-    the prefill and 8 decode steps."""
+    the prefill and 8 decode steps; the schedule's paged full run over the
+    first SCHED_DEPTH layers holds gates A, B and D, its decode steps drop
+    no slot, and every admission's and aligned hit's dropped slots are
+    counted."""
     full = get_config("dbrx-132b").replace(n_repeats=cpu_card.DBRX_DEPTH)
     assert cpu_card.step_launches(full) == {
         "quant_matmul": 208, "lsq_fakequant": 141, "attention": 4}
@@ -210,6 +213,14 @@ def test_chip_smoke_dbrx_phase_runs_on_cpu(cpu_card):
     assert len(check["rel_logit_err"]) == cpu_card.ZOO_CHECK_DECODE + 1
     assert max(check["rel_logit_err"]) == 0.0
     assert rec["peak_bytes"] == 0 and rec["packed_weight_bytes"] > 0
+    run = rec["schedule"]["paged-full"]
+    assert run["gate_a"]["matched"] >= cpu_card.GATE_A_MIN
+    assert not run["gate_a"]["differs"]
+    assert run["gate_a"]["decode_dropped_slots"] == [0, 0]
+    assert set(run["gate_a"]["dropped_slots"]) == set(run["plans"])
+    assert run["registry_hits"] >= cpu_card.MIN_HITS
+    assert set(run["gate_b_aligned"]["dropped_slots"]) == set(
+        run["gate_b_aligned"]["gap"])
 
 
 def test_chip_smoke_qwen_phase_runs_on_cpu(cpu_card, monkeypatch):
