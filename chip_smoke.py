@@ -15,10 +15,13 @@ Phases, in order; any failure exits non-zero:
                decode attention at granite's 48 query heads on one KV
                head, dbrx's 48 on 8 and qwen's 28 on 4 in both layouts,
                flash_attention at granite's MQA prefill, dbrx's GQA 48/8,
-               qwen's 28/4 and hubert-xlarge's
-               head_dim 80, not causal), with its tolerance, kernel / plain /
-               library times (CUDA events, warm-up excluded, L2 flushed) and
-               bound; the decode GEMV's shapes also in device time alone
+               qwen's 28/4, hubert-xlarge's head_dim 80, not causal, and
+               deepseek-v3's MLA prefill, 128 heads at head_dim 192 with V
+               zero past column 128; quant_matmul at deepseek-v3's MLA,
+               prefix and expert projections), with its tolerance,
+               kernel / plain / library times (CUDA events, warm-up
+               excluded, L2 flushed) and bound; the decode GEMV's shapes
+               also in device time alone
                (torch.profiler) beside cuBLAS's, both decode attentions
                beside SDPA's, lsq_fakequant (one step and q/k/v's three)
                beside fake_quantize_per_tensor_affine, its backward (the
@@ -95,7 +98,8 @@ Phases, in order; any failure exits non-zero:
                forward of EAGL's take through the float32 flash kernel and
                quant_matmul; gates B2-B6 (see phase_bert).
   zoo        - internlm2-1.8b, deepseek-7b and granite-20b (MQA, 48:1) in
-               turn, each at its published widths and depth from seed 0:
+               turn, each at its published widths, its first 4 layers
+               (ZOO), from seed 0:
                EAGL's take at 0.7 packed, 8 prompts with 32 new tokens over
                contiguous int8 and int4 and paged int4 caches, the kernel
                path teacher-forced against the plain path; gates Z1-Z4
@@ -125,6 +129,14 @@ Phases, in order; any failure exits non-zero:
                streams, kernel path against plain path), and the
                schedule's paged full run over its first SCHED_DEPTH layers
                (suffix prefills at shifted streams; gates A, B, D).
+  deepseek-v3 - deepseek-v3-671b (MLA: q_lora 1536, kv_lora 512, nope /
+               rope / v 128 / 64 / 128, 128 heads; vocab 129280) at its
+               published widths: its 3 dense prefix layers (d_ff 18432)
+               and its first DSV3_DEPTH MoE layer (256 experts, top-8, a
+               shared expert): the zoo's phase and gates Z1-Z4 over one
+               contiguous full-cache run (the latent is never quantized
+               or paged): prefill through flash_attention at head_dim
+               192, the absorbed decode in plain products.
 The second-to-last line is the kernels JSON, the last the device JSON.
 Details go to chiprun_out/chip_smoke.json and chiprun_out/build_log.txt.
 """
@@ -464,6 +476,17 @@ MOE_ROWS = (8, 1280)
 # qwen2-vl-7b's projections (K, N): q and o, k and v (4 KV heads of 128),
 # gate and up, down; in a decode step at B = 8 and an 8 x 512 prefill
 QWEN_PROJECTIONS = ((3584, 3584), (3584, 512), (3584, 18944), (18944, 3584))
+# deepseek-v3-671b's projections ((K, N), rows M): MLA's wq_a, wkv_a, wq_b
+# and wo and the dense prefix's gate/up and down in a decode step at B = 8
+# and an 8 x 512 prefill; an expert's gate/up and down (the shared
+# expert's shapes too) at 8, 160 (an expert's capacity in that prefill:
+# round_up(4096 x 8 / 256 x 1.25, 8)) and 4096 (the shared expert's)
+DSV3_PROJECTIONS = (((7168, 1536), (8, 4096)), ((7168, 576), (8, 4096)),
+                    ((1536, 24576), (8, 4096)), ((16384, 7168), (8, 4096)),
+                    ((7168, 18432), (8, 4096)), ((18432, 7168), (8, 4096)),
+                    ((7168, 2048), (8, 160, 4096)),
+                    ((2048, 7168), (8, 160, 4096)))
+DSV3_EXPERT = ((7168, 2048), (2048, 7168))
 
 
 def check_quant_matmul(timer, dev, gen):
@@ -472,7 +495,9 @@ def check_quant_matmul(timer, dev, gen):
     (``ZOO_PROJECTIONS``, the same bits and M), dbrx-132b's experts
     (``MOE_PROJECTIONS`` at ``MOE_ROWS``, the tiled ones also in device
     time alone beside cuBLAS bf16), qwen2-vl-7b's (``QWEN_PROJECTIONS``,
-    the same bits and M, in device time alone too), the identity
+    the same bits and M, in device time alone too), deepseek-v3-671b's
+    (``DSV3_PROJECTIONS``, bits 4 and 2, its experts' in device time alone
+    too), the identity
     probe, and ragged tiled shapes: M = 4099 (a ragged M through the wgmma
     route), and M = 129 with N = 200 and K = 520 (ragged M, N and a partial
     last K step; N % 16 != 0 takes the mma.sync route).  Then the GEMV
@@ -499,6 +524,13 @@ def check_quant_matmul(timer, dev, gen):
             for m in (8, 8 * 512):
                 rec = qmm_case(timer, dev, gen, bits, m, k, n, alone=True)[0]
                 rec["qwen"] = True
+                cases.append(rec)
+    for bits in (4, 2):
+        for (k, n), rows in DSV3_PROJECTIONS:
+            for m in rows:
+                rec = qmm_case(timer, dev, gen, bits, m, k, n,
+                               alone=(k, n) in DSV3_EXPERT)[0]
+                rec["deepseek_v3"] = True
                 cases.append(rec)
     for bits in (4, 2):
         cases.append(identity_probe(timer, dev, gen, bits))
@@ -890,16 +922,20 @@ def flash_selector_probe(dev, b, h, hkv, s, d=128, seed=0, causal=True):
 
 
 # (B, H, Hkv, S, D, causal, alone) of check_flash: olmo-1b's prefill, a
-# ragged GQA shape, granite-20b's MQA prefill of one 2048-token prompt, and
+# ragged GQA shape, granite-20b's MQA prefill of one 2048-token prompt,
 # hubert-xlarge's 8 x 1000 frames (head_dim 80, not causal; 1000 is no
-# multiple of the 64-row tiles); ``alone``: also timed in device time alone
-# beside SDPA
+# multiple of the 64-row tiles), dbrx-132b's and qwen2-vl-7b's prefills,
+# and deepseek-v3's MLA prefill (128 heads at D = 192: [nope ; rope] q
+# and k, V padded to 192 as mla_apply pads it; SDPA at the same padded
+# width); ``alone``: also timed in device time alone beside SDPA
 FLASH_CASES = ((8, 16, 16, 512, 128, True, False),
                (2, 16, 4, 300, 128, True, True),
                (1, 48, 1, 2048, 128, True, True),
                (8, 16, 16, 1000, 80, False, True),
                (8, 48, 8, 512, 128, True, True),
-               (8, 28, 4, 512, 128, True, True))
+               (8, 28, 4, 512, 128, True, True),
+               (8, 128, 128, 512, 192, True, True))
+MLA_V_DIM = 128         # deepseek-v3's v_head_dim: V's columns past it are 0
 
 
 def check_flash(timer, dev, gen):
@@ -911,7 +947,9 @@ def check_flash(timer, dev, gen):
     MHA and GQA 16/4, causal and with keys spread over every kv tile, and
     causal with the queries cut to their last rows (q_offset > 0); at D =
     80 (S = 129 and 1000, both masks), at MQA 48/1 (S = 300, both), at
-    dbrx-132b's GQA 48/8 and at qwen2-vl-7b's 28/4 (S = 512, both)."""
+    dbrx-132b's GQA 48/8 and at qwen2-vl-7b's 28/4 (S = 512, both), and
+    at D = 192 (S = 300 with 16 heads, and deepseek-v3's 128 heads at S =
+    512, both)."""
     from repro_torch.kernels import cuda, ops
     sdpa = torch.nn.functional.scaled_dot_product_attention
     cases = []
@@ -919,6 +957,8 @@ def check_flash(timer, dev, gen):
         q = torch.randn((b, h, s, d), generator=gen, device=dev).bfloat16()
         k = torch.randn((b, hkv, s, d), generator=gen, device=dev).bfloat16()
         v = torch.randn((b, hkv, s, d), generator=gen, device=dev).bfloat16()
+        if d == 192:             # MLA's V, zero-padded from 128 columns
+            v[..., MLA_V_DIM:] = 0
         # the plain version on the same inputs in float32: in bf16 it rounds
         # the scores to bf16 before the softmax, an error of its own
         qf, kf, vf = q.float(), k.float(), v.float()
@@ -999,7 +1039,8 @@ def check_flash(timer, dev, gen):
     for causal in (True, False):
         for (s, h, hkv, d) in ((129, 16, 16, 80), (1000, 16, 16, 80),
                                (300, 48, 1, 128), (512, 48, 8, 128),
-                               (512, 28, 4, 128)):
+                               (512, 28, 4, 128), (300, 16, 16, 192),
+                               (512, 128, 128, 192)):
             q, k, v, want = flash_selector_probe(dev, 2, h, hkv, s, d=d,
                                                  causal=causal)
             got = cuda.flash_attention(q, k, v, causal=causal)
@@ -1958,24 +1999,40 @@ def step_launches(cfg) -> dict:
     matmul a projection (q, k, v, o, and gate, up and down for SwiGLU or
     up and down for GeLU) a layer; one grouped LSQ fake-quant for q/k/v,
     o, the FFN's input and down a layer, and the head's; one attention a
-    layer (``"attention"``): the decode attention in a decode step, one
-    flash_attention in a prefill or an encoder's forward, which make the
-    same launches otherwise.  A MoE layer makes q, k, v, o and each
-    expert's gate, up and down (4 + 3 E packed matmuls; the pinned 8-bit
-    router is a plain matmul) and fake-quantizes q/k/v, o, the router's
-    input and each expert's buffer and hidden (3 + 2 E): every expert runs
-    its capacity rows in every step, whether a token chose it or not."""
-    layers = cfg.n_repeats * len(cfg.pattern)
+    layer (``"attention"``): the decode attention in a decode step over a
+    quantized GQA cache, one flash_attention in a prefill or an encoder's
+    forward, which make the same launches otherwise.  A MoE layer makes q,
+    k, v, o and each expert's gate, up and down (4 + 3 E packed matmuls;
+    the pinned 8-bit router is a plain matmul) and fake-quantizes q/k/v, o,
+    the router's input and each expert's buffer and hidden (3 + 2 E): every
+    expert runs its capacity rows in every step, whether a token chose it
+    or not; a shared expert adds its gate, up and down (3) and its two
+    fake-quants.  An MLA block (deepseek-v3) projects wq_a, wkv_a, wq_b
+    and wo (4: wk_b and wv_b are read as dequantized weights, no matmul
+    of packed codes) and fake-quantizes x for wq_a and wkv_a together, q_c
+    and o (3).  The prefix blocks count as layers."""
     qmm = lsq = 0
-    for b in cfg.pattern:
+    blocks = tuple(cfg.prefix) + tuple(cfg.pattern) * cfg.n_repeats
+    for b in blocks:
+        qmm += 4
+        lsq += 3 if b.mixer == "mla" else 2
         if b.ffn == "moe":
-            qmm += 4 + 3 * cfg.n_experts
-            lsq += 3 + 2 * cfg.n_experts
+            qmm += 3 * cfg.n_experts + 3 * (cfg.n_shared_experts > 0)
+            lsq += 1 + 2 * cfg.n_experts + 2 * (cfg.n_shared_experts > 0)
         else:
-            qmm += 4 + (3 if b.ffn == "swiglu" else 2)
-            lsq += 4
-    return {"quant_matmul": cfg.n_repeats * qmm,
-            "lsq_fakequant": cfg.n_repeats * lsq + 1, "attention": layers}
+            qmm += 3 if b.ffn == "swiglu" else 2
+            lsq += 2
+    return {"quant_matmul": qmm, "lsq_fakequant": lsq + 1,
+            "attention": len(blocks)}
+
+
+def decode_attention_launches(cfg, bits) -> int:
+    """Decode attention kernel launches a decode step makes: one a causal
+    GQA layer over a quantized cache (``bits`` 4 or 8); none over a full
+    cache (plain attention) or in an MLA layer (the absorbed decode is
+    plain products over its full-precision latent)."""
+    blocks = tuple(cfg.prefix) + tuple(cfg.pattern) * cfg.n_repeats
+    return 0 if bits is None else sum(b.mixer == "gqa" for b in blocks)
 
 
 def log_serve_run(what: str, rec: dict) -> None:
@@ -1995,15 +2052,20 @@ def log_serve_run(what: str, rec: dict) -> None:
 
 SERVE_RUNS = tuple((layout, bits) for layout in SERVE_PATHS
                    for bits in (8, 4))
+# the kernels a full-cache run must launch, and those it must not
+FULL_CACHE_PATH = ({"quant_matmul", "flash_attention", "lsq_fakequant"},
+                   {"kv_decode_attention", "paged_kv_decode_attention"})
 
 
 def phase_serve(cfg, packed, pa, dev, tokens, lengths, runs_of=SERVE_RUNS,
                 n_new=64):
     """``generate`` of the prompts, ``n_new`` tokens, over each (layout,
-    bits) quantized cache of ``runs_of`` (a paged run after the contiguous
-    run of its bits), with its launches, bytes and timings (``serve_run``),
-    and for the int8 runs a torch.profiler breakdown of a prefill and 8
-    decode steps (``serve_breakdown``; the summaries take seconds a run).
+    bits) cache of ``runs_of`` (bits 8 or 4: a quantized cache; None: the
+    full cache, as MLA's latent always is; a paged run after the
+    contiguous run of its bits), with its launches, bytes and timings
+    (``serve_run``), and for the int8 and full runs a torch.profiler
+    breakdown of a prefill and 8 decode steps (``serve_breakdown``; the
+    summaries take seconds a run).
     Gates: the kernels of each path launched and no other decode kernel;
     no device-to-host copy in 8 decode steps (``serve_run``, every run);
     the launches a decode step and a prefill that ``step_launches`` works
@@ -2014,13 +2076,13 @@ def phase_serve(cfg, packed, pa, dev, tokens, lengths, runs_of=SERVE_RUNS,
     len_t = torch.as_tensor(lengths, device=dev)
     want = step_launches(cfg)
     for layout, bits in runs_of:
-        need, never = SERVE_PATHS[layout]
-        name = f"{layout}-int{bits}"
+        need, never = SERVE_PATHS[layout] if bits else FULL_CACHE_PATH
+        name = f"{layout}-int{bits}" if bits else f"{layout}-full"
+        cache = (dict(cache="quantized", cache_bits=bits) if bits
+                 else dict(cache="full"))
         engine = ServeEngine(cfg, packed, pa, max_seq=1024,
-                             spec=EngineSpec(cache="quantized",
-                                             cache_bits=bits,
-                                             cache_layout=layout,
-                                             page_size=PAGE),
+                             spec=EngineSpec(cache_layout=layout,
+                                             page_size=PAGE, **cache),
                              device=dev)
         rec = serve_run(engine, cfg, tok_t, len_t, lengths, n_new)
         launches = rec["launches"]
@@ -2035,12 +2097,15 @@ def phase_serve(cfg, packed, pa, dev, tokens, lengths, runs_of=SERVE_RUNS,
                          else "kv_decode_attention")
         got = {"attention": (step[decode_kernel],
                                     pre["flash_attention"])}
+        expect = {"attention": (decode_attention_launches(cfg, bits),
+                                want["attention"])}
         for k in ("quant_matmul", "lsq_fakequant"):
             got[k] = (step[k], pre[k])
-        wrong = {k: v for k, v in got.items() if v != (want[k],) * 2}
+            expect[k] = (want[k],) * 2
+        wrong = {k: v for k, v in got.items() if v != expect[k]}
         if wrong:
             raise RuntimeError(f"{name}: launches (a decode step, a "
-                               f"prefill) {wrong}, expected {want} each")
+                               f"prefill) {wrong}, expected {expect}")
         if layout == "paged":
             base = runs[f"contiguous-int{bits}"]
             if rec["tokens"] != base["tokens"]:
@@ -2050,7 +2115,7 @@ def phase_serve(cfg, packed, pa, dev, tokens, lengths, runs_of=SERVE_RUNS,
         log_serve_run(f"serve {name} cache", rec)
         log(f"    launches in generate: {launches}")
         log(f"    per prefill: {pre}; per decode step: {step}")
-        if bits == 8:
+        if bits in (8, None):
             rec["profile"] = serve_breakdown(engine, tok_t, len_t)
             for what, brk in rec["profile"].items():
                 log_breakdown(what, brk)
@@ -2858,8 +2923,13 @@ def phase_check(cfg, packed, pa, dev, tokens, lengths, n_decode=16,
     """
     tok_t = torch.as_tensor(tokens, device=dev)
     len_t = torch.as_tensor(lengths, device=dev)
-    one = cfg.replace(n_repeats=1)
-    one_block = dict(packed, pat=packed["pat"][:1])
+    # the first block: a model's first prefix block where it has them
+    if cfg.prefix:
+        one = cfg.replace(prefix=cfg.prefix[:1], n_repeats=0)
+        one_block = dict(packed, pat=[])
+    else:
+        one = cfg.replace(n_repeats=1)
+        one_block = dict(packed, pat=packed["pat"][:1])
     res, bad = {}, {}
     for bits in cache_bits:
         logits, blocks = teacher_forced(cfg, packed, pa, dev, tok_t, len_t,
@@ -2896,7 +2966,8 @@ def phase_check(cfg, packed, pa, dev, tokens, lengths, n_decode=16,
         rec["yardstick"] = max(worst["control_rel_logit_err"],
                                worst["control_bf16_rel_logit_err"])
         e2e_bound = CONTROL_FACTOR * rec["yardstick"]
-        log(f"  check int{bits}: {cfg.n_repeats} blocks: max|dlogit|/"
+        log(f"  check int{bits}: {len(cfg.prefix) + cfg.n_repeats} "
+            f"blocks: max|dlogit|/"
             f"max|logit| {worst['rel_logit_err']:.4g} (bound "
             f"{CONTROL_FACTOR} x the larger control = {e2e_bound:.4g}), "
             f"RMS {worst['rel_rms_logit_err']:.4g}, top-1 agreement "
@@ -3907,8 +3978,12 @@ def phase_bert(cfg, dev, smi_line):
     return rec
 
 
-ZOO = ("internlm2-1.8b", "deepseek-7b", "granite-20b")
+# the dense zoo's depths on the card, at full width: each decoder's first
+# layers (24, 30 and 52 in all), cut so that the script keeps inside its
+# time limit as the zoo grows; gates Z1-Z4 hold at any depth
+ZOO = {"internlm2-1.8b": 4, "deepseek-7b": 4, "granite-20b": 4}
 ZOO_RUNS = (("contiguous", 8), ("contiguous", 4), ("paged", 4))
+MLA_RUNS = (("contiguous", None),)   # MLA's latent: full, never paged
 ZOO_NEW = 32            # new tokens of a zoo run
 ZOO_CHECK_DECODE = 8    # decode steps of the zoo's teacher-forced check
 
@@ -3928,7 +4003,11 @@ def phase_zoo(cfg, dev, smi_line):
     path against plain within CONTROL_FACTOR x the larger of the
     float64-attention and bf16-probability controls.  Z4: the peak of
     device memory (init, selection and packing, and every run) below the
-    card's.  An M-RoPE model (qwen2-vl-7b) also
+    card's.  An MLA model (deepseek-v3) serves one contiguous full-cache
+    run (MLA_RUNS: its latent is never quantized or paged), whose decode
+    steps launch no decode attention; its prefix blocks count as layers,
+    and its first block alone is its first prefix block.  An M-RoPE model
+    (qwen2-vl-7b) also
     runs Z5, ``mrope_prefill_check``'s image-and-text prefill; it and a
     mixture of experts (dbrx-132b) run ``phase_schedule``'s paged full run
     over their first SCHED_DEPTH layers (suffix prefills at shifted
@@ -3941,11 +4020,17 @@ def phase_zoo(cfg, dev, smi_line):
     from repro_torch.models import transformer as tf
     from repro_torch.serve import pack_params, residency
     moe = (f" experts={cfg.n_experts} top_k={cfg.top_k} capacity_factor="
-           f"{cfg.capacity_factor:g}" if cfg.n_experts else "")
-    log(f"  {cfg.name} d_model={cfg.d_model} layers={cfg.n_repeats} heads="
-        f"{cfg.n_heads}/{cfg.n_kv_heads} head_dim={cfg.head_dim} d_ff="
-        f"{cfg.d_ff} vocab={cfg.vocab} norm={cfg.norm} "
-        f"ffn={cfg.pattern[0].ffn}{moe} rope_base={cfg.rope_base:g}")
+           f"{cfg.capacity_factor:g} shared={cfg.n_shared_experts}"
+           if cfg.n_experts else "")
+    mla = (f" MLA q_lora={cfg.q_lora_rank} kv_lora={cfg.kv_lora_rank} "
+           f"nope/rope/v={cfg.qk_nope_dim}/{cfg.qk_rope_dim}/"
+           f"{cfg.v_head_dim} prefix={len(cfg.prefix)} x "
+           f"{cfg.prefix[0].mixer}+{cfg.prefix[0].ffn} d_ff "
+           f"{cfg.prefix[0].d_ff} mtp={cfg.mtp}" if cfg.prefix else "")
+    log(f"  {cfg.name} d_model={cfg.d_model} layers={len(cfg.prefix)} + "
+        f"{cfg.n_repeats} heads={cfg.n_heads}/{cfg.n_kv_heads} head_dim="
+        f"{cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab} norm={cfg.norm} "
+        f"ffn={cfg.pattern[0].ffn}{moe}{mla} rope_base={cfg.rope_base:g}")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3978,8 +4063,9 @@ def phase_zoo(cfg, dev, smi_line):
         f"{rec['build_peak_bytes'] / 2**30:.2f} GiB")
     tokens, lengths = make_prompts(cfg, np.random.default_rng(0))
     t0 = time.perf_counter()
+    mla = any(b.mixer == "mla" for b in tuple(cfg.prefix) + cfg.pattern)
     rec["serve"] = phase_serve(cfg, packed, pa, dev, tokens, lengths,
-                               ZOO_RUNS, ZOO_NEW)
+                               MLA_RUNS if mla else ZOO_RUNS, ZOO_NEW)
     log(f"  Z2 serve {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     rec["check"] = phase_check(cfg, packed, pa, dev, tokens, lengths,
@@ -3989,7 +4075,7 @@ def phase_zoo(cfg, dev, smi_line):
         t0 = time.perf_counter()
         rec["mrope"] = mrope_prefill_check(cfg, packed, pa, dev)
         log(f"  Z5 image-and-text prefill {time.perf_counter() - t0:.1f} s")
-    if cfg.rope == "mrope" or cfg.n_experts:
+    if cfg.rope == "mrope" or (cfg.n_experts and not mla):
         t0 = time.perf_counter()
         rec["schedule"] = phase_schedule(
             cfg.replace(n_repeats=SCHED_DEPTH),
@@ -4094,18 +4180,20 @@ def mrope_prefill_check(cfg, packed, pa, dev) -> dict:
 
 
 def raw_parts(raw) -> dict:
-    """Bytes of a raw param tree by part: the token table, the head, over
-    the layers the attention and the FFNs (``mlp``) or experts (``moe``:
-    router and banks), and the norms (the rest)."""
+    """Bytes of a raw param tree by part: the token table, the head, the
+    multi-token head (``mtp``), over the layers (the prefix blocks and the
+    pattern) the attention and the FFNs (``mlp``) or experts (``moe``:
+    router, banks and the shared expert), and the norms (the rest)."""
     from repro_torch.serve import residency
-    out = {k: residency.resident_bytes(raw[k]) for k in ("embed", "head")
-           if k in raw}
-    for layer in raw["pat"]:
-        for block in layer.values():
-            for part in ("attn", "mlp", "moe"):
-                if part in block:
-                    out[part] = (out.get(part, 0)
-                                 + residency.resident_bytes(block[part]))
+    out = {k: residency.resident_bytes(raw[k])
+           for k in ("embed", "head", "mtp") if k in raw}
+    blocks = [raw[k] for k in raw if k.startswith("prefix")]
+    blocks += [block for layer in raw["pat"] for block in layer.values()]
+    for block in blocks:
+        for part in ("attn", "mlp", "moe"):
+            if part in block:
+                out[part] = (out.get(part, 0)
+                             + residency.resident_bytes(block[part]))
     out["norms"] = residency.resident_bytes(raw) - sum(out.values())
     return out
 
@@ -4114,6 +4202,14 @@ def raw_parts(raw) -> dict:
 # 1.23 GB token table and head keep the raw build near 28.5 GB; all 40
 # layers would take about 260 GB
 DBRX_DEPTH = 4
+
+# deepseek-v3-671b's MoE layers on the card at full width, after its 3 dense
+# prefix layers: one MoE layer's experts take 22.55 GB raw (256 x 3 x 7168
+# x 2048 bf16), the prefix 3 x 1.17 GB, the token table and head 1.85 GB
+# each and the MTP projection 0.21 GB, about 30.4 GB raw; a second MoE
+# layer would raise the raw build to about 53 GB, and granite-20b's 40.6 GB
+# raw already peaked at 59.28 GiB of the card's 79.18
+DSV3_DEPTH = 1
 
 
 # the dbrx method phase's depth: one layer at full width holds 4.49 B
@@ -4332,10 +4428,12 @@ def main():
     bert = phase_bert(get_config("bert-base"), dev, smi_line)
     log(f"  bert phase {time.perf_counter() - t0:.1f} s")
     zoo = {}
-    for name in ZOO:
-        log(f"zoo ({name}: select, pack, serve, check):")
+    for name, depth in ZOO.items():
+        log(f"zoo ({name}, the first {depth} layers: select, pack, serve, "
+            f"check):")
         t0 = time.perf_counter()
-        zoo[name] = phase_zoo(get_config(name), dev, smi_line)
+        zoo[name] = phase_zoo(get_config(name).replace(n_repeats=depth), dev,
+                              smi_line)
         zoo[name]["phase_s"] = time.perf_counter() - t0
         log(f"  zoo {name} phase {zoo[name]['phase_s']:.1f} s")
     log("hubert (hubert-xlarge: select, packed forward of frames):")
@@ -4362,6 +4460,14 @@ def main():
     qwen = phase_zoo(get_config("qwen2-vl-7b"), dev, smi_line)
     qwen["phase_s"] = time.perf_counter() - t0
     log(f"  qwen phase {qwen['phase_s']:.1f} s")
+    log(f"deepseek-v3 (deepseek-v3-671b: MLA, the 3 dense prefix layers and "
+        f"the first {DSV3_DEPTH} of 58 MoE layers with the shared expert: "
+        f"select, pack, serve, check):")
+    t0 = time.perf_counter()
+    dsv3 = phase_zoo(get_config("deepseek-v3-671b").replace(
+        n_repeats=DSV3_DEPTH), dev, smi_line)
+    dsv3["phase_s"] = time.perf_counter() - t0
+    log(f"  deepseek-v3 phase {dsv3['phase_s']:.1f} s")
 
     # each kernel's launches on the path that runs it
     launches = dict(runs["contiguous-int8"]["launches"])
@@ -4399,6 +4505,7 @@ def main():
                    "frontier": front, "joint": joint, "bert": bert,
                    "zoo": zoo, "hubert": hubert, "dbrx": dbrx,
                    "dbrx_method": dbrx_method, "qwen": qwen,
+                   "deepseek_v3": dsv3,
                    "total_s": time.perf_counter() - t_start,
                    "launch_counts_after": dict(cuda.LAUNCHES)}, f, indent=1)
     log(f"chip_smoke: {time.perf_counter() - t_start:.0f} s in all")

@@ -3,10 +3,10 @@
 
 The dense architectures are ported: olmo-1b, internlm2-1.8b, deepseek-7b,
 granite-20b, the paper's bert-base and hubert-xlarge; dbrx-132b's
-mixture of experts; and qwen2-vl-7b's M-RoPE.  Every other name of the
-reference's registry (MLA and the shared expert, the SSMs) raises
-``NotImplementedError`` naming ROADMAP Queue 1 item 13, which ports the
-rest of the zoo.
+mixture of experts; qwen2-vl-7b's M-RoPE; and deepseek-v3-671b's MLA,
+dense prefix blocks, shared expert and multi-token head.  The reference's
+other names (the SSMs) raise ``NotImplementedError`` naming ROADMAP
+Queue 1 item 13.4, which ports them.
 """
 from __future__ import annotations
 
@@ -23,11 +23,11 @@ _MODULES = {
     "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
     "qwen2-vl-7b": "repro_torch.configs.qwen2_vl_7b",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
 }
 # the reference's other architectures, not ported yet, and the ROADMAP
 # Queue 1 item that ports each
-_PENDING = {"deepseek-v3-671b": "13.3 (MLA, the shared expert, MTP)",
-            "jamba-1.5-large-398b": "13.4 (the SSMs)",
+_PENDING = {"jamba-1.5-large-398b": "13.4 (the SSMs)",
             "xlstm-1.3b": "13.4 (the SSMs)"}
 
 

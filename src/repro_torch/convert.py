@@ -9,7 +9,9 @@ tree)``, so this module never needs JAX) and returns torch tensors on
 moments load through it too, and so does the reference's fake-quant serve
 layout (``quantize_for_serving``): its stacked (L,) scales become per-layer
 0-d tensors and its ``jnp.int4`` codes ``torch.int8``, the port's
-container.  ``to_jax_tree`` is the way back: numpy leaves, the layers
+container.  Every other top-level key (the prefix blocks ``prefix{i}``,
+the MTP head ``mtp``, and in a cache the prefix blocks' latents) is one
+layer and maps leaf for leaf.  ``to_jax_tree`` is the way back: numpy leaves, the layers
 stacked.  ``serve.packing.pack_params`` packs the params in the port.
 """
 from __future__ import annotations

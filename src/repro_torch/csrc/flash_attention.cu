@@ -78,6 +78,16 @@
 // columns 0-79 only, 10 16-byte chunks a row.  The scale is the caller's
 // (80^-0.5).  The kernel moves the bytes of the 80-column rows: the bound
 // counts those.
+//
+// Head dim 192 (deepseek-v3's MLA prefill: q and k are [nope 128 ; rope
+// 64], and V arrives zero-padded from 128 to 192 columns, as the reference
+// pads it; the caller keeps O's first 128) runs its own instantiation: a
+// row is three 64-column boxes, S = Q.K^T takes 12 16-deep steps and P.V
+// is wgmma.m64n192k16, whose accumulator holds 96 fp32 a thread.  Q and
+// two stages of K and V take 5 x 24 KB: one block an SM.  That block
+// has every register it asks for (__launch_bounds__(256, 1): up to 255 a
+// thread), so the producer and consumer keep the same allocation and the
+// instance makes no setmaxnreg.
 #include <math.h>
 
 #include "common.cuh"
@@ -208,6 +218,28 @@ __device__ __forceinline__ void wgmma_pv<128>(float (&d)[64],
         FD8(56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
 }
+template <>
+__device__ __forceinline__ void wgmma_pv<192>(float (&d)[96],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n"
+      "}\n"
+      : FD8(0), FD8(8), FD8(16), FD8(24), FD8(32), FD8(40), FD8(48),
+        FD8(56), FD8(64), FD8(72), FD8(80), FD8(88)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
+}
 #undef FD8
 
 __device__ __forceinline__ uint32_t lds32(uint32_t addr) {
@@ -265,9 +297,11 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
   return r * (D * 2) + ((c ^ (r & 7)) << 4);
 }
 
-// D: the tile layout (64 or 128 columns); DV <= D: the caller's head dim
+// D: the tile layout (64, 128 or 192 columns); DV <= D: the caller's head
+// dim.  Two blocks an SM up to D = 128; one at D = 192 (its tiles take 121
+// KB of shared memory)
 template <int D, int DV>
-__global__ void __launch_bounds__(F_THREADS, 2)
+__global__ void __launch_bounds__(F_THREADS, D > 128 ? 1 : 2)
     flash_wg(const __grid_constant__ CUtensorMap qmap,
              const __grid_constant__ CUtensorMap kmap,
              const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o,
@@ -311,7 +345,8 @@ __global__ void __launch_bounds__(F_THREADS, 2)
   __syncthreads();
 
   if (tid >= 128) {  // producer warpgroup: one thread issues every copy
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if constexpr (D <= 128)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (tid == 128) {
       mbar_expect_tx(qbar, L::TILE);
       for (int c = 0; c < NB; ++c)
@@ -332,7 +367,8 @@ __global__ void __launch_bounds__(F_THREADS, 2)
   }
 
   // consumer warpgroup: 64 query rows, warp w rows 16w .. 16w + 15
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 216;\n");
+  if constexpr (D <= 128)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 216;\n");
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int row0 = q0 + warp * 16 + g;
@@ -1000,6 +1036,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (D == 64)
     return launch<64, 64>(q, k, v, o, B, H, Hkv, Sq, Sk, strides, causal,
                           scale, st);
+  if (D == 192)  // deepseek-v3's MLA: [nope ; rope] keys, V padded to 192
+    return launch<192, 192>(q, k, v, o, B, H, Hkv, Sq, Sk, strides, causal,
+                            scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

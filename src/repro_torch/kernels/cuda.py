@@ -46,8 +46,9 @@ DECODE_WARPS = 4                # query rows a decode block holds: a larger
                                 # (decode_group_blocks)
 
 # head dims of the flash kernels: bf16 (flash_wg; 80 on the D = 128 tiles,
-# zero-filled past column 80) and float32 (flash_f32)
-FLASH_HEAD_DIMS = {False: (64, 80, 128), True: (64, 128)}
+# zero-filled past column 80; 192, MLA's nope + rope, one block an SM) and
+# float32 (flash_f32)
+FLASH_HEAD_DIMS = {False: (64, 80, 128, 192), True: (64, 128)}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -579,8 +580,8 @@ def paged_kv_decode_attention(q: torch.Tensor, kq_pool: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
-    """q (B, H, Sq, D), k/v (B, Hkv, Sk, D), all bf16 (D 64, 80 or 128) or
-    all float32 (D 64 or 128), with
+    """q (B, H, Sq, D), k/v (B, Hkv, Sk, D), all bf16 (D 64, 80, 128 or
+    192) or all float32 (D 64 or 128), with
     Sk >= Sq, head_dim contiguous (any batch/head/sequence strides) -> (B,
     H, Sq, D) in their dtype with q's strides.  bf16 launches the wgmma
     kernel (counter ``flash_attention``), float32 the wgmma kernel on three

@@ -148,7 +148,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, impl: str = "auto") -> torch.Tensor:
     """q (B, H, Sq, D), k/v (B, Hkv, Sk, D) with Sk >= Sq -> (B, H, Sq, D)
     in q's dtype; causal rows aligned bottom-right (query row i at
-    position Sk - Sq + i), as ``ref.attention`` masks them."""
+    position Sk - Sq + i), as ``ref.attention`` masks them.  The kernel
+    takes the head dims of ``cuda.FLASH_HEAD_DIMS`` (bf16 64, 80, 128 and
+    MLA's 192) and raises on any other; the plain version takes any D."""
     if use_kernel(q, impl):
         return cuda.flash_attention(q, k, v, causal=causal)
     group = q.shape[1] // k.shape[1]

@@ -1,6 +1,8 @@
-"""GQA attention — port of the GQA branches of ``repro/models/attention.py``
+"""GQA and MLA attention — port of ``repro/models/attention.py``: GQA
 (train/prefill; decode with one query per request over a full-dtype or
-quantized cache, contiguous or paged).
+quantized cache, contiguous or paged) and DeepSeek-V3's multi-head latent
+attention (``mla_apply``: train/prefill, and the absorbed decode over the
+full-precision latent cache).
 
 Train mode runs ``chunked_attention`` on every device, the math of the
 JAX model's XLA scan (q pre-scaled, 512-row chunks, causal mask), which is
@@ -20,6 +22,17 @@ paged full-dtype leaf is the suffix prefill of a prefix-hit admission
 shared prefix pages, through ``flash_attention`` with Sk > Sq on the card.
 Paged S > 1 decode (speculative verify) and the chunked-prefill ``role``
 staging wait for ROADMAP Queue 1 item 10.
+
+MLA keeps the compressed cache, c_kv (kv_lora_rank) and k_rope
+(qk_rope_dim) a token, always at full precision and never paged (the
+policy pins its cache unit at 16 bits).  Train and prefill expand K =
+[k_nope ; k_rope] and V (zero-padded from v_head_dim to qk_nope_dim +
+qk_rope_dim, as the reference pads it) and attend at that width: on the
+card prefill runs ``flash_attention`` at D = 192, elsewhere
+``chunked_attention``.  Decode is the reference's absorbed form in plain
+products: q~ = W_uk^T q_nope attends over c_kv itself and the value path
+up-projects once after the softmax.  W_uk and W_uv are read dequantized
+(``common.weight_of``) with no activation fake-quant, as in the reference.
 """
 from __future__ import annotations
 
@@ -286,6 +299,106 @@ def gqa_apply(p: dict, x: torch.Tensor, bits: dict, cfg, mode: str, cache,
     if mode == "prefill":
         new_cache = {"k": k.to(cfg.cache_dtype), "v": v.to(cfg.cache_dtype)}
     return y, new_cache
+
+
+def init_mla(gen: torch.Generator, cfg, device) -> dict:
+    """MLA's projections (draw order wq_a, wq_b, wkv_a, wk_b, wv_b, wo)
+    and its two parametric RMSNorms, the reference's shapes: wkv_a maps
+    d_model to kv_lora_rank + qk_rope_dim, wk_b and wv_b map the latent to
+    the heads' nope keys and values."""
+    d, h = cfg.d_model, cfg.n_heads
+    ql, kvl = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    dt = cfg.param_dtype
+    return {"wq_a": init_qdense(gen, d, ql, dt, device),
+            "q_norm": common.init_norm("rms", ql, dt, device),
+            "wq_b": init_qdense(gen, ql, h * (dn + dr), dt, device),
+            "wkv_a": init_qdense(gen, d, kvl + dr, dt, device),
+            "kv_norm": common.init_norm("rms", kvl, dt, device),
+            "wk_b": init_qdense(gen, kvl, h * dn, dt, device),
+            "wv_b": init_qdense(gen, kvl, h * dv, dt, device),
+            "wo": init_qdense(gen, h * dv, d, dt, device)}
+
+
+def mla_apply(p: dict, x: torch.Tensor, bits: dict, cfg, mode: str, cache,
+              positions: torch.Tensor, impl: str = "auto", hvp: bool = False,
+              mrope_positions=None):
+    """x (B, S, d); bits {'attn_q_a' (wq_a and wkv_a, linked),
+    'attn_q_b', 'attn_kv_b' (wk_b and wv_b, read as weights only),
+    'attn_wo'}; positions (B, S) address the cache.  Returns (y, cache)
+    as ``gqa_apply``: the prefill latent {'c_kv', 'k_rope'} in prefill
+    mode, the (in place) updated cache in decode mode, None in train mode.
+    The softmax scale is (qk_nope_dim + qk_rope_dim) ** -0.5."""
+    b, s, _ = x.shape
+    h, kvl = cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    scale = (dn + dr) ** -0.5
+
+    # one grouped fake-quant of x for wq_a and wkv_a (the unit links them)
+    q_a, kv_full = qproj_group(x, (p["wq_a"], p["wkv_a"]), bits["attn_q_a"],
+                               impl, hvp)
+    q_c = common.rms_norm(q_a, p["q_norm"]["scale"])
+    q_full = qproj(q_c, p["wq_b"], bits["attn_q_b"], impl, hvp).reshape(
+        b, s, h, dn + dr)
+    q_nope, q_rope = q_full[..., :dn], q_full[..., dn:]
+    cos, sin = common.rope_angles(positions, dr, cfg.rope_base)
+    q_rope = common.apply_rope(q_rope, cos, sin)
+    c_kv = common.rms_norm(kv_full[..., :kvl], p["kv_norm"]["scale"])
+    k_rope = common.apply_rope(kv_full[..., kvl:].reshape(b, s, 1, dr), cos,
+                               sin)                           # (B, S, 1, dr)
+    wk = common.weight_of(p["wk_b"], bits["attn_kv_b"], impl, hvp).reshape(
+        kvl, h, dn)
+    wv = common.weight_of(p["wv_b"], bits["attn_kv_b"], impl, hvp).reshape(
+        kvl, h, dv)
+
+    if mode == "decode":
+        cache_write(cache["c_kv"], c_kv, positions)
+        cache_write(cache["k_rope"], k_rope[:, :, 0], positions)
+        ckv, ckr = cache["c_kv"], cache["k_rope"]
+        # absorbed: q~ = W_uk^T q_nope attends over c_kv directly
+        q_t = torch.einsum("bqhd,chd->bqhc", q_nope, wk.to(q_nope.dtype))
+        logits = (torch.einsum("bqhc,bsc->bhqs", q_t.float(), ckv.float())
+                  + torch.einsum("bqhr,bsr->bhqs", q_rope.float(),
+                                 ckr.float())) * scale
+        s_pos = torch.arange(ckv.shape[1], device=x.device)
+        mask = s_pos[None, None, None, :] <= positions[:, None, :, None]
+        pr = torch.softmax(torch.where(mask, logits, NEG_INF), dim=-1)
+        o_c = torch.einsum("bhqs,bsc->bqhc", pr, ckv.float())
+        out = torch.einsum("bqhc,chd->bqhd", o_c.to(x.dtype), wv.to(x.dtype))
+        return qproj(out.reshape(b, s, h * dv), p["wo"], bits["attn_wo"],
+                     impl), cache
+
+    # train / prefill: K = [k_nope ; k_rope] and V padded to its width
+    k_nope = torch.einsum("bsc,chd->bshd", c_kv, wk.to(x.dtype))
+    k_cat = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], dim=-1)
+    v = torch.nn.functional.pad(
+        torch.einsum("bsc,chd->bshd", c_kv, wv.to(x.dtype)),
+        (0, dn + dr - dv))
+    q_cat = torch.cat([q_nope, q_rope], dim=-1)
+    if mode == "prefill" and kops.use_kernel(q_cat, impl):
+        # the kernel's scale is D ** -0.5 with D = dn + dr: MLA's own
+        out = kops.flash_attention(q_cat.transpose(1, 2),
+                                   k_cat.transpose(1, 2), v.transpose(1, 2),
+                                   causal=True, impl=impl).transpose(1, 2)
+    else:
+        out = chunked_attention(q_cat, k_cat, v, min(DEFAULT_CHUNK, s), True,
+                                scale=scale)
+    y = qproj(out[..., :dv].reshape(b, s, h * dv), p["wo"], bits["attn_wo"],
+              impl, hvp)
+    new_cache = None
+    if mode == "prefill":
+        new_cache = {"c_kv": c_kv.to(cfg.cache_dtype),
+                     "k_rope": k_rope[:, :, 0].to(cfg.cache_dtype)}
+    return y, new_cache
+
+
+def init_mla_cache(cfg, batch: int, max_seq: int, dtype, device) -> dict:
+    """MLA's latent cache: c_kv (B, S_max, kv_lora_rank) and k_rope (B,
+    S_max, qk_rope_dim) in the cache dtype, never quantized."""
+    return {"c_kv": torch.zeros((batch, max_seq, cfg.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, max_seq, cfg.qk_rope_dim),
+                                  dtype=dtype, device=device)}
 
 
 def init_gqa_cache(cfg, batch: int, max_seq: int, dtype, device) -> dict:

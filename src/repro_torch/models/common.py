@@ -208,7 +208,8 @@ def prequantize_params(params, policy_arrays, slot_of, impl: str = "auto",
     expert bank (E, d_in, d_out) takes its layer's row of per-expert bits
     and steps (``fake_quant_bank``).  The reference quantizes a slot's
     layers stacked, so every layer's step gradient takes the slot's mean
-    qmax (``quant.mean_qmax``), over the experts too."""
+    qmax (``quant.mean_qmax``), over the experts too.  A prefix block
+    (``params["prefix{i}"]``) is walked as layer 0 of its own group."""
     def walk(node, path, layer):
         if isinstance(node, dict) and {"w", "sw", "sa"} <= node.keys():
             key = slot_of.get(path)
@@ -227,8 +228,12 @@ def prequantize_params(params, policy_arrays, slot_of, impl: str = "auto",
             return {k: walk(v, path + (k,), layer) for k, v in node.items()}
         return node
 
-    return dict(params, pat=[walk(layer, ("pat",), r)
-                             for r, layer in enumerate(params["pat"])])
+    out = dict(params, pat=[walk(layer, ("pat",), r)
+                            for r, layer in enumerate(params["pat"])])
+    for key in params:
+        if key.startswith("prefix"):
+            out[key] = walk(params[key], (key,), 0)
+    return out
 
 
 def init_qdense(gen: torch.Generator, d_in: int, d_out: int, dtype, device,

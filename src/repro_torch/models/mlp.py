@@ -11,7 +11,11 @@ their own bits and steps, and in the packed layout each expert is its own
 two activation fake-quants ``lsq_fakequant`` on the card.  Nothing in the
 dispatch reads a value on the host: the capacity comes from the shapes, the
 per-expert counts from ``scatter_add_``, and every expert runs its whole
-buffer whether any token chose it or not, as the reference's does.
+buffer whether any token chose it or not, as the reference's does.  A
+shared expert (DeepSeek-V3's ``n_shared_experts``) is a gated dense MLP of
+width d_ff x n_shared_experts under ``moe["shared"]``, which every token
+runs, added after the routed combine at the block's ``mlp_gateup`` and
+``mlp_down`` bits.
 """
 from __future__ import annotations
 
@@ -67,20 +71,13 @@ def dense_mlp_apply(p: dict, x: torch.Tensor, bits: dict,
 
 
 # --------------------------------------------------------------------- MoE
-def refuse_shared_expert(cfg) -> None:
-    """The shared expert is not ported: refuse a config that has one."""
-    if cfg.n_shared_experts:
-        raise NotImplementedError(
-            "the shared expert (n_shared_experts > 0) is ROADMAP Queue 1 "
-            "item 13.3, which ports it with deepseek-v3")
-
-
 def init_moe(gen: torch.Generator, cfg, device) -> dict:
     """{'router': pinned 8-bit dense (d, E), 'gate', 'up': banks (E, d, f),
     'down': (E, f, d)}; a bank holds its weights ``w``, a weight step ``sw``
     (E,) from each expert's weights and an activation step ``sa`` (E,), the
-    reference's init formulas (every bank at d_model ** -0.5)."""
-    refuse_shared_expert(cfg)
+    reference's init formulas (every bank at d_model ** -0.5); with
+    ``n_shared_experts``, 'shared': a gated dense MLP of width d_ff x
+    n_shared_experts."""
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     dt = cfg.param_dtype
 
@@ -93,10 +90,14 @@ def init_moe(gen: torch.Generator, cfg, device) -> dict:
                 "sa": torch.full((e,), 2.0 / math.sqrt(2.0 ** 3 - 1),
                                  dtype=torch.float32, device=device)}
 
-    # draw order router, gate, up, down (one generator stream)
-    return {"router": init_qdense(gen, d, e, dt, device),
-            "gate": expert_bank(d, f), "up": expert_bank(d, f),
-            "down": expert_bank(f, d)}
+    # draw order router, gate, up, down, shared (one generator stream)
+    p = {"router": init_qdense(gen, d, e, dt, device),
+         "gate": expert_bank(d, f), "up": expert_bank(d, f),
+         "down": expert_bank(f, d)}
+    if cfg.n_shared_experts:
+        p["shared"] = init_dense_mlp(gen, cfg, device,
+                                     d_ff=f * cfg.n_shared_experts)
+    return p
 
 
 def _quant_bank(bank: dict, bits, impl: str = "auto", hvp: bool = False
@@ -220,8 +221,8 @@ def moe_apply(p: dict, x: torch.Tensor, bits: dict, cfg, impl: str = "auto",
               hvp: bool = False):
     """x (B, S, d) -> (y (B, S, d), aux loss (0-d float32)).  bits:
     {'moe_router': the pinned 8, 'moe_gateup', 'moe_down': a bit-width
-    an expert}.  The capacity is the reference's for t = B S tokens."""
-    refuse_shared_expert(cfg)
+    an expert; with a shared expert also 'mlp_gateup' and 'mlp_down'}.
+    The capacity is the reference's for t = B S tokens."""
     b, s, d = x.shape
     e, k, t = cfg.n_experts, cfg.top_k, b * s
     x_flat = x.reshape(t, d)
@@ -253,4 +254,8 @@ def moe_apply(p: dict, x: torch.Tensor, bits: dict, cfg, impl: str = "auto",
     y = _moe_local(x_flat, top_ids, top_w, banks, sa_gate, sa_down, bits_gu,
                    bits_down, capacity_of(cfg, t), cfg.activation, impl, hvp,
                    grad_qmax)
-    return y.reshape(b, s, d), aux
+    y = y.reshape(b, s, d)
+    if "shared" in p:
+        y = y + dense_mlp_apply(p["shared"], x, bits, cfg.activation, impl,
+                                hvp)
+    return y, aux

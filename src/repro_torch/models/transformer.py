@@ -1,14 +1,17 @@
 """Model stack and LM loss of the dense zoo (the olmo family,
 internlm2, deepseek, granite, qwen2-vl's M-RoPE backbone, and the encoders
-bert-base and hubert-xlarge) and of dbrx's mixture of experts — port of
-``repro/models/transformer.py``.
+bert-base and hubert-xlarge), of dbrx's mixture of experts and of
+deepseek-v3 (MLA, its dense prefix blocks, the shared expert and the
+multi-token-prediction loss) — port of ``repro/models/transformer.py``.
 
 The JAX model stacks the repeat pattern and runs it under ``lax.scan`` (or
 bucketed scans) to bound XLA compile time; eager PyTorch needs neither, so
 the port keeps the pattern as a per-layer list, ``params["pat"][r]["p0"]``
 — the layout of the reference's ``pack_params(..., layout="unrolled")`` —
 and runs it as a Python loop.  ``models/layout.py`` therefore has no
-counterpart.
+counterpart.  The ``prefix`` blocks run first, unrolled as in the
+reference: ``params["prefix{i}"]``, policy group ``prefix{i}`` (one layer,
+layer 0) and cache ``caches["prefix{i}"]``.
 """
 from __future__ import annotations
 
@@ -21,8 +24,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.core import quant
-from repro_torch.core.policy import (PIN_EDGE_BITS, PIN_MIN_IN_FEATURES,
-                                     PIN_NARROW_BITS, CacheUnit,
+from repro_torch.core.policy import (CACHE_FULL_BITS, PIN_EDGE_BITS,
+                                     PIN_MIN_IN_FEATURES, PIN_NARROW_BITS,
+                                     CacheUnit,
                                      PrecisionPolicy, QuantUnit)
 from repro_torch.kernels import ref as kref
 from repro_torch.models import attention as attn
@@ -30,33 +34,37 @@ from repro_torch.models import common, mlp
 
 HEAD_ACT_STEP = 0.05       # LM head's activation step (pinned 8-bit): the
                            # tied head's constant, the untied head's init
+MTP_BITS = 4.0             # the MTP projection has no unit: the reference's
+                           # default bits for such a node
 
 
 def _check_supported(cfg) -> None:
     for bdef in tuple(cfg.prefix) + tuple(cfg.pattern):
         if (bdef.mixer, bdef.ffn) not in (
                 ("gqa", "swiglu"), ("gqa", "gelu"), ("bidir", "swiglu"),
-                ("bidir", "gelu"), ("gqa", "moe")):
+                ("bidir", "gelu"), ("gqa", "moe"), ("mla", "swiglu"),
+                ("mla", "moe")):
             raise NotImplementedError(
                 f"block {bdef} is not ported: the port runs GQA (causal or "
-                f"bidirectional) blocks with a SwiGLU or GeLU FFN, and "
-                f"causal GQA with routed experts (the rest of the zoo is "
-                f"ROADMAP Queue 1 item 13)")
-    mlp.refuse_shared_expert(cfg)
-    if cfg.prefix or cfg.activation not in ("silu", "gelu"):
-        raise NotImplementedError("prefix blocks and activations other than "
-                                  "SiLU and GeLU are ROADMAP Queue 1 item 13")
+                f"bidirectional) blocks with a SwiGLU or GeLU FFN, causal "
+                f"GQA with routed experts, and MLA with a SwiGLU FFN or "
+                f"routed experts (the SSMs are ROADMAP Queue 1 item 13.4)")
+    if cfg.activation not in ("silu", "gelu"):
+        raise NotImplementedError("activations other than SiLU and GeLU are "
+                                  "not a ported config's")
     if cfg.rope not in ("rope", "mrope", "none"):
         raise NotImplementedError(f"rope={cfg.rope!r} is not a rope of the "
                                   f"reference")
 
 
 def init_block(gen: torch.Generator, cfg, bdef, device) -> dict:
-    """norm1, attn, norm2 and the FFN of one block: ``mlp`` (gated for
-    SwiGLU, {up, down} for GeLU) or ``moe`` (router and expert banks)."""
+    """norm1, attn (GQA or MLA), norm2 and the FFN of one block: ``mlp``
+    (gated for SwiGLU, {up, down} for GeLU) or ``moe`` (router, expert
+    banks and any shared expert)."""
+    init_attn = attn.init_mla if bdef.mixer == "mla" else attn.init_gqa
     p = {"norm1": common.init_norm(cfg.norm, cfg.d_model, cfg.param_dtype,
                                    device),
-         "attn": attn.init_gqa(gen, cfg, device),
+         "attn": init_attn(gen, cfg, device),
          "norm2": common.init_norm(cfg.norm, cfg.d_model, cfg.param_dtype,
                                    device)}
     if bdef.ffn == "moe":
@@ -83,6 +91,8 @@ def init_params(cfg, seed: int = 0, device="cuda") -> dict:
                             dtype=cfg.param_dtype, device=dev) * 0.02
         params["embed"] = {"w": table,
                            "sw": quant.init_step_from_tensor(table, 8.0)}
+    for i, bdef in enumerate(cfg.prefix):
+        params[f"prefix{i}"] = init_block(gen, cfg, bdef, dev)
     params["pat"] = [{f"p{j}": init_block(gen, cfg, bdef, dev)
                       for j, bdef in enumerate(cfg.pattern)}
                      for _ in range(cfg.n_repeats)]
@@ -98,20 +108,30 @@ def init_params(cfg, seed: int = 0, device="cuda") -> dict:
                           "sa": torch.tensor(HEAD_ACT_STEP,
                                              dtype=torch.float32,
                                              device=dev)}
+    if cfg.mtp:
+        # the multi-token head: a norm of h_t and a projection of
+        # [h_t ; embed(tok_{t+1})] into the shared LM head
+        params["mtp"] = {
+            "norm": common.init_norm(cfg.norm, cfg.d_model, cfg.param_dtype,
+                                     dev),
+            "proj": common.init_qdense(gen, 2 * cfg.d_model, cfg.d_model,
+                                       cfg.param_dtype, dev)}
     return params
 
 
 def block_apply(p: dict, x: torch.Tensor, bits: dict, cfg, bdef,
                 mode: str, cache, positions: torch.Tensor, impl: str = "auto",
                 hvp: bool = False, mrope_positions=None):
-    """One GQA block (causal or not, as ``cfg.causal`` says) with its
-    FFN: the routed experts for ``bdef.ffn == "moe"``, GeLU for "gelu",
-    else ``cfg.activation`` (the reference's choice).  ``mrope_positions``:
-    the (3, B, S) M-RoPE streams of an M-RoPE config.  Returns (x,
-    new_cache, aux): the MoE's load-balance loss, None for a dense FFN."""
+    """One block: GQA (causal or not, as ``cfg.causal`` says) or MLA,
+    then its FFN: the routed experts for ``bdef.ffn == "moe"``, GeLU for
+    "gelu", else ``cfg.activation`` (the reference's choice).
+    ``mrope_positions``: the (3, B, S) M-RoPE streams of an M-RoPE config.
+    Returns (x, new_cache, aux): the MoE's load-balance loss, None for a
+    dense FFN."""
     h = common.apply_norm(cfg.norm, x, p["norm1"])
-    y, new_cache = attn.gqa_apply(p["attn"], h, bits, cfg, mode, cache,
-                                  positions, impl, hvp, mrope_positions)
+    mixer = attn.mla_apply if bdef.mixer == "mla" else attn.gqa_apply
+    y, new_cache = mixer(p["attn"], h, bits, cfg, mode, cache, positions,
+                         impl, hvp, mrope_positions)
     x = x + y
     h = common.apply_norm(cfg.norm, x, p["norm2"])
     if bdef.ffn == "moe":
@@ -149,15 +169,25 @@ def _cache_bits_for(cache_bits, group: str, layer: int) -> Optional[int]:
 
 def init_caches(cfg, batch: int, max_seq: int, cache_dtype, device,
                 cache_bits=None, page_geom: Optional[tuple] = None) -> dict:
-    """Preallocated per-layer decode caches: {"pat": [{"p0": leaf}, ...]}.
-    Each layer's leaf is full-dtype {'k','v'}, or quantized codes and
-    scales at that layer's bits (``_cache_bits_for``: an int for every
-    layer, or {group: per-layer bits}, 16 or a missing group meaning full
-    dtype).
-    The list is the reference's ``plan="unrolled"`` layout, so layers of
-    different bits need no buckets.  ``page_geom`` = (n_pages, page_size)
-    gives page pools in place of the (B, S_max) buffers."""
-    def leaf(bits):
+    """Preallocated per-layer decode caches: {"prefix{i}": leaf, ...,
+    "pat": [{"p0": leaf}, ...]}.  A GQA layer's leaf is full-dtype
+    {'k','v'}, or quantized codes and scales at that layer's bits
+    (``_cache_bits_for``: an int for every layer, or {group: per-layer
+    bits}, 16 or a missing group meaning full dtype); an MLA layer's is its
+    full-precision latent {'c_kv','k_rope'} at any bits, as the policy pins
+    it.  The list is the reference's ``plan="unrolled"`` layout, so layers
+    of different bits need no buckets.  ``page_geom`` = (n_pages,
+    page_size) gives page pools in place of the (B, S_max) buffers; MLA's
+    latent has no pages (ValueError, as in the reference)."""
+    def leaf(bdef, bits):
+        if bdef.mixer == "mla":
+            if page_geom is not None:
+                raise ValueError(
+                    "paged KV cache supports GQA attention only; 'mla' "
+                    "state has no per-token page structure (serve paged "
+                    "configs with cache_layout='contiguous')")
+            return attn.init_mla_cache(cfg, batch, max_seq, cache_dtype,
+                                       device)
         if page_geom is not None:
             n_pages, page_size = page_geom
             if bits is None:
@@ -169,10 +199,14 @@ def init_caches(cfg, batch: int, max_seq: int, cache_dtype, device,
             return attn.init_gqa_cache(cfg, batch, max_seq, cache_dtype,
                                        device)
         return attn.init_gqa_quant_cache(cfg, batch, max_seq, bits, device)
-    return {"pat": [{f"p{j}": leaf(_cache_bits_for(cache_bits, f"pat{j}",
-                                                   r))
-                     for j, _ in enumerate(cfg.pattern)}
-                    for r in range(cfg.n_repeats)]}
+    caches = {f"prefix{i}": leaf(bdef, _cache_bits_for(cache_bits,
+                                                       f"prefix{i}", 0))
+              for i, bdef in enumerate(cfg.prefix)}
+    caches["pat"] = [{f"p{j}": leaf(bdef, _cache_bits_for(cache_bits,
+                                                          f"pat{j}", r))
+                      for j, bdef in enumerate(cfg.pattern)}
+                     for r in range(cfg.n_repeats)]
+    return caches
 
 
 def _embed(params: dict, cfg, tokens: Optional[torch.Tensor],
@@ -229,6 +263,11 @@ def layer_bits(policy_arrays: dict, cfg, r: int) -> List[Dict[str, Any]]:
             for j in range(len(cfg.pattern))]
 
 
+def prefix_bits(policy_arrays: dict, i: int) -> Dict[str, Any]:
+    """The bits dict of prefix block ``i`` (group ``prefix{i}``, layer 0)."""
+    return {k: _row(v, 0) for k, v in policy_arrays[f"prefix{i}"].items()}
+
+
 def apply(params: dict, policy_arrays: dict, tokens: Optional[torch.Tensor],
           cfg, mode: str = "train", caches: Optional[dict] = None,
           positions: Optional[torch.Tensor] = None, impl: str = "auto",
@@ -261,9 +300,10 @@ def apply(params: dict, policy_arrays: dict, tokens: Optional[torch.Tensor],
     forward mode can differentiate (``quant.LsqFakeQuantHvp``).  The default
     checkpoints and keeps the backward kernel.
     """
-    logits, new_caches, _ = _forward(params, policy_arrays, tokens, cfg,
-                                     mode, caches, positions, impl,
-                                     logits_at, hvp, embeds, mrope_positions)
+    logits, new_caches, _, _ = _forward(params, policy_arrays, tokens, cfg,
+                                        mode, caches, positions, impl,
+                                        logits_at, hvp, embeds,
+                                        mrope_positions)
     return logits, new_caches
 
 
@@ -288,9 +328,10 @@ def _check_streams(cfg, mrope_positions, b: int, s: int) -> None:
 
 def _forward(params, policy_arrays, tokens, cfg, mode, caches, positions,
              impl, logits_at, hvp, embeds, mrope_positions=None):
-    """``apply``'s forward; returns (logits, new_caches, aux): the MoE
-    blocks' load-balance losses summed over the layers (0-d float32), or
-    None where no block has experts."""
+    """``apply``'s forward; returns (logits, new_caches, aux, hidden): the
+    MoE blocks' load-balance losses summed over the layers (0-d float32),
+    or None where no block has experts, and the final norm's output (B, S,
+    d), which the multi-token head reads."""
     _check_supported(cfg)
     x = _embed(params, cfg, tokens, embeds, impl, hvp)
     b, s, _ = x.shape
@@ -301,24 +342,36 @@ def _forward(params, policy_arrays, tokens, cfg, mode, caches, positions,
     if mode == "train":
         params = common.prequantize_params(params, policy_arrays,
                                            slot_index(cfg), impl, hvp)
-    new_pat, aux_total = [], None
+    new_caches, aux_total = {}, None
+
+    def run(p, bits, bdef, cache):
+        nonlocal x, aux_total
+        args = (p, x, bits, cfg, bdef, mode, cache, positions, impl, hvp,
+                mrope_positions)
+        x, new_cache, aux = (checkpoint(block_apply, *args,
+                                        use_reentrant=False) if remat
+                             else block_apply(*args))
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
+        return new_cache
+
+    for i, bdef in enumerate(cfg.prefix):      # unrolled, before the pattern
+        key = f"prefix{i}"
+        new_caches[key] = run(params[key], prefix_bits(policy_arrays, i),
+                              bdef, None if caches is None else caches[key])
+    new_caches["pat"] = []
     for r in range(cfg.n_repeats):
         bits = layer_bits(policy_arrays, cfg, r)
-        out = {}
-        for j, bdef in enumerate(cfg.pattern):
-            cache = None if caches is None else caches["pat"][r][f"p{j}"]
-            args = (params["pat"][r][f"p{j}"], x, bits[j], cfg, bdef, mode,
-                    cache, positions, impl, hvp, mrope_positions)
-            x, out[f"p{j}"], aux = (checkpoint(block_apply, *args,
-                                               use_reentrant=False) if remat
-                                    else block_apply(*args))
-            if aux is not None:
-                aux_total = aux if aux_total is None else aux_total + aux
-        new_pat.append(out)
-    x = common.apply_norm(cfg.norm, x, params["final_norm"])
+        new_caches["pat"].append({
+            f"p{j}": run(params["pat"][r][f"p{j}"], bits[j], bdef,
+                         None if caches is None
+                         else caches["pat"][r][f"p{j}"])
+            for j, bdef in enumerate(cfg.pattern)})
+    hidden = common.apply_norm(cfg.norm, x, params["final_norm"])
+    x = hidden
     if logits_at is not None:
         x = x[torch.arange(b, device=x.device), logits_at][:, None]
-    return _head(params, cfg, x, impl, hvp), {"pat": new_pat}, aux_total
+    return _head(params, cfg, x, impl, hvp), new_caches, aux_total, hidden
 
 
 # ===================================================================== loss
@@ -348,18 +401,35 @@ def loss_fn(params: dict, policy_arrays: dict, batch: dict, cfg,
     metrics {'loss', 'accuracy', 'aux_loss'} (0-d tensors, no host sync).
     The loss is the cross entropy plus the MoE blocks' load-balance losses
     summed over the layers (0 for a dense model), as in
-    ``repro/models/transformer.py:584-612``; no ported config has a
-    multi-token head.  ``hvp`` as in ``apply``."""
-    logits, _, aux = _forward(params, policy_arrays, batch.get("tokens"),
-                              cfg, "train", None, None, impl, None, hvp,
-                              batch.get("embeds"),
-                              batch.get("mrope_positions"))
-    loss, acc = cross_entropy(logits, batch["labels"],
-                              batch.get("loss_mask"))
+    ``repro/models/transformer.py:582-611``.  A model with a multi-token
+    head (``cfg.mtp``) on tokens longer than 2 also predicts token t + 2
+    from [norm(h_t) ; embed(tok_{t+1})] through ``params["mtp"]["proj"]``
+    (at MTP_BITS) and the shared LM head, adds ``mtp_weight`` times that
+    cross entropy and reports it as ``metrics["mtp_loss"]``.  ``hvp`` as
+    in ``apply``."""
+    tokens = batch.get("tokens")
+    logits, _, aux, hidden = _forward(params, policy_arrays, tokens, cfg,
+                                      "train", None, None, impl, None, hvp,
+                                      batch.get("embeds"),
+                                      batch.get("mrope_positions"))
+    labels, mask = batch["labels"], batch.get("loss_mask")
+    loss, acc = cross_entropy(logits, labels, mask)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=loss.device)
-    return loss + aux, {"loss": loss.detach(), "accuracy": acc,
-                        "aux_loss": aux}
+    total = loss + aux
+    metrics = {"loss": loss.detach(), "accuracy": acc, "aux_loss": aux}
+    if cfg.mtp and tokens is not None and labels.shape[1] > 2:
+        e = _embed(params, cfg, tokens, None, impl, hvp)
+        hh = common.apply_norm(cfg.norm, hidden[:, :-1],
+                               params["mtp"]["norm"])
+        hm = common.qproj(torch.cat([hh, e[:, 1:]], dim=-1),
+                          params["mtp"]["proj"], MTP_BITS, impl, hvp)
+        mtp_loss, _ = cross_entropy(_head(params, cfg, hm, impl, hvp),
+                                    labels[:, 1:],
+                                    None if mask is None else mask[:, 1:])
+        total = total + cfg.mtp_weight * mtp_loss
+        metrics["mtp_loss"] = mtp_loss.detach()
+    return total, metrics
 
 
 # ============================================================ policy builder
@@ -375,19 +445,44 @@ def _unit(group, layer, slot, tensors, n_params, macs, in_features,
                      sub=sub, pinned_bits=pinned)
 
 
-def _block_units(cfg, bdef, group: str, layer: int, base: tuple):
-    """Quant units of one block: q/k/v and o; then the FFN's gate/up and
-    down, or the MoE's pinned 8-bit router and each expert's gate/up and
-    down (``sub`` = the expert, MACs a token k / E of the expert's)."""
+def _attn_units(cfg, bdef, group: str, layer: int, base: tuple) -> list:
+    """GQA's q/k/v and o; or MLA's wq_a with wkv_a (linked: one input),
+    wq_b, wk_b with wv_b, and wo."""
     d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if bdef.mixer != "mla":
+        nqkv = d * (h * dh + 2 * hkv * dh)
+        return [_unit(group, layer, "attn_qkv",
+                      [base + ("attn", w, "w") for w in ("wq", "wk", "wv")],
+                      nqkv, nqkv, d),
+                _unit(group, layer, "attn_wo", [base + ("attn", "wo", "w")],
+                      h * dh * d, h * dh * d, h * dh)]
+    ql, kvl = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    n_a = d * ql + d * (kvl + dr)
+    n_qb = ql * h * (dn + dr)
+    n_kvb = kvl * h * (dn + dv)
+    return [_unit(group, layer, "attn_q_a",
+                  [base + ("attn", "wq_a", "w"),
+                   base + ("attn", "wkv_a", "w")],
+                  n_a, n_a, d),
+            _unit(group, layer, "attn_q_b", [base + ("attn", "wq_b", "w")],
+                  n_qb, n_qb, ql),
+            _unit(group, layer, "attn_kv_b",
+                  [base + ("attn", "wk_b", "w"),
+                   base + ("attn", "wv_b", "w")],
+                  n_kvb, n_kvb, kvl),
+            _unit(group, layer, "attn_wo", [base + ("attn", "wo", "w")],
+                  h * dv * d, h * dv * d, h * dv)]
+
+
+def _block_units(cfg, bdef, group: str, layer: int, base: tuple):
+    """Quant units of one block: the attention's (``_attn_units``); then
+    the FFN's gate/up and down, or the MoE's pinned 8-bit router, each
+    expert's gate/up and down (``sub`` = the expert, MACs a token k / E of
+    the expert's) and the shared expert's gate/up and down."""
+    d = cfg.d_model
     ff = bdef.d_ff or cfg.d_ff
-    nqkv = d * (h * dh + 2 * hkv * dh)
-    units = [
-        _unit(group, layer, "attn_qkv",
-              [base + ("attn", w, "w") for w in ("wq", "wk", "wv")],
-              nqkv, nqkv, d),
-        _unit(group, layer, "attn_wo", [base + ("attn", "wo", "w")],
-              h * dh * d, h * dh * d, h * dh)]
+    units = _attn_units(cfg, bdef, group, layer, base)
     if bdef.ffn == "moe":
         e, k, f = cfg.n_experts, cfg.top_k, cfg.d_ff
         units.append(_unit(group, layer, "moe_router",
@@ -402,6 +497,15 @@ def _block_units(cfg, bdef, group: str, layer: int, base: tuple):
             units.append(_unit(group, layer, "moe_down",
                                [base + ("moe", "down", "w")], f * d,
                                f * d * k / e, f, sub=ei))
+        if cfg.n_shared_experts:
+            fs = f * cfg.n_shared_experts
+            units.append(_unit(group, layer, "mlp_gateup",
+                               [base + ("moe", "shared", "gate", "w"),
+                                base + ("moe", "shared", "up", "w")],
+                               2 * d * fs, 2 * d * fs, d))
+            units.append(_unit(group, layer, "mlp_down",
+                               [base + ("moe", "shared", "down", "w")],
+                               fs * d, fs * d, fs))
         return units
     ups = ("up",) if bdef.ffn == "gelu" else ("gate", "up")
     n_up = len(ups) * d * ff
@@ -413,27 +517,46 @@ def _block_units(cfg, bdef, group: str, layer: int, base: tuple):
     ]
 
 
+def _block_cache_unit(cfg, bdef, group: str, layer: int):
+    """A block's KV-cache unit: selectable for causal GQA; MLA's latent
+    (kv_lora_rank + qk_rope_dim elements a token) pinned at
+    CACHE_FULL_BITS; None for a bidirectional block, which keeps no
+    cache."""
+    name = f"{group}.cache.L{layer}"
+    if bdef.mixer == "gqa":
+        return CacheUnit(name=name, group=group, layer=layer,
+                         kv_elems_per_token=2 * cfg.n_kv_heads * cfg.head_dim)
+    if bdef.mixer == "mla":
+        return CacheUnit(name=name, group=group, layer=layer,
+                         kv_elems_per_token=cfg.kv_lora_rank
+                         + cfg.qk_rope_dim, pinned_bits=CACHE_FULL_BITS)
+    return None
+
+
 def build_policy(cfg, b_hi: float = 4.0, b_lo: float = 2.0
                  ) -> PrecisionPolicy:
     """Every quant unit of the model (the pinned 8-bit embedding first,
-    where the model has a token table, and, untied, the pinned 8-bit head
-    last) and a KV-cache unit for each causal GQA layer (a bidirectional
-    block keeps no cache), named as in the reference."""
+    where the model has a token table, then the prefix blocks' groups
+    ``prefix{i}`` and the pattern's, and, untied, the pinned 8-bit head
+    last) and each block's KV-cache unit (``_block_cache_unit``), named as
+    in the reference."""
     _check_supported(cfg)
     units = []
     if not cfg.embed_input:
         units.append(_unit("embed", 0, "embed", [("embed", "w")],
                            cfg.vocab * cfg.d_model, 0.0, cfg.vocab,
                            pinned=PIN_EDGE_BITS))
+    blocks = [(bdef, f"prefix{i}", 0, (f"prefix{i}",))
+              for i, bdef in enumerate(cfg.prefix)]
+    blocks += [(bdef, f"pat{j}", r, ("pat", f"p{j}"))
+               for r in range(cfg.n_repeats)
+               for j, bdef in enumerate(cfg.pattern)]
     cache_units = []
-    for r in range(cfg.n_repeats):
-        for j, bdef in enumerate(cfg.pattern):
-            units.extend(_block_units(cfg, bdef, f"pat{j}", r,
-                                      ("pat", f"p{j}")))
-            if bdef.mixer == "gqa":
-                cache_units.append(CacheUnit(
-                    name=f"pat{j}.cache.L{r}", group=f"pat{j}", layer=r,
-                    kv_elems_per_token=2 * cfg.n_kv_heads * cfg.head_dim))
+    for bdef, group, layer, base in blocks:
+        units.extend(_block_units(cfg, bdef, group, layer, base))
+        cu = _block_cache_unit(cfg, bdef, group, layer)
+        if cu is not None:
+            cache_units.append(cu)
     if not cfg.tie_embeddings:
         n_head = cfg.d_model * cfg.vocab
         units.append(_unit("head", 0, "head", [("head", "w")], n_head,
@@ -445,8 +568,9 @@ def build_policy(cfg, b_hi: float = 4.0, b_lo: float = 2.0
 def fetch_unit_tensor(params: dict, unit: QuantUnit, path: tuple):
     """Weight tensor and LSQ step of one member tensor of a unit (the
     reference's, for the port's layout: pattern layer ``r`` is
-    ``params["pat"][r]``, not index ``r`` of a stacked leaf); a per-expert
-    unit's expert ``unit.sub`` of its bank, with that expert's step."""
+    ``params["pat"][r]``, not index ``r`` of a stacked leaf; a prefix
+    block's path starts at ``params["prefix{i}"]``); a per-expert unit's
+    expert ``unit.sub`` of its bank, with that expert's step."""
     node = params
     for key in path[:-1]:
         node = node[key]

@@ -4,9 +4,11 @@
 The port serves packed (``pack_params``) or fake-quant
 (``quantize_for_serving``) weights over a contiguous or paged, full or
 quantized KV cache, its bits one int or chosen per layer, with greedy
-sampling.  Every other value the reference accepts is refused here with
-``NotImplementedError`` naming the ROADMAP item that ports it, so a request
-the port cannot honour never runs as something else.  The default layout
+sampling.  MLA's latent cache is contiguous and full precision at any
+``cache_bits`` (the policy pins it); a paged layout refuses it.  Every
+other value the reference accepts is refused here with
+``NotImplementedError`` naming the ROADMAP item that ports it, so a
+request the port cannot honour never runs as something else.  The default layout
 is ``"packed"`` (the reference's is ``"fake_quant"``): every caller of the
 port serves packed params, and params of the other layout are refused.
 """
@@ -59,6 +61,15 @@ class EngineSpec:
             if self.n_pages is not None and int(self.n_pages) < 1:
                 raise ValueError(f"n_pages must be >= 1 when given, "
                                  f"got {self.n_pages}")
+            if cfg is not None:
+                blocks = tuple(cfg.prefix) + tuple(cfg.pattern)
+                bad = sorted({b.mixer for b in blocks if b.mixer != "gqa"})
+                if bad:
+                    raise ValueError(
+                        f"cache_layout='paged' serves causal GQA caches "
+                        f"only (got mixers {bad}): MLA's latent has no "
+                        f"per-token page structure — serve such configs "
+                        f"with cache_layout='contiguous'")
         if self.decode_chunk < 1:
             raise ValueError(f"decode_chunk must be >= 1, "
                              f"got {self.decode_chunk}")

@@ -24,6 +24,12 @@ through ``flash_attention`` and quantized-cache decode attention through
 cache), each layer at its own cache bits; a full-dtype layer decodes by
 plain attention.
 
+An MLA model (deepseek-v3) keeps its full-precision latent cache
+(c_kv and k_rope a token a layer) in the contiguous layout at any
+``cache_bits`` (the policy pins it at 16 bits; a paged layout is refused):
+prefill runs ``flash_attention`` at head_dim 192 on the card, and decode
+is the absorbed form in plain products, no decode attention kernel.
+
 An M-RoPE model (qwen2-vl-7b) serves text: every call of the model gets
 the three (temporal, height, width) position streams equal to the 1-D
 positions it runs at, as the reference's ``_positions_batch`` builds them,

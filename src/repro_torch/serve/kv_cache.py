@@ -3,7 +3,10 @@ contiguous part of ``repro/serve/kv_cache.py``.
 
 ``ServeCache`` holds the per-layer cache tree from
 ``transformer.init_caches`` (fixed (B, S_max) buffers, full-dtype or
-quantized) and ``lengths`` (B,) int32, the valid rows per request.  Prefill
+quantized; an MLA layer's full-precision latent {'c_kv', 'k_rope'}, which
+splices, admits and advances as any full-dtype leaf; the prefix blocks'
+leaves under ``"prefix{i}"``) and ``lengths`` (B,) int32, the valid rows
+per request.  Prefill
 results are written at position 0; decode writes land at each request's
 own ``lengths[i]``; rows at or beyond ``lengths[i]`` are garbage until
 overwritten and are never read (the decode mask is ``s <= position``).

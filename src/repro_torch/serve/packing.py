@@ -6,7 +6,9 @@ int4 units -> K-major uint8 (2 codes/byte), int2 -> 4 codes/byte, the
 pinned 8-bit edges (the embedding, and an untied LM head) -> int8 codes
 with a scalar scale, and the MoE router at its pinned 8 bits -> an int8
 ``PackedLinear``.  An expert bank (E, K, N) becomes a list of E
-``PackedLinear``, each at its expert's own bits, step and activation step.
+``PackedLinear``, each at its expert's own bits, step and activation step;
+a shared expert, MLA's projections and the prefix blocks' pack as any
+projection at their units' bits, and the MTP projection at 4 bits.
 The pattern stays a per-layer list, byte-equal to the reference's
 ``pack_params(..., layout="unrolled")``.  Packing runs on the weights'
 device.  ``serving_layout`` is the walk it shares with the fake-quant
@@ -84,7 +86,9 @@ def serving_layout(params: dict, policy_arrays: Dict[str, Dict[str, Any]],
     projection's {'w','sw','sa'} node becomes ``convert(node, bits)`` at
     its unit's per-layer bits (``tf.slot_index``), the embedding and an
     untied head the pinned 8-bit ``quantize_edge``, and every other leaf is
-    moved as it is."""
+    moved as it is.  A prefix block's nodes take its group's bits (layer
+    0); a node with no unit (the MTP projection) takes 4 bits, the
+    reference's default."""
     dev = resolve_device(device)
     slot_of = tf.slot_index(cfg)
     out: dict = {}
@@ -95,8 +99,9 @@ def serving_layout(params: dict, policy_arrays: Dict[str, Dict[str, Any]],
             out[key] = [_walk(_to(layer, dev), ("pat",), r, slot_of,
                               policy_arrays, convert)
                         for r, layer in enumerate(node)]
-        else:
-            out[key] = _to(node, dev)
+        else:       # prefix blocks (layer 0 of their group), the MTP head
+            out[key] = _walk(_to(node, dev), (key,), 0, slot_of,
+                             policy_arrays, convert)
     return out
 
 

@@ -12,6 +12,9 @@ sum:
                 + resident KV bytes / batch  (each decode step reads every
                                               slot's cache once)
 
+An MLA layer's latent counts (kv_lora_rank + qk_rope_dim) elements a
+token in the cache dtype, summed from its two buffers like any other.
+
 The fake-quant layout's int4 and int2 codes are stored one a byte
 (``torch.int8``), which is what the reference counts for its ``jnp.int4``
 leaves, so the two packages report the same bytes for the same tree.  The

@@ -681,6 +681,36 @@ def test_cuda_flash_hubert(card, causal, layout):
     _flash_case(card, 8, 16, 1, 1000, 80, causal, layout)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["bhsd", "model"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,s", [(8, 128, 512), (2, 4, 300), (2, 4, 65)])
+def test_cuda_flash_mla(card, b, h, s, causal, layout):
+    """deepseek-v3's MLA prefill at head_dim 192 (q and k [nope 128 ; rope
+    64]): B = 8, 128 heads, S = 512, and ragged S, against the plain
+    version (``_flash_case``); with V zero past column 128, as
+    ``mla_apply`` pads it, O is exactly zero there; and the selector probe
+    bit for bit."""
+    import chip_smoke
+    from repro_torch.kernels import cuda
+    _flash_case(card, b, h, 1, s, 192, causal, layout)
+    g = torch.Generator(card).manual_seed(2)
+    q, k, v = (torch.randn((b, h, s, 192), generator=g,
+                           device=card).bfloat16() for _ in range(3))
+    v[..., 128:] = 0
+    before = cuda.LAUNCHES["flash_attention"]
+    got = cuda.flash_attention(q, k, v, causal=causal)
+    assert cuda.LAUNCHES["flash_attention"] == before + 1
+    assert float(got[..., 128:].abs().max()) == 0.0
+    want = tops.flash_attention(q.float(), k.float(), v[..., :128].float(),
+                                causal=causal, impl="ref")
+    assert ((got[..., :128].float() - want).abs().max()
+            <= 1e-2 * want.abs().max())
+    q, k, v, want = chip_smoke.flash_selector_probe(card, 2, 4, 4, s, d=192,
+                                                    causal=causal)
+    assert torch.equal(cuda.flash_attention(q, k, v, causal=causal), want)
+
+
 def _flash_case(card, b, hkv, group, s, d, causal, layout):
     """The kernel against its plain version in float32 (max-abs and per
     row, within 1e-2 of max|ref| and of each row's norm)."""
@@ -1528,8 +1558,9 @@ def test_flash_float32_launch_and_refusals(fake_card):
 
 def test_flash_head_dims(fake_card):
     """bf16 takes head_dim 80 (hubert-xlarge; the D = 128 tiles zero-filled
-    past column 80) beside 64 and 128, one launch with D = 80 and the
-    scale 80**-0.5; bf16 at 96 and float32 at 80 raise, naming what they
+    past column 80) and 192 (deepseek-v3's MLA) beside 64 and 128, one
+    launch with D = 80 and the scale 80**-0.5, and one with D = 192 and
+    192**-0.5; bf16 at 96 and float32 at 80 raise, naming what they
     take."""
     from repro_torch.kernels import cuda
     q = torch.zeros((1, 1000, 16, 80), dtype=torch.bfloat16).transpose(1, 2)
@@ -1539,7 +1570,14 @@ def test_flash_head_dims(fake_card):
     assert a[4:10] == (1, 16, 16, 1000, 1000, 80)
     assert a[11] == 0 and a[12] == 80 ** -0.5
     fake_card.clear()
-    with pytest.raises(ValueError, match=r"one of \(64, 80, 128\) for "
+    q = torch.zeros((2, 512, 8, 192), dtype=torch.bfloat16).transpose(1, 2)
+    out = cuda.flash_attention(q, q, q, causal=True)
+    (name, a), = fake_card
+    assert name == "flash_attention" and out.shape == q.shape
+    assert a[4:10] == (2, 8, 8, 512, 512, 192)
+    assert a[11] == 1 and a[12] == 192 ** -0.5
+    fake_card.clear()
+    with pytest.raises(ValueError, match=r"one of \(64, 80, 128, 192\) for "
                        r"torch.bfloat16, got 96"):
         cuda.flash_attention(*(torch.zeros((1, 2, 16, 96),
                                            dtype=torch.bfloat16),) * 3)

@@ -91,8 +91,9 @@ def _prompt():
 
 def test_config_registry():
     """Every field of the published config and of its ``.smoke()`` is the
-    reference's (dtypes by name); the registry builds dbrx-132b and still
-    refuses the other pending architectures, each naming its item."""
+    reference's (dtypes by name); the registry builds dbrx-132b and
+    deepseek-v3-671b (item 13.3, with its shared expert) and still refuses
+    the other pending architectures, each naming its item."""
     for want, got in ((configs.get_config(NAME), get_config(NAME)),
                       (configs.get_config(NAME).smoke(),
                        get_config(NAME).smoke())):
@@ -109,14 +110,17 @@ def test_config_registry():
                     == jnp.dtype(getattr(want, f)).name), f
     smoke = get_config(NAME).smoke()
     assert (smoke.n_experts, smoke.top_k) == (4, 2)
-    for name, item in (("deepseek-v3-671b", "13.3"),
-                       ("jamba-1.5-large-398b", "13.4"),
+    for name, item in (("jamba-1.5-large-398b", "13.4"),
                        ("xlstm-1.3b", "13.4")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             get_config(name)
     assert get_config("qwen2-vl-7b").rope == "mrope"     # item 13.2, ported
-    with pytest.raises(NotImplementedError, match="13.3"):
-        ttf.init_params(smoke.replace(n_shared_experts=1), device="cpu")
+    dsv3 = get_config("deepseek-v3-671b")                # item 13.3, ported
+    assert (dsv3.n_shared_experts, dsv3.pattern[0].mixer) == (1, "mla")
+    shared = ttf.init_params(smoke.replace(n_shared_experts=1),
+                             device="cpu")["pat"][0]["p0"]["moe"]["shared"]
+    assert shared["gate"]["w"].shape == (smoke.d_model, smoke.d_ff)
+    assert shared["down"]["w"].shape == (smoke.d_ff, smoke.d_model)
 
 
 def test_policy_units_match_jax(moe):
