@@ -1384,6 +1384,23 @@ def sass_count(source: str, kernel: str):
 # one expert of dbrx-132b: its gate/up weight (d_model, d_ff); a train
 # step fake-quantizes 3 E of them a layer (gate, up and down)
 DBRX_EXPERT_SHAPE = (6144, 10752)
+# deepseek-v3-671b's prefix SwiGLU gate weight (d_model, its d_ff) at 4
+# bits, and its token table (vocab, d_model), pinned at 8 bits: the largest
+# tensors its method phase fake-quantizes (the table twice a step, the MTP
+# head's second gather)
+DSV3_PREFIX_GATE_SHAPE = (7168, 18432)
+DSV3_TABLE_SHAPE = (129280, 7168)
+
+
+def dsv3_weights(gen, dev) -> list:
+    """(what, float32 weight, bits) of deepseek-v3's largest fake-quant
+    sites, drawn as ``init_params`` draws them: the prefix gate weight
+    (normal x d_in ** -0.5) at 4 bits and the table (normal x 0.02) at 8."""
+    gate = torch.randn(DSV3_PREFIX_GATE_SHAPE, generator=gen, device=dev) \
+        * DSV3_PREFIX_GATE_SHAPE[0] ** -0.5
+    table = torch.randn(DSV3_TABLE_SHAPE, generator=gen, device=dev) * 0.02
+    return [("deepseek-v3 prefix gate weight", gate, 4),
+            ("deepseek-v3 token table", table, 8)]
 
 
 def lsq_case(timer, x, steps, bits, what):
@@ -1440,7 +1457,9 @@ def check_lsq(timer, dev, gen):
     """The main path's shape (a prefill's 4096 x 2048 bf16 activations) at
     2, 4 and 8 bits, with one step and with three (q/k/v's grouped call),
     and one dbrx-132b expert's weight (DBRX_EXPERT_SHAPE, bf16, 4 bits, its
-    LSQ step, and three steps): bit for bit against the plain version,
+    LSQ step, and three steps), and deepseek-v3's prefix gate weight and
+    token table (``dsv3_weights``, bf16, one step): bit for bit against
+    the plain version,
     timed, and in device time alone beside fake_quantize_per_tensor_affine
     (called once a step) (``lsq_case``); then the probe (``lsq_probe``)
     and the kernel's static SASS count."""
@@ -1456,6 +1475,11 @@ def check_lsq(timer, dev, gen):
     for group in (sw, [sw, sw * 0.5, sw * 2.0]):
         cases.append(lsq_case(timer, w, group, 4, "dbrx expert weight"))
     del w
+    for what, w, bits in dsv3_weights(gen, dev):
+        w = w.bfloat16()
+        cases.append(lsq_case(timer, w, quant.init_step_from_tensor(
+            w, float(bits)), bits, what))
+        del w
     calls, bad = lsq_probe(dev)
     cases.append({"lsq_probe": True, "calls": calls, "failures": bad,
                   "ok": not bad})
@@ -1521,7 +1545,9 @@ def check_lsq_bwd(timer, dev, gen):
     q/k/v's shared input (4096 x 2048 bf16, 3 steps), the down
     projection's input (4096 x 8192, 1 step), a gate/up weight (2048 x
     8192, its LSQ step) and one dbrx-132b expert's gate weight
-    (DBRX_EXPERT_SHAPE, its LSQ step), all at 4 bits; then a ragged
+    (DBRX_EXPERT_SHAPE, its LSQ step), all at 4 bits, and deepseek-v3's
+    prefix gate weight (4 bits) and token table (8 bits)
+    (``dsv3_weights``, their LSQ steps); then a ragged
     length and the forward probe's values (NaN, +-inf, ties, clamp edges)
     at 2, 4 and 8 bits, bf16 and float32, 1-3 steps.  gx bit for bit
     against the plain version, gs within its bound (``lsq_bwd_compare``);
@@ -1537,20 +1563,24 @@ def check_lsq_bwd(timer, dev, gen):
         DBRX_EXPERT_SHAPE[0] ** -0.5
     weights = {"gate weight": w, "dbrx expert gate weight": we}
     shapes = [("qkv input", (8 * 512, 2048), [torch.tensor(v, device=dev)
-                                               for v in LSQ_STEPS]),
+                                               for v in LSQ_STEPS], 4),
               ("down input", (8 * 512, 8192), [torch.tensor(0.31,
-                                                            device=dev)]),
+                                                            device=dev)], 4),
               ("gate weight", (2048, 8192), [quant.init_step_from_tensor(
-                  w, 4.0)]),
+                  w, 4.0)], 4),
               ("dbrx expert gate weight", DBRX_EXPERT_SHAPE,
-               [quant.init_step_from_tensor(we, 4.0)])]
+               [quant.init_step_from_tensor(we, 4.0)], 4)]
+    for what, wd, bits in dsv3_weights(gen, dev):
+        weights[what] = wd
+        shapes.append((what, tuple(wd.shape),
+                       [quant.init_step_from_tensor(wd, float(bits))], bits))
+    del wd
     cases = []
-    for what, shape, steps in shapes:
-        x = (weights[what].bfloat16() if what in weights else torch.randn(
-            shape, generator=gen, device=dev).bfloat16())
+    for what, shape, steps, bits in shapes:
+        x = (weights.pop(what).bfloat16() if what in weights
+             else torch.randn(shape, generator=gen, device=dev).bfloat16())
         grads = [torch.randn(shape, generator=gen, device=dev).bfloat16()
                  * 1e-3 for _ in steps]
-        bits = 4
         half = 2 ** (bits - 1)
 
         def kernel():
@@ -1615,23 +1645,47 @@ def check_lsq_bwd(timer, dev, gen):
     return cases[0], cases
 
 
+HIST_PLAIN_CHUNK = 1 << 24   # codes a plain histogram call: its (codes,
+                              # bins) compare and the int64 sum of it
+
+
+def plain_histogram(codes: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """The plain histogram (``ref.histogram``) over HIST_PLAIN_CHUNK codes
+    at a time, the chunks' counts added in int64: exact counts, which the
+    kernel's float32 output holds rounded once past 2^24 a bin (the
+    table's 927 M codes would take the plain version's compare 110 GiB in
+    one piece)."""
+    from repro_torch.kernels import ref
+    return sum(ref.histogram(c, n_bins).long()
+               for c in codes.split(HIST_PLAIN_CHUNK))
+
+
 def check_histogram(timer, dev, gen):
     """EAGL's histogram at the largest olmo-1b tensor (2048 x 8192 codes of
-    normal weights quantized at 4 and 2 bits), and ragged lengths with
+    normal weights quantized at 4 and 2 bits), at deepseek-v3's prefix gate
+    weight (4 and 2 bits) and its token table (4 bits) (``dsv3_weights``),
+    and ragged lengths with
     negatives and the sentinel n_bins at 16 bins and at 17 and 4096 (the
-    shared-counter path).  Exact against the plain version, two calls in a
-    row equal (the counters reset), one device op a call; timed against
-    torch.bincount on the in-range codes."""
+    shared-counter path).  Exact against the plain version
+    (``plain_histogram``'s counts in float32), its counts summing to the
+    in-range codes, two calls in a row equal (the counters reset), one
+    device op a call; timed against torch.bincount on the in-range
+    codes."""
     from repro_torch.core import quant
-    from repro_torch.kernels import cuda, ref
+    from repro_torch.kernels import cuda
     cases = []
     w = torch.randn((2048 * 8192,), generator=gen, device=dev) * 0.02
-    for n_bins in (16, 4):
-        bits = float(n_bins.bit_length() - 1)
-        step = quant.init_step_from_tensor(w, bits)
-        codes = (quant.quantize_int(w, step, bits) + n_bins // 2).to(
-            torch.int32)
-        cases.append((n_bins, codes))
+    weights = [(w, (16, 4))] + [(wd.reshape(-1), (16, 4) if bits == 4
+                                 else (16,))
+                                for _, wd, bits in dsv3_weights(gen, dev)]
+    for w, bins in weights:
+        for n_bins in bins:
+            bits = float(n_bins.bit_length() - 1)
+            step = quant.init_step_from_tensor(w, bits)
+            codes = (quant.quantize_int(w, step, bits) + n_bins // 2).to(
+                torch.int32)
+            cases.append((n_bins, codes))
+    del weights, w
     ragged = torch.randint(-3, 16 + 3, (1_000_003,), generator=gen,
                            device=dev, dtype=torch.int32)
     cases.append((16, ragged))
@@ -1643,7 +1697,8 @@ def check_histogram(timer, dev, gen):
     for n_bins, codes in cases:
         got = cuda.histogram(codes, n_bins)
         again = cuda.histogram(codes, n_bins)
-        want = ref.histogram(codes, n_bins)
+        counts = plain_histogram(codes, n_bins)
+        want = counts.float()
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         repeat = bool(torch.equal(got, again))
@@ -1652,9 +1707,9 @@ def check_histogram(timer, dev, gen):
         rec = {"n": n, "n_bins": n_bins, "max_abs_err": err, "tol": 0.0,
                "repeat_equal": repeat,
                "ok": (err == 0.0 and repeat
-                      and float(got.sum()) == kept.numel()),
+                      and int(counts.sum()) == kept.numel()),
                "ms": timer(lambda: cuda.histogram(codes, n_bins)),
-               "plain_ms": timer(lambda: ref.histogram(codes, n_bins)),
+               "plain_ms": timer(lambda: plain_histogram(codes, n_bins)),
                "library_ms": timer(lambda: torch.bincount(
                    kept, minlength=n_bins))}
         rec["bound_ms"], rec["bound_by"] = bound_ms(
@@ -2216,6 +2271,12 @@ SCHED_RUNS = {
                         {"quant_matmul", "flash_attention", "lsq_fakequant",
                          "kv_decode_attention"},
                         {"paged_kv_decode_attention"}),
+    # MLA's latent (deepseek-v3): never paged or quantized, decoded by the
+    # absorbed form's plain products
+    "contiguous-full": ({"cache": "full"},
+                        {"quant_matmul", "flash_attention", "lsq_fakequant"},
+                        {"kv_decode_attention",
+                         "paged_kv_decode_attention"}),
 }
 # submission order: s = shares the system prompt, u = shares nothing,
 # r = repeats an earlier s prompt exactly.  Each hit's donor comes first;
@@ -2483,15 +2544,20 @@ def suffix_prefill_device(engine, sched, reqs, dev) -> dict:
             "suffix_top": suf["top"][:8], "whole_top": full["top"][:8]}
 
 
-def phase_schedule(cfg, packed, pa, dev, smi_line, runs=tuple(SCHED_RUNS)):
+OLMO_SCHED_RUNS = ("paged-full", "paged-int8", "contiguous-int4")
+
+
+def phase_schedule(cfg, packed, pa, dev, smi_line, runs=OLMO_SCHED_RUNS):
     """The continuous-batching scheduler over a decoder at full width
     (olmo-1b; qwen2-vl-7b's paged full run, whose suffix prefills rotate
-    by shifted M-RoPE streams): the 24
+    by shifted M-RoPE streams; deepseek-v3's contiguous full run over
+    MLA's latent): the 24
     requests of ``schedule_requests`` through 8 slots (max_seq 1024, page
     16, decode chunk 16, prompt bucket 16), each run of ``runs``: paged
     full bf16 (aligned hits
     through the suffix prefill), paged int8 (identical hits and
-    copy-on-write) and contiguous int4; the paged pools hold 160 pages, so
+    copy-on-write), contiguous int4 and contiguous full; the paged pools
+    hold 160 pages, so
     admissions are deferred and pages recycled.  Gates:
 
       A - each request whose admission plan is the same in both runs
@@ -2720,6 +2786,17 @@ def sharing_off(cfg, packed, pa, dev, engine, conc, reqs, rec) -> dict:
         equal[uid] = conc.completed[uid].tokens == off.completed[uid].tokens
     control_bound = CONTROL_FACTOR * max(control64.values())
     bound = CONTROL_FACTOR * max(control.values())
+    worst = max(control, key=control.get)
+    prompt = next(p for u, p, _, _ in reqs if u == worst)
+    toks = conc._prompt_tokens(prompt, conc._bucket_pad(len(prompt),
+                                                         SCHED_MAX_SEQ))
+    first = first_difference(engine, toks, len(prompt))
+    first["uid"] = worst
+    if first["first"] is not None:
+        # the first differing block's ops on its first differing row
+        first["ops"] = op_trace(engine, toks, len(prompt),
+                                first["first"]["block"],
+                                first["first"]["row"])
     gemv = {u: g for u, g in gaps.items() if u not in exact}
     # a gap over the bound where the experts' capacity dropped a slot of
     # the hit (in either run) is that drop's, and is named; any other fails
@@ -2734,7 +2811,8 @@ def sharing_off(cfg, packed, pa, dev, engine, conc, reqs, rec) -> dict:
                               "control_bound": control_bound,
                               "bound": bound, "tokens_equal": equal,
                               "dropped_slots": dropped,
-                              "over_bound_by_drops": explained}}
+                              "over_bound_by_drops": explained,
+                              "first_difference": first}}
     log(f"    gate B: {len(hits)} aligned hits; first-token logits bit for "
         f"bit those of share_prefixes=False for {sum(exact.values())} of "
         f"{len(exact)} tiled suffixes; {len(gemv)} GEMV suffixes "
@@ -2743,6 +2821,14 @@ def sharing_off(cfg, packed, pa, dev, engine, conc, reqs, rec) -> dict:
         f"{bound:.4g}); control within {CONTROL_FACTOR} x float64 control "
         f"{max(control64.values()):.4g} = {control_bound:.4g}; tokens equal "
         f"for {sum(equal.values())} of {len(hits)}")
+    log(f"    gate B control, {worst}'s whole prefill ({len(prompt)} tokens),"
+        f" each block against its plain version on the same input: "
+        f"max|d|/max|ref| per block "
+        f"{' '.join(f'{e:.3g}' for e in first['block_rel_err'])} (the "
+        f"first block's bound {ONE_BLOCK_BOUND}); first difference "
+        f"{first['first']}")
+    for op in first.get("ops", []):
+        log(f"      {op}")
     if moe:
         log(f"    gate B, experts: hits with dropped slots (suffix, prefix "
             f"rows in donors, whole without sharing): "
@@ -2773,6 +2859,140 @@ def sharing_off(cfg, packed, pa, dev, engine, conc, reqs, rec) -> dict:
     if bad:
         raise RuntimeError(f"schedule paged-full: {bad}")
     return res
+
+
+def first_difference(engine, toks, n: int) -> dict:
+    """One prompt's whole prefill (``toks`` (1, S), ``n`` valid rows) on
+    the engine's kernel path, each block shadowed by its plain version
+    (impl="ref") on the same input and a copy of the same cache: each
+    block's max|d|/max|ref| over the valid rows, and the first block and
+    row where the two differ, with the column of that row's largest
+    difference and both values there."""
+    from repro_torch.models import transformer as tf
+    outs, real = [], tf.block_apply
+
+    def both(p, x, bits, cfg, bdef, mode, cache, positions, impl="auto",
+             hvp=False, mrope_positions=None):
+        copy = None if cache is None else {k: v.clone()
+                                           for k, v in cache.items()}
+        want, _, _ = real(p, x, bits, cfg, bdef, mode, copy, positions,
+                          "ref", hvp, mrope_positions)
+        got, new, aux = real(p, x, bits, cfg, bdef, mode, cache, positions,
+                             impl, hvp, mrope_positions)
+        outs.append((got[0, :n].float(), want[0, :n].float()))
+        return got, new, aux
+    with patched(tf, "block_apply", both), torch.no_grad():
+        engine.prefill(toks, torch.tensor([n]))
+    rec = {"n": n, "block_rel_err": [], "first": None}
+    for i, (got, want) in enumerate(outs):
+        d = (got - want).abs()
+        rec["block_rel_err"].append(float(d.max() / want.abs().max()))
+        if rec["first"] is None and bool((d > 0).any()):
+            row = int(torch.nonzero(d.amax(-1) > 0)[0, 0])
+            col = int(d[row].argmax())
+            rec["first"] = {"block": i, "row": row, "col": col,
+                            "kernel": float(got[row, col]),
+                            "plain": float(want[row, col]),
+                            "row_max_abs_diff": float(d[row, col]),
+                            "block_rows_differing": int(
+                                (d.amax(-1) > 0).sum())}
+    return rec
+
+
+def op_trace(engine, toks, n: int, block: int, row: int) -> list:
+    """Block ``block`` of one prompt's whole prefill (``toks`` (1, S), ``n``
+    valid rows), op by op: the block's plain version (impl="ref") and its
+    kernel path run on the same block input, each recording the output of
+    every activation fake-quant, matmul and attention in call order.  For
+    the i-th op of the two: the rows of the n where they differ, the
+    largest difference and max|plain|, the difference on ``row``, and for
+    a fake-quant its step and the codes of ``row`` that differ.  Tells a
+    kernel that computes a row wrongly (its op's row differs past
+    rounding) from an activation code that flips at a rounding boundary
+    (a fake-quant's row one step apart where its input differed by a
+    rounding)."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tf
+    real_block, rows = tf.block_apply, toks.shape[1]
+    real = {"lsq": kops.lsq_fakequant, "mm": kops.packed_matmul,
+            "flash": kops.flash_attention, "plain": attn.chunked_attention}
+    calls, sink = [0], {"kernel": [], "plain": []}
+    into, in_flash = [None], [False]
+
+    def keep(name, t, step=None):
+        if into[0] is not None and t.dim() >= 3 and t.shape[:2] == (1, rows):
+            into[0].append((name, t.detach().reshape(rows, -1)[:n].float(),
+                            step))
+
+    def lsq(x, step, bits, impl="auto"):
+        out = real["lsq"](x, step, bits, impl)
+        for o, st in zip(out if isinstance(out, list) else [out],
+                         step if isinstance(step, (list, tuple)) else [step]):
+            keep("lsq_fakequant", o, float(st))
+        return out
+
+    def mm(x, p, impl="auto"):
+        out = real["mm"](x, p, impl)
+        keep("matmul", out)
+        return out
+
+    def flash(q, k, v, causal=True, impl="auto"):
+        in_flash[0] = True     # a stand-in that calls the plain one
+        try:
+            out = real["flash"](q, k, v, causal, impl)
+        finally:
+            in_flash[0] = False
+        keep("attention", out.transpose(1, 2))
+        return out
+
+    def plain(*a, **k):
+        out = real["plain"](*a, **k)
+        if not in_flash[0]:
+            keep("attention", out)
+        return out
+
+    def traced(p, x, bits, cfg, bdef, mode, cache, positions, impl="auto",
+               hvp=False, mrope_positions=None):
+        i, calls[0] = calls[0], calls[0] + 1
+        if i == block:
+            copy = None if cache is None else {k: v.clone()
+                                               for k, v in cache.items()}
+            into[0] = sink["plain"]
+            real_block(p, x, bits, cfg, bdef, mode, copy, positions, "ref",
+                       hvp, mrope_positions)
+            into[0] = sink["kernel"]
+        try:
+            return real_block(p, x, bits, cfg, bdef, mode, cache, positions,
+                              impl, hvp, mrope_positions)
+        finally:
+            into[0] = None
+    with contextlib.ExitStack() as stack, torch.no_grad():
+        for module, name, fn in ((kops, "lsq_fakequant", lsq),
+                                 (kops, "packed_matmul", mm),
+                                 (kops, "flash_attention", flash),
+                                 (attn, "chunked_attention", plain),
+                                 (tf, "block_apply", traced)):
+            stack.enter_context(patched(module, name, fn))
+        engine.prefill(toks, torch.tensor([n]))
+    got, want = sink["kernel"], sink["plain"]
+    if [o[0] for o in got] != [o[0] for o in want]:
+        return [{"ops_kernel": [o[0] for o in got],
+                 "ops_plain": [o[0] for o in want]}]
+    trace = []
+    for (name, g, step), (_, w, _) in zip(got, want):
+        d = (g - w).abs()
+        differ = torch.nonzero(d.amax(-1) > 0)[:, 0].tolist()
+        rec = {"op": name, "rows_differing": len(differ),
+               "first_rows": differ[:8], "max_abs_diff": float(d.max()),
+               "max_abs_plain": float(w.abs().max()),
+               "row_max_abs_diff": float(d[row].max())}
+        if step is not None:
+            rec.update(step=step, row_codes_differing=int(
+                (d[row] > 0).sum()), row_max_diff_in_steps=float(
+                    d[row].max()) / step)
+        trace.append(rec)
+    return trace
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -3010,28 +3230,48 @@ STEP_GRAD_TOL = 1e-5                        # LSQ step gradients, relative
 ALPS_REF_TOL = 1e-2                         # gains, kernel vs plain path
 
 
+def block_sites(cfg, bdef) -> tuple:
+    """(activation, weight) fake-quant sites of one block in a train step
+    (steps that share an input grouped into one launch).  The mixer: GQA's
+    q/k/v input and o's (2) and its q, k, v and o weights (4); or MLA's
+    input of wq_a and wkv_a, q_c (wq_b's input) and wo's input (3) and its
+    six weights (wq_a, wq_b, wkv_a, wk_b, wv_b, wo: wk_b and wv_b are read
+    as weights only, with no activation site).  The FFN: gate/up's input
+    (up alone in a GeLU FFN) and down's (2) and 3 weights (2 with GeLU);
+    or the router's input and weight, each expert's gate/up buffer and
+    down input (2E) and gate, up and down weights (3E), and a shared
+    expert's 2 and 3 as a dense SwiGLU's."""
+    if bdef.mixer == "mla":
+        acts, weights = 3, 6
+    else:
+        acts, weights = 2, 4
+    if bdef.ffn == "moe":
+        shared = 1 if cfg.n_shared_experts else 0
+        acts += 1 + 2 * cfg.n_experts + 2 * shared
+        weights += 1 + 3 * cfg.n_experts + 3 * shared
+    else:
+        acts += 2
+        weights += 3 if bdef.ffn == "swiglu" else 2
+    return acts, weights
+
+
 def lsq_sites(cfg) -> dict:
-    """Fake-quant sites of a train step (one launch each way, steps that
-    share an input grouped): the activations of q/k/v, o, gate/up (up
-    alone in a GeLU FFN) and down in each dense layer, or of q/k/v, o, the
-    router and each expert's gate/up buffer and down input in an MoE layer
-    (3 + 2E), and the head's; the weights of each layer (7 with SwiGLU, 6
-    with GeLU, or q, k, v, o, the router and each expert's gate, up and
-    down: 5 + 3E) and two edges: the embedding table twice (the gather's
-    and the tied head's), or the table and the untied head once each.  The
-    backward recomputes each layer (checkpointing), so its activation
+    """Fake-quant sites of a train step (one launch each way): each block's
+    (``block_sites``: the prefix blocks, then the pattern over its
+    repeats), and the edges: the head's input and two weights, the
+    embedding table twice (the gather's and the tied head's) or the table
+    and the untied head once each; a multi-token head (``cfg.mtp``) adds
+    its projection's input and weight, a second gather from the table
+    and a second pass through the head (its input and weight again).  The
+    backward recomputes each block (checkpointing), so its activation
     sites launch the forward a second time."""
-    acts = weights = 0
-    for b in cfg.pattern:
-        if b.ffn == "moe":
-            acts += 3 + 2 * cfg.n_experts
-            weights += 5 + 3 * cfg.n_experts
-        else:
-            acts += 4
-            weights += 4 + (3 if b.ffn == "swiglu" else 2)
-    acts, weights = acts * cfg.n_repeats, weights * cfg.n_repeats
-    return {"activations": acts + 1, "weights": weights + 2,
-            "recomputed": acts}
+    blocks = [block_sites(cfg, b) for b in cfg.prefix]
+    blocks += [block_sites(cfg, b) for b in cfg.pattern] * cfg.n_repeats
+    acts = sum(a for a, _ in blocks)
+    weights = sum(w for _, w in blocks)
+    mtp = 1 if cfg.mtp else 0
+    return {"activations": acts + 1 + 2 * mtp,
+            "weights": weights + 2 + 3 * mtp, "recomputed": acts}
 
 
 def grads_of(state, cfg, batch, impl):
@@ -3045,10 +3285,12 @@ def grads_of(state, cfg, batch, impl):
                            for g, p in zip(grads, leaves)]
 
 
-# leaves that no forward reads: an expert bank's up projection shares the
-# gate's fake-quant of each buffer, so the up bank's activation steps get a
-# zero gradient, as in the reference
-UNREAD_LEAVES = (("moe", "up", "sa"),)
+# leaves that no forward reads, so their gradient is zero, as in the
+# reference: an expert bank's up projection shares the gate's fake-quant of
+# each buffer (the up bank's activation steps), and MLA reads wk_b and wv_b
+# as weights only (their activation steps)
+UNREAD_LEAVES = (("moe", "up", "sa"), ("attn", "wk_b", "sa"),
+                 ("attn", "wv_b", "sa"))
 
 
 def compare_grads(state, g_kernel, g_again, g_ref) -> dict:
@@ -3094,9 +3336,11 @@ def compare_grads(state, g_kernel, g_again, g_ref) -> dict:
     return rec
 
 
-def phase_train(cfg, dev, smi_line, batch=None, state_dtype="f32"):
+def phase_train(cfg, dev, smi_line, batch=None, state_dtype="f32",
+                lr=None):
     """QAT of ``cfg`` at full width and depth (weights from seed 0, in the
-    config's dtype), uniform 4-bit, AdamW (lr LR, clip 1.0, moments in
+    config's dtype), uniform 4-bit, AdamW (``lr``, LR by default, clip
+    1.0, moments in
     ``state_dtype``: float32, or the port's rowwise int8), the port's
     synthetic batches of ``batch`` (B, S) tokens (default TRAIN_B x
     TRAIN_S, olmo-1b's), TRAIN_STEPS steps.  Gates: (T1)
@@ -3120,7 +3364,7 @@ def phase_train(cfg, dev, smi_line, batch=None, state_dtype="f32"):
     policy = tf.build_policy(cfg)
     torch.cuda.reset_peak_memory_stats()
     state = init_train_state(cfg, functools.partial(
-        AdamW, learning_rate=LR, grad_clip=GRAD_CLIP,
+        AdamW, learning_rate=lr or LR, grad_clip=GRAD_CLIP,
         state_dtype=state_dtype), 0, policy, device=dev)
     n_params = sum(p.numel() for p in tree.leaves(state.params))
     n_b, n_s = batch or (TRAIN_B, TRAIN_S)
@@ -3212,15 +3456,16 @@ def phase_train(cfg, dev, smi_line, batch=None, state_dtype="f32"):
     return state, rec
 
 
-def phase_alps(cfg, dev, state, smi_line):
+def phase_alps(cfg, dev, state, smi_line, ref_units=None):
     """ALPS over every selectable unit from the train phase's final state
     (ALPS_STEPS steps a probe at ALPS_B x ALPS_S on make_batch(11, i)),
     then EAGL through the histogram kernel on the same weights; the
     knapsack take at budget 0.7 from each, their overlap, and their wall
     seconds.  Gates: (A1) after ALPS the params equal the b_hi state bit
     for bit; (A2) the first unit's probe, run again at the end, gives its
-    gain bit for bit; (A3) on ALPS_REF_UNITS units the kernel path's gains
-    within ALPS_REF_TOL relative of impl="ref"'s."""
+    gain bit for bit; (A3) on ``ref_units`` (unit names; the first
+    ALPS_REF_UNITS units by default) the kernel path's gains within
+    ALPS_REF_TOL relative of impl="ref"'s."""
     from repro_torch.core import knapsack
     from repro_torch.core.metrics import (AlpsConfig, alps_gains,
                                           eagl_gains, make_probe)
@@ -3252,10 +3497,10 @@ def phase_alps(cfg, dev, state, smi_line):
     ref_probe = make_probe(state, make_train_step(cfg, impl="ref"),
                            lambda i: batches[i])
     a3 = {}
-    for u in units[:ALPS_REF_UNITS]:
-        g = ref_probe(policy=policy.apply_selection({u.name: False}),
+    for name in ref_units or [u.name for u in units[:ALPS_REF_UNITS]]:
+        g = ref_probe(policy=policy.apply_selection({name: False}),
                       steps=ALPS_STEPS)["loss"]
-        a3[u.name] = abs(gains[u.name] - g) / abs(g)
+        a3[name] = abs(gains[name] - g) / abs(g)
     del b_hi
     with torch.no_grad():
         sync(dev)
@@ -3336,8 +3581,8 @@ def phase_hawq(cfg, dev, state, alps, smi_line):
     peak memory, the LSQ forward's route (its launches), the knapsack take
     at 0.7 and its overlap with ALPS's and EAGL's.  Gates: (H1) every gain
     finite; (H2) the params after HAWQ equal the b_hi state bit for bit;
-    (H3) on ALPS_REF_UNITS units, with the same HAWQ_REF_PROBES injected
-    probes, the kernel route's traces within HAWQ_REF_TOL of impl="ref"'s
+    (H3) on A3's units (``alps["a3_rel"]``), with the same HAWQ_REF_PROBES
+    injected probes, the kernel route's traces within HAWQ_REF_TOL of impl="ref"'s
     (relative to the largest); (H4) no lsq_fakequant_bwd launch during the
     products."""
     from repro_torch.core import knapsack
@@ -3368,7 +3613,7 @@ def phase_hawq(cfg, dev, state, alps, smi_line):
 
     paths = hawq.unit_tensor_paths(policy)
     some = {k: v for k, v in paths.items()
-            if k.split("/")[0] in {u.name for u in units[:ALPS_REF_UNITS]}}
+            if k.split("/")[0] in alps["a3_rel"]}
     # the same probes on both routes, drawn anew for each (a generator
     # from one seed), so that no list of whole-model probes is held
     traces = {impl: hawq.hutchinson_traces(
@@ -3982,6 +4227,9 @@ def phase_bert(cfg, dev, smi_line):
 # layers (24, 30 and 52 in all), cut so that the script keeps inside its
 # time limit as the zoo grows; gates Z1-Z4 hold at any depth
 ZOO = {"internlm2-1.8b": 4, "deepseek-7b": 4, "granite-20b": 4}
+# bert-base's depth on the card (12 in all), cut for the deepseek-v3
+# method phase so that the script keeps inside its time limit
+BERT_DEPTH = 4
 ZOO_RUNS = (("contiguous", 8), ("contiguous", 4), ("paged", 4))
 MLA_RUNS = (("contiguous", None),)   # MLA's latent: full, never paged
 ZOO_NEW = 32            # new tokens of a zoo run
@@ -4006,7 +4254,9 @@ def phase_zoo(cfg, dev, smi_line):
     card's.  An MLA model (deepseek-v3) serves one contiguous full-cache
     run (MLA_RUNS: its latent is never quantized or paged), whose decode
     steps launch no decode attention; its prefix blocks count as layers,
-    and its first block alone is its first prefix block.  An M-RoPE model
+    and its first block alone is its first prefix block; it also runs
+    ``phase_schedule``'s contiguous full run at the served depth (gate A
+    over its experts, the copies gate).  An M-RoPE model
     (qwen2-vl-7b) also
     runs Z5, ``mrope_prefill_check``'s image-and-text prefill; it and a
     mixture of experts (dbrx-132b) run ``phase_schedule``'s paged full run
@@ -4075,7 +4325,14 @@ def phase_zoo(cfg, dev, smi_line):
         t0 = time.perf_counter()
         rec["mrope"] = mrope_prefill_check(cfg, packed, pa, dev)
         log(f"  Z5 image-and-text prefill {time.perf_counter() - t0:.1f} s")
-    if cfg.rope == "mrope" or (cfg.n_experts and not mla):
+    if mla:
+        # at the served depth: the latent is contiguous, full precision
+        t0 = time.perf_counter()
+        rec["schedule"] = phase_schedule(cfg, packed, pa, dev, smi_line,
+                                         runs=("contiguous-full",))
+        log(f"  schedule contiguous-full ({len(cfg.prefix)} + "
+            f"{cfg.n_repeats} layers) {time.perf_counter() - t0:.1f} s")
+    elif cfg.rope == "mrope" or cfg.n_experts:
         t0 = time.perf_counter()
         rec["schedule"] = phase_schedule(
             cfg.replace(n_repeats=SCHED_DEPTH),
@@ -4223,52 +4480,65 @@ DBRX_METHODS = ("eagl", "alps", "hawq_v3")   # the frontier's, over experts
 DBRX_BUDGETS = (0.75, 0.6)
 
 
-def phase_dbrx_method(cfg, dev, smi_line):
-    """The paper's method over dbrx-132b's experts at its published widths
-    (``cfg``: its first DBRX_TRAIN_DEPTH layers), weights from seed 0,
-    each expert's gate/up and down their own 4/2-bit units: ``phase_train``
-    at ALPS_B x ALPS_S with int8 AdamW moments (T1-T5; T4's launches from
-    ``lsq_sites``: 3 + 2E activation and 5 + 3E weight sites a layer, every
-    expert through lsq_fakequant and its backward); ``phase_alps`` over the
-    selectable units (the attention's two and each expert's two; A1-A3,
-    A3's units two of them experts); ``phase_hawq`` (H1-H4, and the experts
-    of each bank read different gains); ``phase_frontier`` over EAGL, ALPS
-    and HAWQ-v3 at DBRX_BUDGETS (F1-F4).  The peak of device memory over
-    the phase below the card's."""
+@contextlib.contextmanager
+def moments_on_host(state):
+    """The optimizer's moments in host memory inside the block and back on
+    the params' device after it, bit for bit: HAWQ-v3 reads the params
+    alone, and its Hessian-vector products over deepseek-v3's table and
+    head (the table read twice, the head twice with the MTP loss) ran out
+    of the card's memory beside the moments of 3.60 B parameters."""
+    from repro_torch import tree
+    opt, leaves = state.optimizer, tree.leaves(state.params)
+    dev = leaves[0].device
+    for p in leaves:
+        opt.state[p] = tree.map_tree(lambda t: t.to("cpu"), opt.state[p])
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    try:
+        yield
+    finally:
+        for p in leaves:
+            opt.state[p] = tree.map_tree(lambda t: t.to(dev), opt.state[p])
+
+
+def method_phases(cfg, dev, smi_line, ref_units=None, lr=None,
+                  hawq_moments_on_host=False) -> dict:
+    """The paper's method over ``cfg`` at full width, weights from seed 0:
+    ``phase_train`` at ALPS_B x ALPS_S with int8 AdamW moments and ``lr``
+    (T1-T5; ALPS's probes and the frontier's fine-tunes take the same
+    optimizer);
+    ``phase_alps`` over the selectable units (A1-A3, A3 on ``ref_units``);
+    ``phase_hawq`` (H1-H4), with the moments in host memory if
+    ``hawq_moments_on_host``; ``phase_frontier`` over EAGL, ALPS and
+    HAWQ-v3 at DBRX_BUDGETS (F1-F4).  The peak of device memory of each,
+    gated below the card's."""
     from repro_torch.models import transformer as tf
-    log(f"  {cfg.name} d_model={cfg.d_model} layers={cfg.n_repeats} heads="
-        f"{cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} experts="
-        f"{cfg.n_experts} top_k={cfg.top_k} vocab={cfg.vocab}; "
-        f"{ALPS_B} x {ALPS_S} tokens, int8 AdamW moments")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     rec, peaks = {"config": cfg.name, "device": smi_line}, {}
-    policy = tf.build_policy(cfg)
-    units = policy.selectable_units()
-    ref_experts = [u.name for u in units[:ALPS_REF_UNITS]
-                   if u.sub is not None]
-    if len(ref_experts) != 2:
-        raise RuntimeError(f"dbrx method: A3's units {units[:4]} hold "
-                           f"{len(ref_experts)} experts, not 2")
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     state, rec["train"] = phase_train(cfg, dev, smi_line,
                                       batch=(ALPS_B, ALPS_S),
-                                      state_dtype="int8")
+                                      state_dtype="int8", lr=lr)
     peaks["train"] = torch.cuda.max_memory_allocated()
     log(f"  train {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    rec["alps"] = phase_alps(cfg, dev, state, smi_line)
+    rec["alps"] = phase_alps(cfg, dev, state, smi_line, ref_units)
     peaks["alps"] = torch.cuda.max_memory_allocated()
     log(f"  alps {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    rec["hawq"] = phase_hawq(cfg, dev, state, rec["alps"], smi_line)
+    with (moments_on_host(state) if hawq_moments_on_host
+          else contextlib.nullcontext()):
+        rec["hawq"] = phase_hawq(cfg, dev, state, rec["alps"], smi_line)
     peaks["hawq"] = torch.cuda.max_memory_allocated()
     log(f"  hawq {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    methods = selection_methods(policy, rec["alps"], rec["hawq"])
+    methods = selection_methods(tf.build_policy(cfg), rec["alps"],
+                                rec["hawq"])
     rec["frontier"] = phase_frontier(
         cfg, dev, state, {k: methods[k] for k in DBRX_METHODS}, smi_line,
         DBRX_BUDGETS)
@@ -4277,15 +4547,97 @@ def phase_dbrx_method(cfg, dev, smi_line):
     del state
     torch.cuda.empty_cache()
     card = torch.cuda.get_device_properties(dev).total_memory
-    rec.update(units=len(units), experts=sum(u.sub is not None
-                                             for u in units),
-               a3_experts=ref_experts, peak_bytes=peaks)
-    log(f"  {len(units)} selectable units ({rec['experts']} experts); peak "
-        f"device memory by phase (GiB): "
+    rec["peak_bytes"] = peaks
+    log(f"  peak device memory by phase (GiB): "
         f"{ {k: round(v / 2**30, 2) for k, v in peaks.items()} } of the "
         f"card's {card / 2**30:.2f}")
     if not max(peaks.values()) < card:
-        raise RuntimeError(f"dbrx method: peak {peaks} bytes")
+        raise RuntimeError(f"{cfg.name} method: peak {peaks} bytes")
+    return rec
+
+
+def phase_dbrx_method(cfg, dev, smi_line):
+    """The paper's method over dbrx-132b's experts at its published widths
+    (``cfg``: its first DBRX_TRAIN_DEPTH layers), each expert's gate/up
+    and down their own 4/2-bit units, through ``method_phases``: T4's
+    launches from ``lsq_sites`` (3 + 2E activation and 5 + 3E weight
+    sites a layer, every expert through lsq_fakequant and its backward);
+    A3's units (the first ALPS_REF_UNITS) two of them experts; the experts
+    of each bank read different HAWQ-v3 gains."""
+    from repro_torch.models import transformer as tf
+    log(f"  {cfg.name} d_model={cfg.d_model} layers={cfg.n_repeats} heads="
+        f"{cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} experts="
+        f"{cfg.n_experts} top_k={cfg.top_k} vocab={cfg.vocab}; "
+        f"{ALPS_B} x {ALPS_S} tokens, int8 AdamW moments")
+    units = tf.build_policy(cfg).selectable_units()
+    ref_experts = [u.name for u in units[:ALPS_REF_UNITS]
+                   if u.sub is not None]
+    if len(ref_experts) != 2:
+        raise RuntimeError(f"dbrx method: A3's units {units[:4]} hold "
+                           f"{len(ref_experts)} experts, not 2")
+    rec = method_phases(cfg, dev, smi_line)
+    rec.update(units=len(units), experts=sum(u.sub is not None
+                                             for u in units),
+               a3_experts=ref_experts)
+    log(f"  {len(units)} selectable units ({rec['experts']} experts)")
+    return rec
+
+
+# deepseek-v3-671b's method phase at full width on its 3 dense prefix
+# layers alone (MLA + SwiGLU), with the 129280-row table, the untied head
+# and the MTP head: 3.60 B parameters in 20 units, 18 selectable.  One MoE
+# layer holds 256 x 3 x 7168 x 2048 = 11.3 B expert parameters, 22.6 GB in
+# bf16 and as much again in gradients: it does not fit beside the moments
+# and ALPS's copy; the per-expert method runs on the card through dbrx
+DSV3_TRAIN_DEPTH = 0
+# A3's (and H3's) units: MLA's grouped input projection and its wk_b/wv_b
+# unit (read as weights only), and a prefix SwiGLU's gate/up and down
+DSV3_REF_SLOTS = ("attn_q_a", "attn_kv_b", "mlp_gateup", "mlp_down")
+# AdamW's rate for deepseek-v3 at d_model 7168: at LR (olmo-1b's 4e-4) its
+# loss rose over the 16 steps on the H100 (PERF.md §6), as olmo-1b's did at
+# 1e-3 and 2e-3; Adam's first steps move each weight by about lr, so an
+# output of d_model inputs by about lr x d_model, and 1e-4 x 7168 is about
+# olmo's 4e-4 x 2048, which lowered its loss (DeepSeek-V3's published peak
+# of 2.2e-4 comes after 2000 warmup steps)
+DSV3_LR = 1e-4
+
+
+def phase_dsv3_method(cfg, dev, smi_line):
+    """The paper's method over deepseek-v3-671b at its published widths
+    (``cfg``: its prefix blocks and its first DSV3_TRAIN_DEPTH MoE
+    layers), with the MTP loss in every step, at DSV3_LR, through
+    ``method_phases``:
+    T4's launches from ``lsq_sites`` (MLA's 3 activation and 6 weight
+    sites, a SwiGLU's 2 and 3, the MTP head's 3 and 3 more at the edges);
+    T2 counts wk_b's and wv_b's activation steps as unread (zero gradient);
+    A3's and H3's units: one of each DSV3_REF_SLOTS that is selectable,
+    the i-th slot's from the i-th block round the blocks (MLA's and a
+    prefix SwiGLU's)."""
+    from repro_torch.models import transformer as tf
+    log(f"  {cfg.name} d_model={cfg.d_model} layers={len(cfg.prefix)} + "
+        f"{cfg.n_repeats} heads={cfg.n_heads} MLA q_lora={cfg.q_lora_rank} "
+        f"kv_lora={cfg.kv_lora_rank} prefix d_ff={cfg.prefix[0].d_ff} "
+        f"vocab={cfg.vocab} mtp={cfg.mtp}; {ALPS_B} x {ALPS_S} tokens, int8 "
+        f"AdamW moments")
+    units = tf.build_policy(cfg).selectable_units()
+    ref_units = []
+    for i, slot in enumerate(DSV3_REF_SLOTS):
+        of_slot = [u.name for u in units if u.slot == slot]
+        if of_slot:            # the i-th block's, round the blocks
+            ref_units.append(of_slot[i % len(of_slot)])
+    rec = method_phases(cfg, dev, smi_line, ref_units, DSV3_LR,
+                        hawq_moments_on_host=True)
+    unread = rec["train"]["grads"]["unread"]
+    # two a MLA block (wk_b's and wv_b's) and one a MoE block (the up bank's)
+    want = sum(2 * (b.mixer == "mla") + (b.ffn == "moe") for b in
+               cfg.prefix + tuple(cfg.pattern) * cfg.n_repeats)
+    rec.update(units=len(units), a3_units=ref_units)
+    log(f"  {len(units)} selectable units; A3's {ref_units}; T2 unread "
+        f"leaves {unread} (MLA's wk_b and wv_b activation steps, and any "
+        f"up bank's)")
+    if unread != want:
+        raise RuntimeError(f"deepseek-v3 method: T2 counted {unread} unread "
+                           f"leaves, {want} expected")
     return rec
 
 
@@ -4423,9 +4775,11 @@ def main():
     log(f"  joint phase {time.perf_counter() - t0:.1f} s")
     del state
     torch.cuda.empty_cache()
-    log("bert (bert-base: QAT, selection, frontier, packed forward):")
+    log(f"bert (bert-base, the first {BERT_DEPTH} of 12 layers: QAT, "
+        f"selection, frontier, packed forward):")
     t0 = time.perf_counter()
-    bert = phase_bert(get_config("bert-base"), dev, smi_line)
+    bert = phase_bert(get_config("bert-base").replace(
+        n_repeats=BERT_DEPTH), dev, smi_line)
     log(f"  bert phase {time.perf_counter() - t0:.1f} s")
     zoo = {}
     for name, depth in ZOO.items():
@@ -4462,12 +4816,20 @@ def main():
     log(f"  qwen phase {qwen['phase_s']:.1f} s")
     log(f"deepseek-v3 (deepseek-v3-671b: MLA, the 3 dense prefix layers and "
         f"the first {DSV3_DEPTH} of 58 MoE layers with the shared expert: "
-        f"select, pack, serve, check):")
+        f"select, pack, serve, check, the scheduler):")
     t0 = time.perf_counter()
     dsv3 = phase_zoo(get_config("deepseek-v3-671b").replace(
         n_repeats=DSV3_DEPTH), dev, smi_line)
     dsv3["phase_s"] = time.perf_counter() - t0
     log(f"  deepseek-v3 phase {dsv3['phase_s']:.1f} s")
+    log(f"deepseek-v3 method (deepseek-v3-671b: MLA, the 3 dense prefix "
+        f"layers and the first {DSV3_TRAIN_DEPTH} MoE layers, the MTP loss: "
+        f"QAT, ALPS, HAWQ-v3, the frontier):")
+    t0 = time.perf_counter()
+    dsv3_method = phase_dsv3_method(get_config("deepseek-v3-671b").replace(
+        n_repeats=DSV3_TRAIN_DEPTH), dev, smi_line)
+    dsv3_method["phase_s"] = time.perf_counter() - t0
+    log(f"  deepseek-v3 method phase {dsv3_method['phase_s']:.1f} s")
 
     # each kernel's launches on the path that runs it
     launches = dict(runs["contiguous-int8"]["launches"])
@@ -4505,7 +4867,7 @@ def main():
                    "frontier": front, "joint": joint, "bert": bert,
                    "zoo": zoo, "hubert": hubert, "dbrx": dbrx,
                    "dbrx_method": dbrx_method, "qwen": qwen,
-                   "deepseek_v3": dsv3,
+                   "deepseek_v3": dsv3, "deepseek_v3_method": dsv3_method,
                    "total_s": time.perf_counter() - t_start,
                    "launch_counts_after": dict(cuda.LAUNCHES)}, f, indent=1)
     log(f"chip_smoke: {time.perf_counter() - t_start:.0f} s in all")

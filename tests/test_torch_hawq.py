@@ -300,14 +300,23 @@ def per_expert():
     from repro_torch.configs import get_config
     cfg_j = configs.get_config("dbrx-132b").smoke()
     cfg = get_config("dbrx-132b").smoke()
+    return _per_expert_case(cfg_j, cfg,
+                            jtf.init_params(cfg_j, jax.random.PRNGKey(0)))
+
+
+def _per_expert_case(cfg_j, cfg, params):
+    """Both packages' HAWQ-v3 on ``params`` (the reference's tree), as
+    ``per_expert`` describes."""
     policy_j = jtf.build_policy(cfg_j)
-    params = jtf.init_params(cfg_j, jax.random.PRNGKey(0))
     batch = make_batch(5, 0, 2, 32, cfg_j.vocab)
     pa = jax.tree.map(jnp.asarray, policy_j.as_arrays())
     jloss = jax.jit(lambda p, b: jtf.loss_fn(p, pa, b, cfg_j,
                                              local_context())[0])
-    paths = {f"{u.name}/{t}": t + (u.layer,) + (() if u.sub is None
-                                                 else (u.sub,))
+    # a stacked pattern leaf's layer (and expert); a prefix block's leaf is
+    # its own, unstacked
+    paths = {f"{u.name}/{t}": t + ((u.layer,) + (() if u.sub is None
+                                                  else (u.sub,))
+                                   if t[0] == "pat" else ())
              for u in policy_j.selectable_units() for t in u.tensors}
     caught, real = {}, jhawq.hutchinson_traces
 
@@ -376,3 +385,77 @@ def test_per_expert_traces_and_gains_match_jax(per_expert):
         want = jhawq.quant_perturbation_l2sq(
             params["pat"]["p0"]["moe"]["down"]["w"][0, e], 4.0, 2.0)
         assert abs(per[e] - want) <= 1e-5 * want
+
+
+@pytest.fixture(scope="module")
+def per_expert_dsv3():
+    """``per_expert``'s case on deepseek-v3-671b's smoke config (one MLA +
+    SwiGLU prefix block, 2 MLA + MoE layers of 8 experts with the shared
+    expert, the MTP head in the loss) with q_lora_rank and kv_lora_rank
+    raised to 128, so that all four of MLA's units are selectable (at 64
+    attn_q_b and attn_kv_b are pinned narrow), and the router's steps at
+    its pinned 8 bits (``tests/test_torch_mla_method.py``: the raw init's
+    router ties)."""
+    from repro_torch.configs import get_config
+    ranks = {"q_lora_rank": 128, "kv_lora_rank": 128}
+    cfg_j = configs.get_config("deepseek-v3-671b").smoke().replace(**ranks)
+    cfg = get_config("deepseek-v3-671b").smoke().replace(**ranks)
+    params = jax.jit(jtf.init_params, static_argnums=0)(
+        cfg_j, jax.random.PRNGKey(0))
+    moe = params["pat"]["p0"]["moe"]
+    router = dict(moe["router"],
+                  sw=jnp.max(jnp.abs(moe["router"]["w"]), axis=(1, 2))
+                  / 127.0,
+                  sa=jnp.full_like(moe["router"]["sa"], 1.0 / 32))
+    params = dict(params, pat={"p0": dict(params["pat"]["p0"],
+                                          moe=dict(moe, router=router))})
+    return _per_expert_case(cfg_j, cfg, params)
+
+
+def test_per_expert_paths_resolve_dsv3(per_expert_dsv3):
+    """Every selectable unit's member tensors resolve in the port's params:
+    the prefix block's at ``("prefix0", ...)`` (no layer index), MLA's
+    attn_kv_b (wk_b and wv_b, read as weights only) and the shared
+    expert's per layer, each expert's own expert of its bank."""
+    *_, pt, policy = per_expert_dsv3
+    paths = hawq.unit_tensor_paths(policy)
+    assert paths["prefix0.attn_kv_b.L0/('prefix0', 'attn', 'wk_b', 'w')"] \
+        == ("prefix0", "attn", "wk_b", "w")
+    assert paths["pat0.attn_kv_b.L1/('pat', 'p0', 'attn', 'wv_b', 'w')"] \
+        == ("pat", 1, "p0", "attn", "wv_b", "w")
+    assert paths["pat0.mlp_gateup.L0/('pat', 'p0', 'moe', 'shared', "
+                 "'gate', 'w')"] == ("pat", 0, "p0", "moe", "shared",
+                                     "gate", "w")
+    assert paths["pat0.moe_down.e5.L1/('pat', 'p0', 'moe', 'down', 'w')"] \
+        == ("pat", 1, "p0", "moe", "down", "w", 5)
+    slots = set()
+    for u in policy.selectable_units():
+        for t in u.tensors:
+            w = hawq._get_path(pt, paths[f"{u.name}/{t}"])
+            assert w.ndim == 2, (u.name, t)
+            slots.add((u.group[:3], u.slot))
+    assert {("pre", s) for s in ("attn_q_a", "attn_q_b", "attn_kv_b",
+                                 "attn_wo", "mlp_gateup", "mlp_down")} \
+        <= slots
+
+
+def test_per_expert_traces_and_gains_match_jax_dsv3(per_expert_dsv3):
+    """``test_per_expert_traces_and_gains_match_jax`` on deepseek-v3, at its
+    tolerances: every member tensor's trace (MLA's four units, the prefix
+    block's, each expert's, the shared expert's) and every unit's gain;
+    the experts of one bank read different gains."""
+    caught, gj, traces, gt, params, pt, policy = per_expert_dsv3
+    assert traces.keys() == caught.keys()
+    assert any(k.startswith("prefix0.attn_kv_b") for k in traces)
+    top = max(abs(v) for v in caught.values())
+    for k, want in caught.items():
+        assert abs(traces[k] - want) <= TRACE_TOL * top, (k, traces[k],
+                                                          want)
+    assert gt.keys() == gj.keys()
+    top = max(abs(v) for v in gj.values())
+    for k, want in gj.items():
+        assert abs(gt[k] - want) <= GAIN_TOL * top, (k, gt[k], want)
+    for slot in ("moe_gateup", "moe_down"):
+        for layer in (0, 1):
+            bank = [gt[f"pat0.{slot}.e{e}.L{layer}"] for e in range(8)]
+            assert len(set(bank)) == 8, (slot, layer, bank)

@@ -493,7 +493,11 @@ def test_chip_smoke_dsv3_phase_runs_on_cpu(cpu_card):
     + 2, one more for the head), no decode attention, and a flash
     attention a layer in a prefill (796, 534 and 4 at the card's 3 prefix
     layers and one MoE layer of 256 experts); the check reads 0 over the
-    prefill and 8 decode steps, its first block the prefix block."""
+    prefill and 8 decode steps, its first block the prefix block; the
+    schedule's contiguous full run holds gate A over the experts (24 of 24
+    requests equal to their serial run, no slot dropped in decode) and
+    launches quant_matmul, flash_attention and lsq_fakequant and neither
+    decode attention."""
     full = get_config(NAME).replace(n_repeats=cpu_card.DSV3_DEPTH)
     assert cpu_card.step_launches(full) == {
         "quant_matmul": 796, "lsq_fakequant": 534, "attention": 4}
@@ -522,4 +526,18 @@ def test_chip_smoke_dsv3_phase_runs_on_cpu(cpu_card):
     assert max(check["rel_logit_err"]) == 0.0
     assert len(check["block_rel_rms_err"][0]) == layers
     assert rec["peak_bytes"] == 0 and rec["packed_weight_bytes"] > 0
-    assert "schedule" not in rec
+    # the scheduler at the served depth over the contiguous latent: every
+    # request equal to its serial run (each admission prefills alone, the
+    # decode steps drop no slot), the path's kernels and no decode attention
+    assert set(rec["schedule"]) == {"contiguous-full"}
+    sched = rec["schedule"]["contiguous-full"]
+    assert sched["gate_a"]["matched"] == sched["admissions"] == 24
+    assert not sched["gate_a"]["differs"]
+    assert sched["gate_a"]["decode_dropped_slots"] == [0, 0]
+    assert set(sched["gate_a"]["dropped_slots"]) == set(sched["plans"])
+    assert {k for k, v in sched["launches"].items() if v} == {
+        "quant_matmul", "flash_attention", "lsq_fakequant"}
+    assert sched["profiled"]["dtoh_copies"] == 0
+    assert sched["pool_bytes"] == (
+        layers * cpu_card.SCHED_SLOTS * cpu_card.SCHED_MAX_SEQ
+        * (cfg.kv_lora_rank + cfg.qk_rope_dim) * 2)

@@ -150,6 +150,22 @@ def test_one_train_step_matches_jax(one_step, state_dtype):
 def assert_step_matches(params, js2, jm, st, m, state_dtype, lr=2e-3):
     """One port step ``st, m`` from the reference params ``params`` against
     the reference's ``js2, jm``, at this module's tolerances."""
+    assert_step_params_match(params, js2, jm, st, m, lr)
+    if state_dtype == "int8":
+        _int8_moments_match(st, js2)
+        return
+    for name in ("m", "v"):
+        per_layer = tree.flatten(convert.from_jax_params(
+            _np(getattr(js2.opt_state, name)), device="cpu"))
+        for (path, w), p in zip(per_layer, tree.leaves(st.params)):
+            mine = st.optimizer.state[p][name]
+            tol = 1e-4 * max(float(w.abs().max()), 1e-30)
+            assert float((mine.float() - w.float()).abs().max()) <= tol, (
+                name, path)
+
+
+def assert_step_params_match(params, js2, jm, st, m, lr=2e-3):
+    """``assert_step_matches``' step count, loss, grad norm and params."""
     assert st.step == int(js2.step) == 1
     assert st.optimizer.count == int(js2.opt_state.count) == 1
     for k in ("loss", "grad_norm"):
@@ -168,17 +184,6 @@ def assert_step_matches(params, js2, jm, st, m, state_dtype, lr=2e-3):
         assert err.numel() == 0 or float(err.max()) <= 5e-2 * lr, (
             path, float(err.max()))
     assert flips <= 1e-4 * total, (flips, total)
-    if state_dtype == "int8":
-        _int8_moments_match(st, js2)
-        return
-    for name in ("m", "v"):
-        per_layer = tree.flatten(convert.from_jax_params(
-            _np(getattr(js2.opt_state, name)), device="cpu"))
-        for (path, w), p in zip(per_layer, tree.leaves(st.params)):
-            mine = st.optimizer.state[p][name]
-            tol = 1e-4 * max(float(w.abs().max()), 1e-30)
-            assert float((mine.float() - w.float()).abs().max()) <= tol, (
-                name, path)
 
 
 def _int8_moments_match(st, js2):

@@ -159,3 +159,114 @@ def test_dbrx_method_phase_rehearsed(cpu_card, monkeypatch):
     front = rec["frontier"]
     assert len(front["points"]) == 3 * len(chip_smoke.DBRX_BUDGETS)
     assert front["f3_params_equal"]
+
+
+@pytest.mark.parametrize("n_repeats", [0, 1])
+def test_dsv3_method_phase_rehearsed(cpu_card, monkeypatch, n_repeats):
+    """chip_smoke's deepseek-v3 method phase at deepseek-v3-671b's smoke
+    size (one MLA + SwiGLU prefix block, float32; with n_repeats=1 also an
+    MLA + MoE layer of 8 experts and the shared expert) with the MTP loss:
+    T1-T5 with int8 moments (T4 from ``lsq_sites``: MLA's 3 activation
+    and 6 weight sites, a SwiGLU's 2 and 3, the MTP head's 3 and 3 at the
+    edges), T2 counting wk_b's and wv_b's activation steps as unread, A1-A3
+    over one MLA and one SwiGLU unit among A3's, H1-H4, F1-F4 over EAGL,
+    ALPS and HAWQ-v3 at two budgets; and the sites at the card's widths:
+    the 3 prefix blocks alone (DSV3_TRAIN_DEPTH) and with the served MoE
+    layer of 256 experts (DSV3_DEPTH)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    monkeypatch.setattr(chip_smoke, "FRONTIER_STEPS", 2)
+    # quickstart's rate for a smoke model (DSV3_LR is full width's), and
+    # 256 tokens a step (the parity tests' 4 x 64): at 2 x 32 the smoke
+    # model's loss moves by less than one batch's noise in 16 steps, at any
+    # rate, and T3 reads noise
+    monkeypatch.setattr(chip_smoke, "DSV3_LR", 2e-3)
+    monkeypatch.setattr(chip_smoke, "ALPS_B", 4)
+    monkeypatch.setattr(chip_smoke, "ALPS_S", 64)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda *a: type("Card", (), {"total_memory": 1}))
+    name = "deepseek-v3-671b"
+    full = get_config(name).replace(n_repeats=chip_smoke.DSV3_TRAIN_DEPTH)
+    full_units = tf.build_policy(full).selectable_units()
+    assert len(full_units) == 18
+    assert [u.name for u in full_units if u.name in [
+        "prefix0.attn_q_a.L0", "prefix1.attn_kv_b.L0",
+        "prefix2.mlp_gateup.L0", "prefix0.mlp_down.L0"]] == [
+            "prefix0.attn_q_a.L0", "prefix0.mlp_down.L0",
+            "prefix1.attn_kv_b.L0", "prefix2.mlp_gateup.L0"]
+    assert chip_smoke.DSV3_TRAIN_DEPTH == 0
+    assert chip_smoke.lsq_sites(get_config(name).replace(
+        n_repeats=chip_smoke.DSV3_TRAIN_DEPTH)) == {
+            "activations": 18, "weights": 32, "recomputed": 15}
+    assert chip_smoke.lsq_sites(get_config(name).replace(
+        n_repeats=chip_smoke.DSV3_DEPTH)) == {
+            "activations": 536, "weights": 810, "recomputed": 533}
+    assert {("attn", "wk_b", "sa"), ("attn", "wv_b", "sa")} <= set(
+        chip_smoke.UNREAD_LEAVES)
+    cfg = get_config(name).smoke().replace(n_repeats=n_repeats)
+    e = cfg.n_experts
+    moe = {"activations": 6 + 2 * e, "weights": 10 + 3 * e}
+    assert chip_smoke.lsq_sites(cfg) == {
+        "activations": 5 + moe["activations"] * n_repeats + 3,
+        "weights": 9 + moe["weights"] * n_repeats + 5,
+        "recomputed": 5 + moe["activations"] * n_repeats}
+    rec = chip_smoke.phase_dsv3_method(cfg, torch.device("cpu"),
+                                       "cpu rehearsal")
+    train = rec["train"]
+    assert train["state_dtype"] == "int8" and train["t1_loss_equal"]
+    assert not train["grads"]["bad"]
+    # wk_b's and wv_b's in each MLA block, and the up bank's in a MoE layer
+    assert train["grads"]["unread"] == 2 * (1 + n_repeats) + n_repeats
+    units = tf.build_policy(cfg).selectable_units()
+    assert rec["units"] == len(units)
+    # smoke's q_lora and kv_lora of 64 pin attn_q_b and attn_kv_b at 8 bits
+    slots = [u.split(".")[1] for u in rec["a3_units"]]
+    assert slots == ["attn_q_a", "mlp_gateup", "mlp_down"]
+    assert rec["a3_units"][0] == units[0].name == "prefix0.attn_q_a.L0"
+    assert rec["alps"]["a1_params_equal"] and rec["alps"]["a2_equal"]
+    assert set(rec["alps"]["a3_rel"]) == set(rec["a3_units"])
+    assert rec["hawq"]["h2_params_equal"] and rec["hawq"]["h3_rel"] == 0.0
+    assert set(k.split("/")[0] for k in rec["hawq"]["h3_traces"]["ref"]) \
+        == set(rec["a3_units"])
+    front = rec["frontier"]
+    assert len(front["points"]) == 3 * len(chip_smoke.DBRX_BUDGETS)
+    assert front["f3_params_equal"]
+
+
+@pytest.mark.cuda
+def test_moments_on_host_round_trip():
+    """``chip_smoke.moments_on_host`` on the card (the deepseek-v3 method
+    phase's HAWQ-v3): after one train step of deepseek-v3-671b's smoke
+    config with int8 AdamW moments, every moment tensor is in host memory
+    inside the block, and after it back on the params' device, bit for bit
+    what it was."""
+    import functools
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.step import init_train_state, make_train_step
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the moments move between the "
+                    "card's memory and the host's")
+    dev = torch.device("cuda")
+    cfg = get_config("deepseek-v3-671b").smoke().replace(n_repeats=1)
+    state = init_train_state(cfg, functools.partial(
+        AdamW, learning_rate=1e-3, state_dtype="int8"), 0,
+        tf.build_policy(cfg), device=dev)
+    state, _ = make_train_step(cfg, impl="ref")(
+        state, make_batch(0, 0, 2, 32, cfg.vocab, device=dev))
+    opt, leaves = state.optimizer, tree.leaves(state.params)
+
+    def moments():
+        return [t for p in leaves for t in tree.leaves(opt.state[p])]
+    before = [t.clone() for t in moments()]
+    assert before and all(t.is_cuda for t in before)
+    with chip_smoke.moments_on_host(state):
+        assert all(t.device.type == "cpu" for t in moments())
+    after = moments()
+    assert len(after) == len(before)
+    for a, b in zip(after, before):
+        assert a.device == b.device and a.dtype == b.dtype
+        assert torch.equal(a, b)

@@ -268,3 +268,57 @@ def test_chip_smoke_qwen_phase_runs_on_cpu(cpu_card, monkeypatch):
     assert run["gate_a"]["matched"] >= cpu_card.GATE_A_MIN
     assert run["registry_hits"] >= cpu_card.MIN_HITS
     assert run["suffix_prefill"]["prefix"] > 0
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_op_trace_finds_the_differing_op(cpu_card, monkeypatch, layout):
+    """``chip_smoke.first_difference`` and ``op_trace`` (gate B's control,
+    ROADMAP Queue 3 entry 9) on olmo-1b's smoke config, full cache,
+    contiguous and as the schedule's paged full engine (``SCHED_RUNS``),
+    with the flash stand-in moved on one row of the first block's
+    attention: the first difference is that block and row, and the trace
+    lists the block's ops in the same order on both paths, nothing
+    differing before the attention, the attention differing on that row
+    alone, and the next fake-quant's codes of that row a whole number of
+    steps apart (up to bf16's rounding)."""
+    from repro_torch.configs import olmo_1b
+    from repro_torch.kernels import cuda
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import EngineSpec, ServeEngine, pack_params
+    cfg = olmo_1b.config().smoke().replace(**BF16)
+    dev = torch.device("cpu")
+    raw = tf.init_params(cfg, seed=0, device=dev)
+    pa = tf.build_policy(cfg).as_arrays()
+    spec = (EngineSpec() if layout == "contiguous" else EngineSpec(
+        page_size=cpu_card.PAGE, decode_chunk=16,
+        n_pages=cpu_card.SCHED_POOL, **cpu_card.SCHED_RUNS["paged-full"][0]))
+    engine = ServeEngine(cfg, pack_params(raw, pa, cfg, device=dev), pa,
+                         64, spec, device=dev)
+    row, calls, stand_in = 5, [0], cuda.flash_attention
+
+    def moved(q, k, v, causal=True):
+        out = stand_in(q, k, v, causal)
+        calls[0] += 1
+        if calls[0] % cfg.n_repeats == 1:     # the first block's
+            out = out.clone()
+            out[0, :, row] += 1.0
+        return out
+    monkeypatch.setattr(cuda, "flash_attention", moved)
+    n = 20
+    toks = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (1, 32)))
+    first = cpu_card.first_difference(engine, toks, n)
+    assert (first["first"]["block"], first["first"]["row"]) == (0, row)
+    trace = cpu_card.op_trace(engine, toks, n, 0, row)
+    ops = [op["op"] for op in trace]
+    at = ops.index("attention")
+    assert ops[:at] == ["lsq_fakequant"] * 3 + ["matmul"] * 3
+    assert all(op["rows_differing"] == 0 for op in trace[:at])
+    assert trace[at]["first_rows"] == [row]
+    assert trace[at]["row_max_abs_diff"] > 0.5
+    after = trace[at + 1]
+    assert after["op"] == "lsq_fakequant" and after["first_rows"] == [row]
+    # whole steps, up to bf16's rounding of code x step (2^-8 relative)
+    steps = after["row_max_diff_in_steps"]
+    assert after["row_codes_differing"] > 0 and round(steps) >= 1
+    assert abs(steps - round(steps)) <= 2 ** -8 * round(steps)
